@@ -1,0 +1,136 @@
+"""Two-phase hull dispatch: K1 over every pair, K2 over the hits.
+
+Ports the hull part of ``gjkepa_tpu/ops/fused.py``: ``FusedResult``
+(:1124), ``_round_cfg`` (:1134), ``_cascade_plan`` (:1147),
+``_mask_to_padding`` (:1388) and ``fused_gjkepa_hulls`` (:1507) with its
+two-phase dispatch ``_run_two_phase`` (:1188-1385) re-expressed for CUDA:
+
+  * K1 (:mod:`.fused_gjk`) runs over all B pairs;
+  * a stable hit-first lane order comes from one cumsum (:1276-1281);
+  * K2 (:mod:`.fused_epa`) gets that order and the hit count as a device
+    scalar, so nothing waits on the host between the two kernels.
+
+The TPU-only machinery is gone: the B/8 EPA prefix with its ``lax.cond``
+fallback, the swapaxes layouts, the sort-for-scatter trick and the batch
+padding (a CUDA kernel masks its own ragged edge).  Hull pairs of any N
+run on K1/K2; the JAX package's HBM-streamed branch for n1+n2 > 4096 has
+no counterpart here.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..config import GJKEPAConfig
+from .fused_epa import epa_cascade
+from .fused_gjk import gjk_hulls
+
+__all__ = ["FusedResult", "fused_gjkepa_hulls", "cascade_plan", "round_cfg",
+           "mask_to_padding", "hit_first_order"]
+
+
+class FusedResult(NamedTuple):
+    hit: torch.Tensor        # (B,) bool
+    status: torch.Tensor     # (B,) int32
+    depth: torch.Tensor      # (B,) f32
+    normal: torch.Tensor     # (B, 3) f32
+    gjk_iters: torch.Tensor  # (B,) int32
+    epa_iters: torch.Tensor  # (B,) int32
+    distance: torch.Tensor   # (B,) f32 separation lower bound (miss lanes)
+
+
+def _rup8(x: int) -> int:
+    return ((x + 7) // 8) * 8
+
+
+def round_cfg(cfg: GJKEPAConfig | None) -> GJKEPAConfig:
+    """Default to ``for_f32()`` and round the EPA caps up to multiples of 8,
+    as the JAX path does (a larger cap only allows more expansion)."""
+    if cfg is None:
+        cfg = GJKEPAConfig.for_f32()
+    if cfg.epa_max_verts % 8 or cfg.epa_max_faces % 8:
+        cfg = cfg.replace(epa_max_verts=_rup8(cfg.epa_max_verts),
+                          epa_max_faces=_rup8(cfg.epa_max_faces))
+    return cfg
+
+
+def cascade_plan(cfg: GJKEPAConfig) -> list[tuple[GJKEPAConfig, int]]:
+    """EPA tier ladder: (cfg with the tier's face capacity, visible bound).
+
+    Tier 1 (F=48, K=8) covers most contacts; F=88 lets slow curved
+    contacts finish; the final tier is sized for the worst case
+    (2*epa_max_iters+10 faces, K=16).  ``epa_max_iters == 0`` is the
+    boolean-only mode: no EPA at all."""
+    if cfg.epa_max_iters == 0:
+        return []
+    full_f = _rup8(max(2 * cfg.epa_max_iters + 10, cfg.epa_max_faces))
+    stages = [(cfg.replace(epa_max_faces=f), k)
+              for f, k in ((48, 8), (88, 8)) if f < full_f]
+    stages.append((cfg.replace(epa_max_faces=full_f), 16))
+    return stages
+
+
+def mask_to_padding(p: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    """Replace masked-out vertices with the hull's first valid vertex.
+
+    A repeated vertex adds no geometry, and since padding rows sit after
+    the valid rows the first-max support picks the same index as the
+    masked form."""
+    if mask is None:
+        return p
+    if mask.shape != p.shape[:2] or mask.dtype != torch.bool:
+        raise ValueError(f"mask must be bool {tuple(p.shape[:2])}, got "
+                         f"{mask.dtype} {tuple(mask.shape)}")
+    if mask.device != p.device:
+        raise ValueError(f"mask on {mask.device}, hulls on {p.device}")
+    first = torch.argmax(mask.to(torch.uint8), dim=1)       # first valid row
+    fv = torch.gather(p, 1, first[:, None, None].expand(-1, 1, 3))
+    return torch.where(mask[:, :, None], p, fv)
+
+
+def hit_first_order(act: torch.Tensor):
+    """Stable permutation putting the `act` lanes first, and their count.
+
+    dest[i] = c-1 for active lanes and n_act + (i - c) for the rest, with
+    c the inclusive prefix count; ``order`` is its inverse.  Returns int32
+    ``order`` (B,) and ``n_act`` () on the device of `act`, no host sync."""
+    b = act.shape[0]
+    c = torch.cumsum(act.to(torch.int32), dim=0, dtype=torch.int32)
+    i = torch.arange(b, dtype=torch.int32, device=act.device)
+    n_act = c[-1]
+    dest = torch.where(act, c - 1, n_act + i - c)
+    order = torch.empty_like(i).scatter_(0, dest.long(), i)
+    return order, n_act.contiguous()
+
+
+def fused_gjkepa_hulls(p1: torch.Tensor, p2: torch.Tensor,
+                       mask1: torch.Tensor | None = None,
+                       mask2: torch.Tensor | None = None,
+                       cfg: GJKEPAConfig | None = None) -> FusedResult:
+    """Batch query over hull pairs: hit/status/depth/normal, iteration
+    counters and the miss-distance lower bound.
+
+    Args:
+      p1, p2: (B, N, 3) float32 vertex buffers on one device.
+      mask1, mask2: optional (B, N) bool validity masks; equivalent to
+        padding by repeating a real vertex.
+    """
+    cfg = round_cfg(cfg)
+    if p1.shape[0] == 0:
+        raise ValueError("empty batch")
+    p1 = mask_to_padding(p1, mask1).contiguous()
+    p2 = mask_to_padding(p2, mask2).contiguous()
+    g = gjk_hulls(p1, p2, cfg)
+    stages = cascade_plan(cfg)
+    if not stages:           # boolean-only: the miss path never enters EPA
+        zero = torch.zeros_like(g.sep)
+        return FusedResult(g.hit, g.status, zero,
+                           torch.zeros_like(g.simplex[:, 0]), g.iters,
+                           torch.zeros_like(g.iters), g.sep)
+    # hull pairs have no closed-form lanes, so every hit enters EPA
+    order, n_act = hit_first_order(g.hit)
+    e = epa_cascade(p1, p2, g.simplex, g.status, order, n_act, stages)
+    return FusedResult(g.hit, e.status, e.depth, e.normal, g.iters, e.iters,
+                       g.sep)

@@ -1,0 +1,347 @@
+"""K2: the EPA cascade hull kernel, its wrapper and its plain version.
+
+Ports ``gjkepa_tpu/ops/fused.py``: ``_epa_phase_fast`` (:456-749),
+``_epa_cascade`` (:837-873), the kernel ``_epa_cascade_kernel_hulls``
+(:1112) and the per-lane merge of ``_write_epa_out`` (:975-1007).  The
+CUDA kernel is ``csrc/epa_hulls.cu``.
+
+Both versions take the hit-first lane ``order`` and the device scalar
+``n_act``: lane ``order[i]`` for ``i < n_act`` runs the cascade, and every
+other lane passes its GJK status through with zero depth, normal and
+iteration count.
+
+:func:`epa_cascade` takes the plain version only for tensors on the CPU;
+for CUDA tensors it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from .. import _build
+from ..config import GJKEPAConfig
+from ..types import Status
+from .fused_gjk import check_hulls, make_hull_support
+from .lane_geom import P3, fsqrt, pdot, pmean4, pwhere, pzero_like
+
+__all__ = ["EPARows", "epa_cascade", "epa_cascade_plain", "LAUNCHES"]
+
+# Kernel launches made by epa_cascade (CUDA tensors only).
+LAUNCHES = 0
+
+BIG = 3.4e38            # "no plane" distance (float32)
+_MAXID = 256            # vertex ids < 4 + epa_max_iters <= 103 < 256
+K_MAX = 16              # largest visible-set bound the kernel holds
+MAX_TIERS = 4
+
+
+class EPARows(NamedTuple):
+    """Per-pair merged EPA output (the JAX kernel's rows 0-5)."""
+
+    depth: torch.Tensor      # (B,) f32
+    normal: torch.Tensor     # (B, 3) f32
+    iters: torch.Tensor      # (B,) int32
+    status: torch.Tensor     # (B,) int32
+
+
+def _plane_of(a, b, c, interior: P3, epz):
+    """Unit outward normal (vs `interior`) + origin distance of triangles
+    with corner coordinate triples a/b/c ((A, M) tensors each); distance
+    BIG when degenerate."""
+    e1x, e1y, e1z = b[0] - a[0], b[1] - a[1], b[2] - a[2]
+    e2x, e2y, e2z = c[0] - a[0], c[1] - a[1], c[2] - a[2]
+    nx = e1y * e2z - e1z * e2y
+    ny = e1z * e2x - e1x * e2z
+    nz = e1x * e2y - e1y * e2x
+    nrm = fsqrt(nx * nx + ny * ny + nz * nz)
+    ok = nrm > epz
+    inv = 1.0 / torch.where(ok, nrm, 1.0)
+    nx, ny, nz = nx * inv, ny * inv, nz * inv
+    ix, iy, iz = interior.x[:, None], interior.y[:, None], interior.z[:, None]
+    out = (nx * (a[0] - ix) + ny * (a[1] - iy) + nz * (a[2] - iz)) >= 0.0
+    sgn = torch.where(out, 1.0, -1.0)
+    nx, ny, nz = nx * sgn, ny * sgn, nz * sgn
+    d = nx * a[0] + ny * a[1] + nz * a[2]
+    return nx, ny, nz, torch.where(ok, d, BIG)
+
+
+_SEED_FACES = ((0, 1, 2), (0, 2, 3), (0, 1, 3), (1, 2, 3))   # ref :279-293
+
+
+def epa_phase(p1, p2, simplex, active, cfg: GJKEPAConfig, n_faces: int,
+              k_vis: int):
+    """Compact-visible EPA over (A,) lanes; one cascade tier.
+
+    Face state is (A, F): corner coordinates (9), corner vertex ids (3),
+    plane (n, d) and alive.  Returns (depth, normal P3, iters, status)."""
+    eps = cfg.eps_coincide
+    epz = cfg.eps_zero
+    F, K = n_faces, k_vis
+    n_lanes = active.shape[0]
+    dev = p1.device
+    f32 = torch.float32
+    support = make_hull_support(p1, p2)
+    s = tuple(P3(simplex[:, i, 0], simplex[:, i, 1], simplex[:, i, 2])
+              for i in range(4))
+    interior = pmean4(s)
+
+    # corner coordinates (A, F, 9) as a, b, c xyz; ids (A, F, 3)
+    cor = torch.zeros((n_lanes, F, 9), dtype=f32, device=dev)
+    ids = torch.zeros((n_lanes, F, 3), dtype=torch.int32, device=dev)
+    for f, tri in enumerate(_SEED_FACES):
+        for slot, v in enumerate(tri):
+            cor[:, f, 3 * slot] = s[v].x
+            cor[:, f, 3 * slot + 1] = s[v].y
+            cor[:, f, 3 * slot + 2] = s[v].z
+            ids[:, f, slot] = v
+    nx, ny, nz, dd = _plane_of(*(tuple(cor[:, :4, 3 * j + x] for x in range(3))
+                                 for j in range(3)), interior, epz)
+    pad = F - 4
+    zpad = torch.zeros((n_lanes, pad), dtype=f32, device=dev)
+    nx, ny, nz = (torch.cat([t, zpad], 1) for t in (nx, ny, nz))
+    dd = torch.cat([dd, torch.full((n_lanes, pad), BIG, dtype=f32,
+                                   device=dev)], 1)
+    alive = torch.arange(F, device=dev)[None, :].expand(n_lanes, F) < 4
+
+    f_iota = torch.arange(F, device=dev)[None, :]
+    k_iota = torch.arange(K, device=dev)[None, :]
+    nv = torch.full((n_lanes,), 4, dtype=torch.int32, device=dev)
+    it = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
+    done = ~active
+    depth = torch.zeros(n_lanes, dtype=f32, device=dev)
+    nout = pzero_like(depth)
+    status = torch.full((n_lanes,), Status.HIT_EPA_CAP, dtype=torch.int32,
+                        device=dev)
+
+    while True:
+        run = ~done & (it < cfg.epa_max_iters)
+        if not bool(run.any()):
+            break
+        # -- min face / probe direction --------------------------------------
+        dvals = torch.where(alive, dd, BIG)
+        kmin = torch.argmin(dvals, dim=1)                       # first min
+        d_min = torch.gather(dvals, 1, kmin[:, None])[:, 0]
+        star = f_iota == kmin[:, None]
+        all_deg = d_min >= BIG * 0.5
+        d_min = torch.where(all_deg, 0.0, d_min)
+        direction = P3(*(torch.gather(t, 1, kmin[:, None])[:, 0]
+                         for t in (nx, ny, nz)))
+        direction = pwhere(all_deg, pzero_like(d_min), direction)
+
+        w = support(direction)
+        gain = pdot(w, direction) - d_min
+        dup = torch.zeros_like(alive)
+        for slot in range(3):
+            same = alive
+            for x, wx in enumerate(w):
+                same = same & (torch.abs(cor[:, :, 3 * slot + x]
+                                         - wx[:, None]) < eps)
+            dup = dup | same
+        converged = (gain < eps) | dup.any(dim=1)
+
+        # -- visible set -----------------------------------------------------
+        beyond = (nx * w.x[:, None] + ny * w.y[:, None]
+                  + nz * w.z[:, None]) > dd + epz
+        visible = alive & (beyond | star) & (dd < BIG * 0.5)
+        visible = visible | (alive & star)
+        nvis = visible.sum(dim=1)
+        over_k = nvis > K
+
+        # -- compact the first K visible faces (index order) -----------------
+        src = torch.argsort((~visible).to(torch.int8), dim=1,
+                            stable=True)[:, :K]
+        valid_k = k_iota < nvis[:, None]                         # (A, K)
+        sids = torch.gather(ids, 1, src[:, :, None].expand(-1, -1, 3))
+        scor = torch.gather(cor, 1, src[:, :, None].expand(-1, -1, 9))
+
+        # -- edge rows, e-major over the 3 edges then the K slots ------------
+        eu = torch.cat([sids[:, :, e] for e in range(3)], 1)       # (A, 3K)
+        ev = torch.cat([sids[:, :, (e + 1) % 3] for e in range(3)], 1)
+        ecu = torch.cat([scor[:, :, 3 * e:3 * e + 3] for e in range(3)], 1)
+        ecv = torch.cat([scor[:, :, 3 * ((e + 1) % 3):3 * ((e + 1) % 3) + 3]
+                         for e in range(3)], 1)                  # (A, 3K, 3)
+        evalid = torch.cat([valid_k] * 3, 1)
+
+        # -- horizon: undirected key unique among valid edges ----------------
+        ukey = torch.where(evalid, torch.minimum(eu, ev) * _MAXID
+                           + torch.maximum(eu, ev), -1)
+        same = ((ukey[:, :, None] == ukey[:, None, :])
+                & evalid[:, :, None] & evalid[:, None, :])
+        horizon = evalid & (same.sum(dim=2) == 1)
+        n_new = horizon.sum(dim=1)
+
+        free = ~alive | visible
+        n_free = free.sum(dim=1)
+        # capacity failures (a larger tier fixes them) vs intrinsic
+        # degeneracy (no expansion exists)
+        cant_cap = ~converged & (over_k | (n_new > n_free))
+        cant_deg = ~converged & ~cant_cap & ((n_new == 0) | all_deg)
+        cant = cant_cap | cant_deg
+        do_ins = run & ~(converged | cant)
+
+        # -- r-th free face (ascending index) <- r-th horizon edge -----------
+        rank_f = torch.cumsum(free.to(torch.int32), dim=1) - 1
+        hord = torch.argsort((~horizon).to(torch.int8), dim=1, stable=True)
+        src_edge = torch.gather(hord, 1, rank_f.clamp(0, 3 * K - 1))
+        write = free & (rank_f < n_new[:, None]) & do_ins[:, None]
+
+        na = torch.gather(ecu, 1, src_edge[:, :, None].expand(-1, -1, 3))
+        nb = torch.gather(ecv, 1, src_edge[:, :, None].expand(-1, -1, 3))
+        nc = torch.stack([w.x, w.y, w.z], 1)[:, None, :].expand(-1, F, -1)
+        pnx, pny, pnz, pdd = _plane_of(
+            tuple(na[:, :, x] for x in range(3)),
+            tuple(nb[:, :, x] for x in range(3)),
+            tuple(nc[:, :, x] for x in range(3)), interior, epz)
+        new_ids = torch.stack([torch.gather(eu, 1, src_edge),
+                               torch.gather(ev, 1, src_edge),
+                               nv[:, None].expand(-1, F)], 2)
+        w3 = write[:, :, None]
+        cor = torch.where(w3, torch.cat([na, nb, nc], 2), cor)
+        ids = torch.where(w3, new_ids, ids)
+        nx = torch.where(write, pnx, nx)
+        ny = torch.where(write, pny, ny)
+        nz = torch.where(write, pnz, nz)
+        dd = torch.where(write, pdd, dd)
+        alive = torch.where(do_ins[:, None], (alive & ~visible) | write, alive)
+        nv = torch.where(do_ins, nv + 1, nv)
+        it = torch.where(run, it + 1, it)
+        done = done | (run & (converged | cant))
+        depth = torch.where(run, d_min, depth)
+        nout = pwhere(run, direction, nout)
+        status = torch.where(run & converged, Status.HIT, status)
+        status = torch.where(run & cant_deg, Status.HIT_EPA_DEGENERATE, status)
+        status = torch.where(run & cant_cap, Status.HIT_EPA_CAPACITY, status)
+
+    zero = torch.zeros_like(depth)
+    depth = torch.where(active, depth, zero)
+    nout = pwhere(active, nout, pzero_like(zero))
+    status = torch.where(active, status, 0)
+    return depth, nout, it, status
+
+
+def check_stages(stages) -> None:
+    """Raise on a tier ladder the kernel does not hold."""
+    if not 1 <= len(stages) <= MAX_TIERS:
+        raise ValueError(f"need 1..{MAX_TIERS} EPA tiers, got {len(stages)}")
+    shared = {(c.eps_coincide, c.eps_zero, c.epa_max_iters) for c, _ in stages}
+    if len(shared) != 1:
+        raise ValueError("EPA tiers differ in more than face capacity and "
+                         f"visible-set bound: {sorted(shared)}")
+    for c, k in stages:
+        if not 1 <= k <= K_MAX:
+            raise ValueError(f"visible-set bound {k} outside 1..{K_MAX}")
+        if c.epa_max_faces < 4:
+            raise ValueError(f"face capacity {c.epa_max_faces} < 4")
+        if 4 + c.epa_max_iters >= _MAXID:
+            raise ValueError(f"epa_max_iters {c.epa_max_iters} overflows "
+                             f"the {_MAXID}-id edge keys")
+
+
+def _check_inputs(p1, p2, simplex, gjk_status, order, n_act):
+    check_hulls(p1, p2)
+    b = p1.shape[0]
+    for name, t, dtype, shape in (
+            ("simplex", simplex, torch.float32, (b, 4, 3)),
+            ("gjk_status", gjk_status, torch.int32, (b,)),
+            ("order", order, torch.int32, (b,)),
+            ("n_act", n_act, torch.int32, ())):
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != p1.device:
+            raise ValueError(f"{name} on {t.device}, hulls on {p1.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _passthrough(gjk_status, b, dev) -> EPARows:
+    return EPARows(torch.zeros(b, dtype=torch.float32, device=dev),
+                   torch.zeros((b, 3), dtype=torch.float32, device=dev),
+                   torch.zeros(b, dtype=torch.int32, device=dev),
+                   gjk_status.clone())
+
+
+def epa_cascade_plain(p1, p2, simplex, gjk_status, order, n_act,
+                      stages) -> EPARows:
+    """Plain PyTorch version of K2 (lane-vectorised masked tensor code).
+
+    Runs tier 1 over lanes ``order[:n_act]``; each later tier re-runs only
+    the lanes the previous one stopped for capacity (``_epa_cascade``)."""
+    _check_inputs(p1, p2, simplex, gjk_status, order, n_act)
+    check_stages(stages)
+    b = p1.shape[0]
+    out = _passthrough(gjk_status, b, p1.device)
+    lanes = order[:int(n_act)].long()
+    if lanes.numel() == 0:
+        return out
+    q1, q2, sx = p1[lanes], p2[lanes], simplex[lanes]
+    (c0, k0), rest = stages[0], stages[1:]
+    depth, normal, it, status = epa_phase(
+        q1, q2, sx, torch.ones_like(lanes, dtype=torch.bool), c0,
+        c0.epa_max_faces, k0)
+    for c, k in rest:
+        retry = (status == Status.HIT_EPA_CAPACITY).nonzero()[:, 0]
+        if retry.numel() == 0:
+            break
+        d2, n2, i2, s2 = epa_phase(q1[retry], q2[retry], sx[retry],
+                                   torch.ones_like(retry, dtype=torch.bool),
+                                   c, c.epa_max_faces, k)
+        depth[retry], it[retry], status[retry] = d2, i2, s2
+        normal = P3(*(t.index_put((retry,), v) for t, v in zip(normal, n2)))
+    # a capacity exit from the final tier is degenerate to callers
+    status = torch.where(status == Status.HIT_EPA_CAPACITY,
+                         Status.HIT_EPA_DEGENERATE, status)
+    out.depth[lanes] = depth
+    out.normal[lanes] = torch.stack([normal.x, normal.y, normal.z], 1)
+    out.iters[lanes] = it
+    out.status[lanes] = status
+    return out
+
+
+def _epa_cascade_cuda(p1, p2, simplex, gjk_status, order, n_act,
+                      stages) -> EPARows:
+    global LAUNCHES
+    lib = _build.load()
+    b, n1, n2 = p1.shape[0], p1.shape[1], p2.shape[1]
+    dev = p1.device
+    cfg = stages[0][0]
+    f_max = max(c.epa_max_faces for c, _ in stages)
+    tier_f = (ctypes.c_int * MAX_TIERS)(*[c.epa_max_faces for c, _ in stages])
+    tier_k = (ctypes.c_int * MAX_TIERS)(*[k for _, k in stages])
+    out = _passthrough(gjk_status, b, dev)
+    # per-lane polytope state, [field][face][lane] (see csrc/epa_hulls.cu)
+    scratch = torch.empty((lib.epa_scratch_words_per_face(), f_max, b),
+                          dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ptr = _build.ptr
+        rc = lib.epa_hulls_launch(
+            ptr(p1), ptr(p2), ptr(simplex), ptr(order), ptr(n_act),
+            ptr(out.depth), ptr(out.normal), ptr(out.iters), ptr(out.status),
+            ptr(scratch), b, n1, n2, len(stages),
+            tier_f, tier_k, f_max, cfg.eps_coincide, cfg.eps_zero,
+            cfg.epa_max_iters, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"epa_hulls kernel launch failed: CUDA error {rc}")
+    LAUNCHES += 1
+    return out
+
+
+def epa_cascade(p1, p2, simplex, gjk_status, order, n_act,
+                stages: list[tuple[GJKEPAConfig, int]]) -> EPARows:
+    """K2: the EPA tier ladder over the first ``n_act`` lanes of ``order``.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (``csrc/epa_hulls.cu``), which raises if it cannot build or launch."""
+    _check_inputs(p1, p2, simplex, gjk_status, order, n_act)
+    check_stages(stages)
+    if p1.device.type == "cpu":
+        return epa_cascade_plain(p1, p2, simplex, gjk_status, order, n_act,
+                                 stages)
+    if p1.device.type != "cuda":
+        raise ValueError(f"no K2 kernel for device {p1.device}")
+    return _epa_cascade_cuda(p1, p2, simplex, gjk_status, order, n_act,
+                             stages)
