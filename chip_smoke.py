@@ -1,12 +1,17 @@
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU.
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
 
-The main path is the fused hull-pair query, ``gjkepa_batch_fused``: K1, the
-GJK hull kernel (``gjkepa_tpu_torch/csrc/gjk_hulls.cu``), then K2, the EPA
-cascade kernel (``csrc/epa_hulls.cu``), over the hit lanes, then the contact
-rows.  The script builds both kernels from the sources in the checkout and
-runs, in phases:
+The port has two paths.  The hull path is the fused hull-pair query,
+``gjkepa_batch_fused``: K1, the GJK hull kernel
+(``gjkepa_tpu_torch/csrc/gjk_hulls.cu``), then K2, the EPA cascade kernel
+(``csrc/epa_hulls.cu``), over the hit lanes, then the contact rows.  The
+shape path is the analytic-shape query, ``fused_gjkepa_shapes`` and
+``collide_shapes_batch_fused``: K5, the closed-form kernel
+(``csrc/cf_shapes.cu``), K6a over the GJK lanes or K6b over all lanes
+(``csrc/gjk_shapes.cu``), then K7, the capped EPA cascade with the polish
+(``csrc/epa_shapes.cu``).  The script builds every kernel from the sources
+in the checkout (one nvcc per source, all at once) and runs, in phases:
 
   0. environment: card name and power limit, torch and CUDA versions, build;
   1. K1 against its plain PyTorch version on the card (4096 x 64 vertices);
@@ -18,10 +23,22 @@ runs, in phases:
      whole result against the plain path, and each kernel against its
      plain version at these shapes;
   6. timings (CUDA events, median of 7 calls after warm-up), kernel path
-     against plain path at the phase-5 sizes.
+     against plain path at the phase-5 sizes;
+  7. K5, K6a, K6b and K7 against their plain versions on bench.py's c3
+     pairs (65,536, seed 0), the 16 rotated kind combinations (16,384) and
+     a dense all-cylinder batch (16,384, nearly all lanes in GJK);
+  8. known shape geometry: spheres at 1.5 (depth 0.5 exactly), sphere-box
+     and box-box closed-form depths;
+  9. the shape path at full size (c3, 65,536 pairs): natural and shuffled
+     order, sort_hits True and False, and collide_shapes_batch_fused, each
+     call with the shape kernels' launch counters set to 0 just before it
+     and its exact launches checked just after; then the whole result
+     against the plain path;
+ 10. timings of each shape kernel against its plain version, and of the
+     shape path, at c3.
 
-Every check raises on failure.  It prints one JSON line per kernel before
-the last line, and as the last line
+Every check raises on failure.  It prints the ``kernels`` JSON line and
+the card's name and power limit before the last line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Without a CUDA device
 it exits non-zero and prints no result.
 """
@@ -40,6 +57,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 TIMED_CALLS = 7
+C3 = 65536
 
 
 def log(msg: str) -> None:
@@ -103,6 +121,279 @@ def cuda_ms(fn, calls=TIMED_CALLS, warmup=2) -> float:
     return float(np.median(times))
 
 
+# -- the shape path ---------------------------------------------------------
+
+def shape_inputs(pairs, dev):
+    """ShapeBatches on the card from numpy pairs, their packed rows and the
+    retirement bits."""
+    from gjkepa_tpu_torch import ShapeBatch
+    from gjkepa_tpu_torch.ops import fused_shapes as fs
+    a, b = (ShapeBatch.from_numpy(*p, device=dev) for p in pairs)
+    retired, _ = fs.retirement(a, b)
+    return a, b, a.packed(), b.packed(), retired
+
+
+def plain_shapes_path(a, b, cfg):
+    """fused_gjkepa_shapes (sort_hits=True) through the plain versions."""
+    from gjkepa_tpu_torch.ops import fused_shapes as fs
+    from gjkepa_tpu_torch.ops.fused import FusedResult, hit_first_order
+    sa, sb = a.packed(), b.packed()
+    retired, env_dist = fs.retirement(a, b)
+    c = fs.cf_shapes_plain(sa, sb, retired, cfg)
+    order, n_act = hit_first_order(c.act)
+    g = fs.gjk_sub_shapes_plain(sa, sb, retired, order, n_act, cfg)
+    status = torch.where(c.act, g.status, c.status)
+    order, n_act = hit_first_order(g.hit)
+    e = fs.epa_shapes_plain(sa, sb, g.simplex, status, c.depth, c.normal,
+                            order, n_act, fs.shape_stages(cfg))
+    return fs.apply_retired(FusedResult(
+        torch.where(c.act, g.hit, c.hit), e.status, e.depth, e.normal,
+        g.iters, e.iters, torch.where(c.act, g.sep, c.distance)),
+        retired, env_dist)
+
+
+def compare_shape_kernels(sa, sb, retired, cfg, what):
+    """K5, K6a, K6b and K7 against their plain versions on the same inputs;
+    returns each kernel's max abs error over its float outputs."""
+    from gjkepa_tpu_torch.ops import fused_shapes as fs
+    from gjkepa_tpu_torch.ops.fused import hit_first_order
+
+    def maxerr(*pairs):
+        return max(float((x - y).abs().max()) if x.numel() else 0.0
+                   for x, y in pairs)
+
+    def same_gjk(k, p, lanes, name):
+        check(torch.equal(k.hit, p.hit) and torch.equal(k.status, p.status),
+              f"{what}: {name} hit/status differ")
+        # counted over the GJK lanes: every other lane is 0 on both sides
+        it_diff = int((k.iters != p.iters).sum())
+        check(it_diff <= 0.005 * int(lanes.sum()),
+              f"{what}: {name} gjk_iters differ on {it_diff} of "
+              f"{int(lanes.sum())} GJK lanes")
+        err = maxerr((k.sep, p.sep), (k.simplex[lanes], p.simplex[lanes]))
+        check(err <= 1e-5, f"{what}: {name} sep/simplex differ by {err}")
+        return err, it_diff
+
+    n = sa.shape[0]
+    ck = fs.cf_shapes(sa, sb, retired, cfg)
+    cp = fs.cf_shapes_plain(sa, sb, retired, cfg)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in ((ck.hit, cp.hit),
+                                              (ck.status, cp.status),
+                                              (ck.act, cp.act))),
+          f"{what}: K5 hit/status/act differ")
+    e5 = maxerr((ck.depth, cp.depth), (ck.normal, cp.normal),
+                (ck.distance, cp.distance))
+    check(e5 <= 1e-6, f"{what}: K5 depth/normal/distance differ by {e5}")
+
+    order, n_act = hit_first_order(cp.act)
+    gk = fs.gjk_sub_shapes(sa, sb, retired, order, n_act, cfg)
+    gp = fs.gjk_sub_shapes_plain(sa, sb, retired, order, n_act, cfg)
+    e6a, d6a = same_gjk(gk, gp, cp.act, "K6a")
+
+    hk = fs.gjk_shapes(sa, sb, retired, cfg)
+    hp = fs.gjk_shapes_plain(sa, sb, retired, cfg)
+    e6b, d6b = same_gjk(hk, hp, cp.act, "K6b")
+    check(torch.equal(hk.final, hp.final), f"{what}: K6b closed-form flags")
+    ecf = maxerr((hk.cf_depth, hp.cf_depth), (hk.cf_normal, hp.cf_normal))
+    check(ecf <= 1e-6, f"{what}: K6b closed-form channel differs by {ecf}")
+
+    epa = hp.hit & ~hp.final
+    order, n_act = hit_first_order(epa)
+    args = (sa, sb, hp.simplex, hp.status, hp.cf_depth, hp.cf_normal, order,
+            n_act, fs.shape_stages(cfg))
+    ek, ep = fs.epa_shapes(*args), fs.epa_shapes_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(ek.status, ep.status), f"{what}: K7 status differs")
+    depth_err = maxerr((ek.depth, ep.depth))
+    check(depth_err <= 1e-5, f"{what}: K7 depth differs by {depth_err}")
+    dots = (ek.normal * ep.normal).sum(dim=1)[epa]
+    agree = float((dots > 1.0 - 1e-4).float().mean()) if dots.numel() else 1.0
+    check(agree >= 0.98, f"{what}: K7 normals agree on {agree:.4f} of hits")
+    # counted over the K7 lanes: every other lane passes 0 through
+    ei_diff = int((ek.iters != ep.iters).sum())
+    check(ei_diff <= 0.01 * int(n_act),
+          f"{what}: epa_iters differ on {ei_diff} of {int(n_act)} K7 lanes")
+    log(f"{what} shape kernels vs plain, {n} pairs: K5 exact discrete, err "
+        f"{e5:.3g}; K6a {int(cp.act.sum())} GJK lanes, iters differ on "
+        f"{d6a}, err {e6a:.3g}; K6b iters differ on {d6b}, err "
+        f"{max(e6b, ecf):.3g}; K7 {int(n_act)} lanes, depth err "
+        f"{depth_err:.3g} (tol 1e-5), normals agree on {agree:.4f}, "
+        f"epa_iters differ on {ei_diff}")
+    return {"cf_shapes": e5, "gjk_sub_shapes": e6a,
+            "gjk_shapes": max(e6b, ecf),
+            "epa_shapes": max(depth_err, maxerr((ek.normal, ep.normal)))}
+
+
+def shape_phases(gt, dev, cfg, card, n3=C3) -> list[dict]:
+    """Phases 7-10, the shape path; returns the shape kernels' entries of
+    the ``kernels`` line."""
+    from gjkepa_tpu_torch.models import fixtures
+    from gjkepa_tpu_torch.ops import fused_shapes as fs
+    from gjkepa_tpu_torch.ops.fused import hit_first_order
+
+    # -- phase 7: the shape kernels vs their plain versions ------------------
+    rng = np.random.default_rng(3)
+    dense = (fixtures.kind_batch(3, n3 // 4, rng, spread=0.2),
+             fixtures.kind_batch(3, n3 // 4, rng, spread=0.2))
+    c3_np = fixtures.c3_pairs(0, n3)
+    shape_err = {k: 0.0 for k in fs.LAUNCHES}
+    mixed16 = fixtures.mixed16_pairs(n3 // 64, 7)
+    for what, pairs in (("phase 7 c3", c3_np), ("phase 7 mixed16", mixed16),
+                        ("phase 7 dense cylinders", dense)):
+        errs = compare_shape_kernels(*shape_inputs(pairs, dev)[2:], cfg, what)
+        shape_err = {k: max(v, errs[k]) for k, v in shape_err.items()}
+
+    # -- phase 8: known shape geometry ---------------------------------------
+    eye = np.eye(3, dtype=np.float32)
+    known = (  # kind a, params a, pos a, kind b, params b, pos b, depth
+        (0, (1, 0, 0), (0, 0, 0), 0, (1, 0, 0), (1.5, 0, 0), 0.5),
+        (0, (0.5, 0, 0), (0.9, 0.1, 0), 1, (0.5, 0.5, 0.5), (0, 0, 0), 0.1),
+        (1, (0.5, 0.5, 0.5), (0, 0, 0), 1, (0.5, 0.5, 0.5), (0.7, 0.2, 0),
+         0.3),
+        (2, (0.3, 0.5, 0), (0, 0, 0), 0, (0.4, 0, 0), (0.6, 0, 0.2), 0.1))
+    side = [tuple(np.array([k[j + o] for k in known], dt) for j, dt in
+                  ((0, np.int32), (1, np.float32), (2, np.float32)))
+            + (np.stack([eye] * len(known)),) for o in (0, 3)]
+    ka, kb = (gt.ShapeBatch.from_numpy(*x, device=dev) for x in side)
+    kr = gt.collide_shapes_batch_fused(ka, kb, cfg=cfg)
+    want = np.array([k[6] for k in known], np.float32)
+    got = kr.depth.cpu().numpy()
+    check(bool(kr.hit.all()) and got[0] == 0.5,
+          f"phase 8: unit spheres at 1.5 give depth {got[0]}")
+    check(float(np.abs(got - want).max()) <= 1e-6,
+          f"phase 8: known depths {got} vs {want}")
+    log(f"phase 8 known shape geometry: spheres at 1.5 depth exactly 0.5; "
+        f"sphere-box, box-box and capsule-sphere depths {got.tolist()} "
+        f"within 1e-6 of {want.tolist()}")
+
+    # -- phase 9: the shape path at full size, launches counted ---------------
+    a3, b3 = shape_inputs(c3_np, dev)[:2]
+    *c3s_np, perm = fixtures.c3_shuffled(0, n3)
+    a3s, b3s = shape_inputs(c3s_np, dev)[:2]
+    perm = torch.from_numpy(perm).to(dev)
+    split = {"cf_shapes": 1, "gjk_sub_shapes": 1, "gjk_shapes": 0,
+             "epa_shapes": 1}   # sort_hits=True: K5, K6a, K7
+    legacy = {"cf_shapes": 0, "gjk_sub_shapes": 0, "gjk_shapes": 1,
+              "epa_shapes": 1}  # sort_hits=False: K6b, K7
+    per_path = {}
+
+    def counted(what, want, fn):
+        """fn() with the shape counters set to 0 just before it; checks the
+        exact launches it made."""
+        torch.cuda.synchronize()
+        for k in fs.LAUNCHES:
+            fs.LAUNCHES[k] = 0
+        out = fn()
+        torch.cuda.synchronize()
+        per_path[what] = dict(fs.LAUNCHES)
+        check(per_path[what] == want,
+              f"phase 9: {what} launched {per_path[what]}, expected {want}")
+        return out
+
+    nat = counted("natural", split,
+                  lambda: gt.fused_gjkepa_shapes(a3, b3, cfg=cfg))
+    shuf = counted("shuffled", split,
+                   lambda: gt.fused_gjkepa_shapes(a3s, b3s, cfg=cfg))
+    unsorted = counted("sort_hits=False", legacy,
+                       lambda: gt.fused_gjkepa_shapes(a3, b3, cfg=cfg,
+                                                      sort_hits=False))
+    full3 = counted("collide", split,
+                    lambda: gt.collide_shapes_batch_fused(a3, b3, cfg=cfg))
+    # the c3 path's launches: the natural call, and K6b's own path
+    shape_launches = dict(per_path["natural"],
+                          gjk_shapes=per_path["sort_hits=False"]["gjk_shapes"])
+    check(all(n > 0 for n in shape_launches.values()),
+          f"phase 9: a shape kernel never launched: {shape_launches}")
+    check(torch.equal(a3s.pos, a3.pos[perm]), "phase 9: shuffle permutation")
+    for name, x, y, z in zip(nat._fields, nat, shuf, unsorted):
+        check(torch.equal(y, x[perm]),
+              f"phase 9: shuffled {name} is not the shuffled natural {name}")
+        check(torch.equal(z, x), f"phase 9: sort_hits=False {name} differs")
+    check(full3.nearest_points.shape == (n3, 2, 3)
+          and full3.contact_point.shape == (n3, 3), "phase 9: bad shapes")
+    for name, t in full3._asdict().items():
+        if t.is_floating_point():
+            check(bool(torch.isfinite(t).all()), f"phase 9: {name} not finite")
+    check(torch.equal(full3.hit, nat.hit) and torch.equal(full3.depth,
+                                                          nat.depth),
+          "phase 9: collide_shapes_batch_fused disagrees with the query")
+    ps = plain_shapes_path(a3, b3, cfg)
+    check(torch.equal(ps.hit, nat.hit) and torch.equal(ps.status, nat.status),
+          "phase 9: shape path hit/status differ from the plain path")
+    path_err = float((ps.depth - nat.depth).abs().max())
+    check(path_err <= 1e-5, f"phase 9: depth differs from plain by {path_err}")
+    ret_gpu, _ = fs.retirement(a3, b3)
+    ret_cpu, _ = fs.retirement(*(gt.ShapeBatch(*(t.cpu() for t in x))
+                                 for x in (a3, b3)))
+    ret_diff = int((ret_gpu.cpu() != ret_cpu).sum())
+    check(ret_diff == 0, f"phase 9: retirement differs on {ret_diff} lanes "
+                         "between the card and the CPU")
+    hits = int(nat.hit.sum())
+    log(f"phase 9 shape path: c3 {n3} pairs, {hits} hits "
+        f"({int((nat.epa_iters > 0).sum())} through K7, max epa_iters "
+        f"{int(nat.epa_iters.max())}), {int(ret_gpu.sum())} retired (0 lanes "
+        f"differ from the CPU's decision); shuffled order = shuffled "
+        f"results, sort_hits True = False, collide_shapes_batch_fused finite, "
+        f"equal to the plain path (depth err {path_err:.3g}); launches per "
+        f"call {per_path}")
+
+    # -- phase 10: shape timings, kernels vs plain, path -----------------------
+    _, _, sa3, sb3, ret3 = shape_inputs(c3_np, dev)
+    c5 = fs.cf_shapes(sa3, sb3, ret3, cfg)
+    o6, n6 = hit_first_order(c5.act)
+    g6 = fs.gjk_sub_shapes(sa3, sb3, ret3, o6, n6, cfg)
+    st6 = torch.where(c5.act, g6.status, c5.status)
+    o7, n7 = hit_first_order(g6.hit)
+    k7 = (sa3, sb3, g6.simplex, st6, c5.depth, c5.normal, o7, n7,
+          fs.shape_stages(cfg))
+    stimes = {
+        "k5_c3": cuda_ms(lambda: fs.cf_shapes(sa3, sb3, ret3, cfg)),
+        "k5_c3_plain": cuda_ms(lambda: fs.cf_shapes_plain(sa3, sb3, ret3,
+                                                          cfg)),
+        "k6a_c3": cuda_ms(lambda: fs.gjk_sub_shapes(sa3, sb3, ret3, o6, n6,
+                                                    cfg)),
+        "k6a_c3_plain": cuda_ms(lambda: fs.gjk_sub_shapes_plain(
+            sa3, sb3, ret3, o6, n6, cfg)),
+        "k6b_c3": cuda_ms(lambda: fs.gjk_shapes(sa3, sb3, ret3, cfg)),
+        "k6b_c3_plain": cuda_ms(lambda: fs.gjk_shapes_plain(sa3, sb3, ret3,
+                                                           cfg)),
+        "k7_c3": cuda_ms(lambda: fs.epa_shapes(*k7)),
+        "k7_c3_plain": cuda_ms(lambda: fs.epa_shapes_plain(*k7)),
+        "path_c3": cuda_ms(lambda: gt.fused_gjkepa_shapes(a3, b3, cfg=cfg)),
+        "path_c3_shuffled": cuda_ms(
+            lambda: gt.fused_gjkepa_shapes(a3s, b3s, cfg=cfg)),
+        "path_c3_unsorted": cuda_ms(lambda: gt.fused_gjkepa_shapes(
+            a3, b3, cfg=cfg, sort_hits=False)),
+        "path_c3_plain": cuda_ms(lambda: plain_shapes_path(a3, b3, cfg)),
+        "collide_c3": cuda_ms(
+            lambda: gt.collide_shapes_batch_fused(a3, b3, cfg=cfg)),
+    }
+    for key, ms in stimes.items():
+        log(f"phase 10 time {key}: {ms:.4f} ms = {n3 / ms * 1e3:,.0f} "
+            f"pairs/s [{card}]")
+    log(f"phase 10 end to end: c3 {n3} pairs fused_gjkepa_shapes "
+        f"{n3 / stimes['path_c3'] * 1e3:,.0f} q/s natural, "
+        f"{n3 / stimes['path_c3_shuffled'] * 1e3:,.0f} q/s shuffled (plain "
+        f"path {n3 / stimes['path_c3_plain'] * 1e3:,.0f}); "
+        f"collide_shapes_batch_fused {n3 / stimes['collide_c3'] * 1e3:,.0f} "
+        f"q/s [{card}]")
+
+    kernels = []
+    for name, src, line, key in (
+            ("cf_shapes", "cf_shapes.cu", 1880, "k5_c3"),
+            ("gjk_sub_shapes", "gjk_shapes.cu", 1910, "k6a_c3"),
+            ("gjk_shapes", "gjk_shapes.cu", 1935, "k6b_c3"),
+            ("epa_shapes", "epa_shapes.cu", 2131, "k7_c3")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"gjkepa_tpu_torch/csrc/{src}",
+            "replaces": f"gjkepa_tpu/ops/fused.py:{line}",
+            "launches": shape_launches[name], "max_abs_err": shape_err[name],
+            "ms": stimes[key], "plain_ms": stimes[key + "_plain"]})
+    return kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -128,8 +419,8 @@ def main() -> int:
         f"{torch.version.cuda} | python {sys.version.split()[0]}")
     t0 = time.perf_counter()
     _build.load()
-    log(f"phase 0 build: {_build.library_path().name} built and loaded in "
-        f"{time.perf_counter() - t0:.2f} s")
+    log(f"phase 0 build: {', '.join(p.name for p in _build.build().values())} "
+        f"built and loaded in {time.perf_counter() - t0:.2f} s")
 
     def on_dev(*arrays):
         return tuple(torch.from_numpy(a).to(dev) for a in arrays)
@@ -183,8 +474,8 @@ def main() -> int:
         agree = float((dots > 1.0 - 1e-4).float().mean())
         check(agree >= 0.98, f"{what}: normals agree on {agree:.4f} of hits")
         ei_diff = int((ek.iters != ep.iters).sum())
-        check(ei_diff <= 0.01 * len(ek.iters),
-              f"{what}: {ei_diff} epa_iters differ")
+        check(ei_diff <= 0.01 * int(n_act),
+              f"{what}: epa_iters differ on {ei_diff} of {int(n_act)} hits")
         log(f"{what} K2 vs plain, {p1.shape[0]} x {p1.shape[1]} deep: status "
             f"equal, {int(g.hit.sum())} hits, depth max abs err "
             f"{depth_err:.3g} (tol 1e-5), normals agree on {agree:.4f} of "
@@ -339,6 +630,7 @@ def main() -> int:
          "launches": launches["epa_hulls"], "max_abs_err": k2_err,
          "ms": times["k2_c4"], "plain_ms": times["k2_c4_plain"]},
     ]
+    kernels += shape_phases(gt, dev, cfg, card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

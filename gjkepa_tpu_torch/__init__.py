@@ -1,13 +1,17 @@
 """gjkepa_tpu_torch: the PyTorch/CUDA port of gjkepa_tpu.
 
-This slice ports the fused hull-pair query, the reference's main path:
+The port so far holds the two fused queries of the JAX package:
 
-  * :func:`gjkepa_batch_fused` / :func:`derive_contact_batch` (``api``);
-  * :func:`fused_gjkepa_hulls` (``ops.fused``): K1, the GJK hull kernel
-    (``csrc/gjk_hulls.cu``), then K2, the EPA cascade kernel
-    (``csrc/epa_hulls.cu``), over the hit lanes;
-  * :func:`derive_contact_rows` (``ops.contact_rows``): contact versions
-    1, 2 and 3.
+  * hull pairs: :func:`gjkepa_batch_fused` / :func:`derive_contact_batch`
+    (``api``) over :func:`fused_gjkepa_hulls` (``ops.fused``): K1, the GJK
+    hull kernel (``csrc/gjk_hulls.cu``), then K2, the EPA cascade kernel
+    (``csrc/epa_hulls.cu``), over the hit lanes; contact versions 1, 2
+    and 3 from :func:`derive_contact_rows` (``ops.contact_rows``);
+  * analytic shape pairs (:class:`ShapeBatch` of spheres, boxes, capsules
+    and cylinders): :func:`collide_shapes_batch_fused` (``api``) over
+    :func:`fused_gjkepa_shapes` (``ops.fused_shapes``): K5, the closed-form
+    kernel (``csrc/cf_shapes.cu``), K6a or K6b, GJK (``csrc/gjk_shapes.cu``),
+    and K7, the capped EPA cascade with the polish (``csrc/epa_shapes.cu``).
 
 On CUDA tensors the kernels launch (built from ``csrc/`` with ``nvcc`` at
 first use); on CPU tensors their plain PyTorch versions run.  Nothing
@@ -15,12 +19,17 @@ falls back from one to the other.  The package imports neither jax nor
 gjkepa_tpu.
 """
 
-from .api import derive_contact_batch, gjkepa_batch_fused
+from .api import (collide_shapes_batch_fused, derive_contact_batch,
+                  gjkepa_batch_fused)
 from .config import DEFAULT_CONFIG, GJKEPAConfig
+from .models.shapes import (ShapeBatch, boxes, capsules, concat_shapes,
+                            cylinders, spheres)
 from .ops.contact_rows import derive_contact_rows
-from .ops.fused import FusedResult, fused_gjkepa_hulls
+from .ops.fused import FusedResult, fused_gjkepa_hulls, fused_gjkepa_shapes
 from .types import CollisionResult, Status
 
 __all__ = ["gjkepa_batch_fused", "derive_contact_batch", "fused_gjkepa_hulls",
-           "derive_contact_rows", "FusedResult", "GJKEPAConfig",
-           "DEFAULT_CONFIG", "CollisionResult", "Status"]
+           "derive_contact_rows", "collide_shapes_batch_fused",
+           "fused_gjkepa_shapes", "ShapeBatch", "spheres", "boxes",
+           "capsules", "cylinders", "concat_shapes", "FusedResult",
+           "GJKEPAConfig", "DEFAULT_CONFIG", "CollisionResult", "Status"]

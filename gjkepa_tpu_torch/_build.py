@@ -1,12 +1,13 @@
-"""Build and bind the hull kernels (``csrc/*.cu``) at first use.
+"""Build and bind the port's kernels (``csrc/*.cu``) at first use.
 
-``nvcc`` compiles the CUDA sources of this package, and nothing else, into
-one shared library with a plain C interface for ``sm_90a`` (H100), which
-``ctypes`` loads.  The library name carries a hash of the sources and the
-flags, so an edit rebuilds it; the build goes to ``gjkepa_tpu_torch/build/``
-(ignored by git) through a temporary file, so concurrent first uses do not
-see a half-written library.  The compiler's register and spill report
-(``-Xptxas -v``) is kept beside the library as ``<name>.log``.
+``nvcc`` compiles each CUDA source of this package into its own shared
+library with a plain C interface for ``sm_90a`` (H100), all sources at once
+(one ``nvcc`` process each), and ``ctypes`` loads them.  A library's name
+carries a hash of its source, the shared headers and the flags, so an edit
+rebuilds it; the build goes to ``gjkepa_tpu_torch/build/`` (ignored by git)
+through a temporary file, so concurrent first uses do not see a
+half-written library.  The compiler's register and spill report
+(``-Xptxas -v``) is kept beside each library as ``<name>.log``.
 
 ``--fmad=false`` keeps every product and sum separately rounded, as in the
 plain PyTorch versions, so the kernels' discrete verdicts can be held to
@@ -22,16 +23,37 @@ import os
 import shutil
 import subprocess
 import tempfile
+import types
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("gjk_hulls.cu", "epa_hulls.cu")
-HEADERS = ("lane_geom.cuh",)
+SOURCES = ("gjk_hulls.cu", "epa_hulls.cu", "cf_shapes.cu", "gjk_shapes.cu",
+           "epa_shapes.cu")
+HEADERS = ("lane_geom.cuh", "gjk_core.cuh", "epa_core.cuh", "shape_geom.cuh")
 NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ip = ctypes.POINTER(ctypes.c_int)
+# C entry points: name -> (source, argument types); each returns an int.
+ENTRY_POINTS = {
+    "gjk_hulls_launch": ("gjk_hulls.cu", [_vp] * 8 + [_ci] * 3
+                         + [_cf] * 4 + [_ci, _vp]),
+    "epa_hulls_launch": ("epa_hulls.cu", [_vp] * 10 + [_ci] * 4
+                         + [_ip, _ip, _ci, _cf, _cf, _ci, _vp]),
+    "epa_scratch_words_per_face": ("epa_hulls.cu", []),
+    "cf_shapes_launch": ("cf_shapes.cu", [_vp] * 9 + [_ci, _cf, _vp]),
+    "gjk_sub_shapes_launch": ("gjk_shapes.cu", [_vp] * 11 + [_ci]
+                              + [_cf] * 4 + [_ci, _vp]),
+    "gjk_shapes_launch": ("gjk_shapes.cu", [_vp] * 12 + [_ci] + [_cf] * 4
+                          + [_ci, _vp]),
+    "epa_shapes_launch": ("epa_shapes.cu", [_vp] * 10 + [_ci, _ci, _ip, _ip,
+                                                         _ci, _cf, _cf, _ci,
+                                                         _vp]),
+}
 
 
 def _nvcc() -> str:
@@ -40,40 +62,67 @@ def _nvcc() -> str:
         return found
     if NVCC_DEFAULT.exists():
         return str(NVCC_DEFAULT)
-    raise RuntimeError("nvcc not found: the hull kernels build only where the "
-                       "CUDA toolkit is installed")
+    raise RuntimeError("nvcc not found: the port's kernels build only where "
+                       "the CUDA toolkit is installed")
 
 
-def library_path() -> Path:
+def library_path(source: str) -> Path:
+    """Where the library of one source lives (its name hashes the inputs)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
+    for name in (source,) + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
-    return BUILD_DIR / f"libgjkepa_hulls_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{Path(source).stem}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels unless the library for these sources exists."""
-    lib = library_path()
-    if lib.exists():
-        return lib
+def build() -> dict[str, Path]:
+    """Compile every source whose library does not exist yet, all at once."""
+    libs = {s: library_path(s) for s in SOURCES}
+    todo = [s for s, lib in libs.items() if not lib.exists()]
+    if not todo:
+        return libs
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    jobs = []
     try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *(str(CSRC / s) for s in SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        lib.with_suffix(".log").write_text(
-            " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stderr[-4000:]}")
-        os.replace(tmp, lib)
+        for s in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / s)]
+            jobs.append((s, tmp, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        failed = []
+        for s, tmp, cmd, proc in jobs:
+            out, err = proc.communicate()
+            libs[s].with_suffix(".log").write_text(" ".join(cmd) + "\n" + out
+                                                   + err)
+            if proc.returncode != 0:
+                failed.append(f"{s}: nvcc failed ({proc.returncode}):\n"
+                              f"{err[-4000:]}")
+            else:
+                os.replace(tmp, libs[s])
+        if failed:
+            raise RuntimeError("\n".join(failed))
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib
+        for _, tmp, _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return libs
+
+
+def bind(libs: dict[str, ctypes.CDLL]) -> types.SimpleNamespace:
+    """Declare the C entry points of loaded libraries (source -> CDLL)."""
+    fns = {}
+    for name, (source, argtypes) in ENTRY_POINTS.items():
+        fn = getattr(libs[source], name)
+        fn.argtypes = argtypes
+        fn.restype = _ci
+        fns[name] = fn
+    return types.SimpleNamespace(**fns)
 
 
 def ptr(t) -> ctypes.c_void_p:
@@ -82,17 +131,6 @@ def ptr(t) -> ctypes.c_void_p:
 
 
 @functools.cache
-def load() -> ctypes.CDLL:
+def load() -> types.SimpleNamespace:
     """Build if needed, load, and declare the C entry points."""
-    lib = ctypes.CDLL(str(build()))
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    ip = ctypes.POINTER(ctypes.c_int)
-    lib.gjk_hulls_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
-                                     cf, cf, cf, cf, ci, vp]
-    lib.gjk_hulls_launch.restype = ci
-    lib.epa_hulls_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-                                     ci, ci, ci, ci, ip, ip, ci, cf, cf, ci, vp]
-    lib.epa_hulls_launch.restype = ci
-    lib.epa_scratch_words_per_face.argtypes = []
-    lib.epa_scratch_words_per_face.restype = ci
-    return lib
+    return bind({s: ctypes.CDLL(str(p)) for s, p in build().items()})

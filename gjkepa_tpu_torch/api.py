@@ -1,11 +1,13 @@
-"""Public query API of the port: the fused hull-pair query.
+"""Public query API of the port: the fused hull-pair and shape-pair queries.
 
 Port of ``gjkepa_tpu/api.py:350-411``: :func:`gjkepa_batch_fused` runs the
 two hull kernels (K1 GJK, K2 EPA cascade) and derives the reference's
 contact outputs (nearest points, contact point, type) with
 :func:`derive_contact_batch`: the complete GJKEPA contract of the
 reference's one entry point (``SUBROUTINE GJKEPA``, GCLIB_GJKEPA.f90:39-239)
-over a batch of pairs.
+over a batch of pairs.  :func:`collide_shapes_batch_fused`
+(``api.py:270-300``) is its twin over analytic shape pairs: the shape
+kernels (K5-K7) and the closed-form support-set case trees.
 
 Layouts are the JAX package's: (B, N, 3) float32 vertices, optional (B, N)
 bool masks, and a :class:`CollisionResult` with its field names, shapes and
@@ -18,11 +20,14 @@ from __future__ import annotations
 import torch
 
 from .config import GJKEPAConfig
+from .models.shapes import ShapeBatch
 from .ops.contact_rows import derive_contact_rows
-from .ops.fused import FusedResult, fused_gjkepa_hulls
+from .ops.contact_shapes import derive_contact_shapes
+from .ops.fused import FusedResult, fused_gjkepa_hulls, fused_gjkepa_shapes
 from .types import CollisionResult
 
-__all__ = ["gjkepa_batch_fused", "derive_contact_batch"]
+__all__ = ["gjkepa_batch_fused", "derive_contact_batch",
+           "collide_shapes_batch_fused"]
 
 
 def _same_device(ref: torch.Tensor, **tensors) -> None:
@@ -62,8 +67,29 @@ def derive_contact_batch(p1: torch.Tensor, p2: torch.Tensor, r: FusedResult,
         mask2 = mask2[None, :].expand(p2.shape[0], -1)
     npts, cpoint, normal, ctype = derive_contact_rows(p1, p2, r.normal, cfg,
                                                       mask1, mask2)
+    return _collision_result(r, npts, cpoint, normal, ctype)
+
+
+def collide_shapes_batch_fused(a: ShapeBatch, b: ShapeBatch,
+                               cfg: GJKEPAConfig | None = None
+                               ) -> CollisionResult:
+    """Full-contract batch query over analytic shape pairs: the fused shape
+    query answers hit/depth/normal/distance, then the closed-form support
+    sets give nearest points, contact point and contact type (ref :47-52,
+    :329-343).  On CUDA tensors this launches the shape kernels; on CPU
+    tensors it runs their plain PyTorch versions."""
+    if cfg is None:
+        cfg = GJKEPAConfig.for_f32()
+    r = fused_gjkepa_shapes(a, b, cfg=cfg)
+    npts, cpoint, normal, ctype = derive_contact_shapes(a, b, r.normal, cfg)
+    return _collision_result(r, npts, cpoint, normal, ctype)
+
+
+def _collision_result(r: FusedResult, npts, cpoint, normal, ctype
+                      ) -> CollisionResult:
+    """Contact rows zeroed on misses, as the reference does (:65-71)."""
     hit = r.hit
-    zero = torch.zeros((), dtype=p1.dtype, device=p1.device)
+    zero = torch.zeros((), dtype=cpoint.dtype, device=cpoint.device)
     return CollisionResult(
         hit=hit,
         colli_type=torch.where(hit, ctype, 0).to(torch.int32),

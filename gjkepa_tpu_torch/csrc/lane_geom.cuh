@@ -1,4 +1,4 @@
-// Per-thread geometry shared by the hull kernels (gjk_hulls.cu, epa_hulls.cu).
+// Per-thread geometry shared by every kernel of the port (csrc/*.cu).
 //
 // Scalar twin of gjkepa_tpu_torch/ops/lane_geom.py, which ports the
 // lane-vectorised geometry of gjkepa_tpu/ops/fused.py:69-235.  Every
@@ -166,5 +166,14 @@ __device__ __forceinline__ P3 hull_support(const float* __restrict__ v1, int n1,
   return mk(v1[3 * i1] - v2[3 * i2], v1[3 * i1 + 1] - v2[3 * i2 + 1],
             v1[3 * i1 + 2] - v2[3 * i2 + 2]);
 }
+
+// hull_support as the support functor of gjk_core.cuh / epa_core.cuh.
+struct HullSupport {
+  const float* v1;
+  int n1;
+  const float* v2;
+  int n2;
+  __device__ __forceinline__ P3 operator()(P3 d) const { return hull_support(v1, n1, v2, n2, d); }
+};
 
 }  // namespace gjkepa

@@ -26,7 +26,7 @@ import torch
 from ..config import GJKEPAConfig
 from .lane_geom import fsqrt
 
-__all__ = ["derive_contact_rows"]
+__all__ = ["derive_contact_rows", "case_04_rows"]
 
 
 def _nth_member(mask, rank, k, arrs):
@@ -109,6 +109,58 @@ def _extract(x, y, z, idx):
     return tuple(torch.gather(a, 0, idx[None, :])[0] for a in (x, y, z))
 
 
+def case_04_rows(sx, sy, sz, st, nn, cen, first3, edge0, edge1, epz,
+                 same_eps):
+    """Version-2 case_04, edge-face (ref :575-669), over (N, B) point rows
+    with member mask ``st`` (n members, centroid ``cen``, members 0-2
+    ``first3``) against the edge (edge0, edge1): the foot of the centroid
+    on the edge if neither end is inside the polygon, else the edge's
+    midpoint.  SORT_CLOCK (ref :1513-1575) orders the polygon: CCW angle
+    from member 0 around the centroid, member 0 pinned first, input order
+    when all members coincide within ``same_eps``, padding rows last."""
+    fdt, dev = sx.dtype, sx.device
+    (p0x, p0y, p0z), (p1x, p1y, p1z), (p2x, p2y, p2z) = first3
+    e1 = (p1x - p0x, p1y - p0y, p1z - p0z)
+    e2 = (p2x - p0x, p2y - p0y, p2z - p0z)
+    nplx = e1[1] * e2[2] - e1[2] * e2[1]
+    nply = e1[2] * e2[0] - e1[0] * e2[2]
+    nplz = e1[0] * e2[1] - e1[1] * e2[0]
+    v0x, v0y, v0z = p0x - cen[0], p0y - cen[1], p0z - cen[2]
+    # w = normal x v0
+    wx = nply * v0z - nplz * v0y
+    wy = nplz * v0x - nplx * v0z
+    wz = nplx * v0y - nply * v0x
+    vx = sx - cen[0][None, :]
+    vy = sy - cen[1][None, :]
+    vz = sz - cen[2][None, :]
+    yy = vx * wx[None, :] + vy * wy[None, :] + vz * wz[None, :]
+    xx = vx * v0x[None, :] + vy * v0y[None, :] + vz * v0z[None, :]
+    two_pi = 2.0 * math.pi
+    ang = torch.remainder(torch.atan2(yy, xx) + two_pi, two_pi)
+    rk = torch.cumsum(st.to(torch.int32), dim=0) - 1
+    ang = torch.where(st & (rk == 0), -1.0, ang)       # member 0 first
+    # all-coincident: keep input (compacted) order (:1521)
+    same = ~torch.any(
+        st & ((torch.abs(sx - p0x[None, :]) > same_eps)
+              | (torch.abs(sy - p0y[None, :]) > same_eps)
+              | (torch.abs(sz - p0z[None, :]) > same_eps)), dim=0)
+    ang = torch.where(same[None, :], rk.to(fdt), ang)
+    ang = torch.where(st, ang, math.inf)               # padding last
+    order = torch.argsort(ang, dim=0, stable=True)
+    ssx, ssy, ssz = (torch.gather(a, 0, order) for a in (sx, sy, sz))
+    valid_rows = (torch.arange(sx.shape[0], device=dev)[:, None]
+                  < nn[None, :])
+    in0 = _is_inside_pf_rows(ssx, ssy, ssz, *edge0, valid_rows, nn,
+                             epz)
+    in1 = _is_inside_pf_rows(ssx, ssy, ssz, *edge1, valid_rows, nn,
+                             epz)
+    cnt_in = in0.to(torch.int32) + in1.to(torch.int32)
+    foot = _foot_pl(*cen, *edge0, *edge1, epz)         # case_04_1
+    mid = tuple((u + v) * 0.5 for u, v in zip(edge0, edge1))
+    return tuple(torch.where(cnt_in == 0, f, m)
+                 for f, m in zip(foot, mid))
+
+
 def derive_contact_rows(p1, p2, normal, cfg: GJKEPAConfig,
                         mask1=None, mask2=None):
     """Batched contact post-processing: (B,N1,3),(B,N2,3),(B,3) ->
@@ -170,53 +222,10 @@ def derive_contact_rows(p1, p2, normal, cfg: GJKEPAConfig,
         f1, f2 = _foot_ll(a0, a1, b0, b1, epz)
         c03 = tuple((u + v) * 0.5 for u, v in zip(f1, f2))
 
-        def case_04(sx, sy, sz, st, nn, cen, first3, edge0, edge1):
-            # SORT_CLOCK (ref :1513-1575): CCW angle from member 0 around the
-            # centroid; member 0 pinned first; input order when all members
-            # coincide; padding rows last.
-            (p0x, p0y, p0z), (p1x, p1y, p1z), (p2x, p2y, p2z) = first3
-            e1 = (p1x - p0x, p1y - p0y, p1z - p0z)
-            e2 = (p2x - p0x, p2y - p0y, p2z - p0z)
-            nplx = e1[1] * e2[2] - e1[2] * e2[1]
-            nply = e1[2] * e2[0] - e1[0] * e2[2]
-            nplz = e1[0] * e2[1] - e1[1] * e2[0]
-            v0x, v0y, v0z = p0x - cen[0], p0y - cen[1], p0z - cen[2]
-            # w = normal x v0
-            wx = nply * v0z - nplz * v0y
-            wy = nplz * v0x - nplx * v0z
-            wz = nplx * v0y - nply * v0x
-            vx = sx - cen[0][None, :]
-            vy = sy - cen[1][None, :]
-            vz = sz - cen[2][None, :]
-            yy = vx * wx[None, :] + vy * wy[None, :] + vz * wz[None, :]
-            xx = vx * v0x[None, :] + vy * v0y[None, :] + vz * v0z[None, :]
-            two_pi = 2.0 * math.pi
-            ang = torch.remainder(torch.atan2(yy, xx) + two_pi, two_pi)
-            rk = torch.cumsum(st.to(torch.int32), dim=0) - 1
-            ang = torch.where(st & (rk == 0), -1.0, ang)       # member 0 first
-            # all-coincident: keep input (compacted) order (:1521)
-            same = ~torch.any(
-                st & ((torch.abs(sx - p0x[None, :]) > epz)
-                      | (torch.abs(sy - p0y[None, :]) > epz)
-                      | (torch.abs(sz - p0z[None, :]) > epz)), dim=0)
-            ang = torch.where(same[None, :], rk.to(fdt), ang)
-            ang = torch.where(st, ang, math.inf)               # padding last
-            order = torch.argsort(ang, dim=0, stable=True)
-            ssx, ssy, ssz = (torch.gather(a, 0, order) for a in (sx, sy, sz))
-            valid_rows = (torch.arange(sx.shape[0], device=dev)[:, None]
-                          < nn[None, :])
-            in0 = _is_inside_pf_rows(ssx, ssy, ssz, *edge0, valid_rows, nn,
-                                     epz)
-            in1 = _is_inside_pf_rows(ssx, ssy, ssz, *edge1, valid_rows, nn,
-                                     epz)
-            cnt_in = in0.to(torch.int32) + in1.to(torch.int32)
-            foot = _foot_pl(*cen, *edge0, *edge1, epz)         # case_04_1
-            mid = tuple((u + v) * 0.5 for u, v in zip(edge0, edge1))
-            return tuple(torch.where(cnt_in == 0, f, m)
-                         for f, m in zip(foot, mid))
-
-        c04_p1poly = case_04(x1, y1, z1, set1, n1, cen1, (a0, a1, a2), b0, b1)
-        c04_p2poly = case_04(x2, y2, z2, set2, n2, cen2, (b0, b1, b2), a0, a1)
+        c04_p1poly = case_04_rows(x1, y1, z1, set1, n1, cen1, (a0, a1, a2),
+                                  b0, b1, epz, epz)
+        c04_p2poly = case_04_rows(x2, y2, z2, set2, n2, cen2, (b0, b1, b2),
+                                  a0, a1, epz, epz)
         c05 = cen1                                             # (:672-694)
 
         def sel(cond, t, f):

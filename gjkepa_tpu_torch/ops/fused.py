@@ -27,8 +27,8 @@ from ..config import GJKEPAConfig
 from .fused_epa import epa_cascade
 from .fused_gjk import gjk_hulls
 
-__all__ = ["FusedResult", "fused_gjkepa_hulls", "cascade_plan", "round_cfg",
-           "mask_to_padding", "hit_first_order"]
+__all__ = ["FusedResult", "fused_gjkepa_hulls", "fused_gjkepa_shapes",
+           "cascade_plan", "round_cfg", "mask_to_padding", "hit_first_order"]
 
 
 class FusedResult(NamedTuple):
@@ -41,7 +41,7 @@ class FusedResult(NamedTuple):
     distance: torch.Tensor   # (B,) f32 separation lower bound (miss lanes)
 
 
-def _rup8(x: int) -> int:
+def rup8(x: int) -> int:
     return ((x + 7) // 8) * 8
 
 
@@ -51,8 +51,8 @@ def round_cfg(cfg: GJKEPAConfig | None) -> GJKEPAConfig:
     if cfg is None:
         cfg = GJKEPAConfig.for_f32()
     if cfg.epa_max_verts % 8 or cfg.epa_max_faces % 8:
-        cfg = cfg.replace(epa_max_verts=_rup8(cfg.epa_max_verts),
-                          epa_max_faces=_rup8(cfg.epa_max_faces))
+        cfg = cfg.replace(epa_max_verts=rup8(cfg.epa_max_verts),
+                          epa_max_faces=rup8(cfg.epa_max_faces))
     return cfg
 
 
@@ -65,7 +65,7 @@ def cascade_plan(cfg: GJKEPAConfig) -> list[tuple[GJKEPAConfig, int]]:
     boolean-only mode: no EPA at all."""
     if cfg.epa_max_iters == 0:
         return []
-    full_f = _rup8(max(2 * cfg.epa_max_iters + 10, cfg.epa_max_faces))
+    full_f = rup8(max(2 * cfg.epa_max_iters + 10, cfg.epa_max_faces))
     stages = [(cfg.replace(epa_max_faces=f), k)
               for f, k in ((48, 8), (88, 8)) if f < full_f]
     stages.append((cfg.replace(epa_max_faces=full_f), 16))
@@ -134,3 +134,7 @@ def fused_gjkepa_hulls(p1: torch.Tensor, p2: torch.Tensor,
     e = epa_cascade(p1, p2, g.simplex, g.status, order, n_act, stages)
     return FusedResult(g.hit, e.status, e.depth, e.normal, g.iters, e.iters,
                        g.sep)
+
+
+# The analytic-shape query builds on the pieces above (ops/fused_shapes.py).
+from .fused_shapes import fused_gjkepa_shapes  # noqa: E402

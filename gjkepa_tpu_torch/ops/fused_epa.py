@@ -27,7 +27,8 @@ from ..types import Status
 from .fused_gjk import check_hulls, make_hull_support
 from .lane_geom import P3, fsqrt, pdot, pmean4, pwhere, pzero_like
 
-__all__ = ["EPARows", "epa_cascade", "epa_cascade_plain", "LAUNCHES"]
+__all__ = ["EPARows", "epa_cascade", "epa_cascade_plain", "epa_phase",
+           "run_cascade", "check_stages", "check_tensors", "LAUNCHES"]
 
 # Kernel launches made by epa_cascade (CUDA tensors only).
 LAUNCHES = 0
@@ -71,19 +72,19 @@ def _plane_of(a, b, c, interior: P3, epz):
 _SEED_FACES = ((0, 1, 2), (0, 2, 3), (0, 1, 3), (1, 2, 3))   # ref :279-293
 
 
-def epa_phase(p1, p2, simplex, active, cfg: GJKEPAConfig, n_faces: int,
+def epa_phase(support, simplex, active, cfg: GJKEPAConfig, n_faces: int,
               k_vis: int):
     """Compact-visible EPA over (A,) lanes; one cascade tier.
 
+    `support` maps a P3 of (A,) directions to the Minkowski support P3.
     Face state is (A, F): corner coordinates (9), corner vertex ids (3),
     plane (n, d) and alive.  Returns (depth, normal P3, iters, status)."""
     eps = cfg.eps_coincide
     epz = cfg.eps_zero
     F, K = n_faces, k_vis
     n_lanes = active.shape[0]
-    dev = p1.device
+    dev = simplex.device
     f32 = torch.float32
-    support = make_hull_support(p1, p2)
     s = tuple(P3(simplex[:, i, 0], simplex[:, i, 1], simplex[:, i, 2])
               for i in range(4))
     interior = pmean4(s)
@@ -222,6 +223,29 @@ def epa_phase(p1, p2, simplex, active, cfg: GJKEPAConfig, n_faces: int,
     return depth, nout, it, status
 
 
+def run_cascade(support_of, simplex, stages):
+    """The tier ladder over (A,) lanes, all of them active (_epa_cascade).
+
+    Tier 1 runs every lane; each later tier re-runs only the lanes the
+    previous one stopped for capacity.  ``support_of(idx)`` is the support
+    over lanes ``idx`` ((R,) int64), or over all A lanes for None.  Returns
+    (depth, normal P3, iters, status), a surviving capacity status still
+    HIT_EPA_CAPACITY."""
+    ones = torch.ones(simplex.shape[0], dtype=torch.bool, device=simplex.device)
+    (c0, k0), rest = stages[0], stages[1:]
+    depth, normal, it, status = epa_phase(support_of(None), simplex, ones, c0,
+                                          c0.epa_max_faces, k0)
+    for c, k in rest:
+        retry = (status == Status.HIT_EPA_CAPACITY).nonzero()[:, 0]
+        if retry.numel() == 0:
+            break
+        d2, n2, i2, s2 = epa_phase(support_of(retry), simplex[retry],
+                                   ones[retry], c, c.epa_max_faces, k)
+        depth[retry], it[retry], status[retry] = d2, i2, s2
+        normal = P3(*(t.index_put((retry,), v) for t, v in zip(normal, n2)))
+    return depth, normal, it, status
+
+
 def check_stages(stages) -> None:
     """Raise on a tier ladder the kernel does not hold."""
     if not 1 <= len(stages) <= MAX_TIERS:
@@ -240,21 +264,26 @@ def check_stages(stages) -> None:
                              f"the {_MAXID}-id edge keys")
 
 
-def _check_inputs(p1, p2, simplex, gjk_status, order, n_act):
-    check_hulls(p1, p2)
-    b = p1.shape[0]
-    for name, t, dtype, shape in (
-            ("simplex", simplex, torch.float32, (b, 4, 3)),
-            ("gjk_status", gjk_status, torch.int32, (b,)),
-            ("order", order, torch.int32, (b,)),
-            ("n_act", n_act, torch.int32, ())):
+def check_tensors(ref: torch.Tensor, **tensors) -> None:
+    """Raise on a tensor the kernels do not take: each keyword is (tensor,
+    dtype, shape), and each must lie on ``ref``'s device, contiguous."""
+    for name, (t, dtype, shape) in tensors.items():
         if t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {dtype} {shape}, got "
                              f"{t.dtype} {tuple(t.shape)}")
-        if t.device != p1.device:
-            raise ValueError(f"{name} on {t.device}, hulls on {p1.device}")
+        if t.device != ref.device:
+            raise ValueError(f"{name} on {t.device}, expected {ref.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _check_inputs(p1, p2, simplex, gjk_status, order, n_act):
+    check_hulls(p1, p2)
+    b = p1.shape[0]
+    check_tensors(p1, simplex=(simplex, torch.float32, (b, 4, 3)),
+                  gjk_status=(gjk_status, torch.int32, (b,)),
+                  order=(order, torch.int32, (b,)),
+                  n_act=(n_act, torch.int32, ()))
 
 
 def _passthrough(gjk_status, b, dev) -> EPARows:
@@ -277,20 +306,14 @@ def epa_cascade_plain(p1, p2, simplex, gjk_status, order, n_act,
     lanes = order[:int(n_act)].long()
     if lanes.numel() == 0:
         return out
-    q1, q2, sx = p1[lanes], p2[lanes], simplex[lanes]
-    (c0, k0), rest = stages[0], stages[1:]
-    depth, normal, it, status = epa_phase(
-        q1, q2, sx, torch.ones_like(lanes, dtype=torch.bool), c0,
-        c0.epa_max_faces, k0)
-    for c, k in rest:
-        retry = (status == Status.HIT_EPA_CAPACITY).nonzero()[:, 0]
-        if retry.numel() == 0:
-            break
-        d2, n2, i2, s2 = epa_phase(q1[retry], q2[retry], sx[retry],
-                                   torch.ones_like(retry, dtype=torch.bool),
-                                   c, c.epa_max_faces, k)
-        depth[retry], it[retry], status[retry] = d2, i2, s2
-        normal = P3(*(t.index_put((retry,), v) for t, v in zip(normal, n2)))
+    q1, q2 = p1[lanes], p2[lanes]
+
+    def support_of(idx):
+        if idx is None:
+            return make_hull_support(q1, q2)
+        return make_hull_support(q1[idx], q2[idx])
+
+    depth, normal, it, status = run_cascade(support_of, simplex[lanes], stages)
     # a capacity exit from the final tier is degenerate to callers
     status = torch.where(status == Status.HIT_EPA_CAPACITY,
                          Status.HIT_EPA_DEGENERATE, status)

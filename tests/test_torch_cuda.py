@@ -9,15 +9,18 @@ the card has no JAX, so run this file without the JAX conftest:
 Tolerances: hit and status exact, separation and depth 1e-5, iteration
 counts on >= 99.5% / 99% of lanes (both versions round every op on their
 own: the kernels are built with --fmad=false), normals dot > 1-1e-4 on
->= 98% of hit lanes.
+>= 98% of hit lanes; closed-form depth and normal 1e-6.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from gjkepa_tpu_torch import GJKEPAConfig, gjkepa_batch_fused
+from gjkepa_tpu_torch import (GJKEPAConfig, ShapeBatch,
+                              fused_gjkepa_shapes, gjkepa_batch_fused)
+from gjkepa_tpu_torch.models import fixtures
 from gjkepa_tpu_torch.ops import fused_epa, fused_gjk
+from gjkepa_tpu_torch.ops import fused_shapes as fs
 from gjkepa_tpu_torch.ops.fused import cascade_plan, hit_first_order
 
 pytestmark = pytest.mark.cuda
@@ -84,3 +87,76 @@ def test_main_path_stays_on_the_card(dev):
     assert torch.equal(r.hit.cpu(), torch.from_numpy(hit))
     np.testing.assert_allclose(r.depth.cpu().numpy()[hit], 1.0 - offsets[hit],
                                atol=1e-5)
+
+
+def _shape_rows(pairs, dev):
+    a, b = (ShapeBatch.from_numpy(*p, device=dev) for p in pairs)
+    retired, _ = fs.retirement(a, b)
+    return a.packed(), b.packed(), retired
+
+
+def _shape_pairs(name):
+    if name == "mixed16":
+        return fixtures.mixed16_pairs(64, 5)
+    if name == "dense_cyl":
+        rng = np.random.default_rng(3)
+        return (fixtures.kind_batch(3, 1024, rng, spread=0.2),
+                fixtures.kind_batch(3, 1024, rng, spread=0.2))
+    return fixtures.c3_pairs(0, 4096)
+
+
+def _assert_gjk_close(k, p, lanes):
+    assert torch.equal(k.hit, p.hit) and torch.equal(k.status, p.status)
+    # iteration counts on the GJK lanes only: the others are 0 on both sides
+    assert int((k.iters != p.iters).sum()) <= 0.005 * int(lanes.sum())
+    assert float((k.sep - p.sep).abs().max()) <= 1e-5
+    assert float((k.simplex[lanes] - p.simplex[lanes]).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("name", ["mixed16", "dense_cyl", "c3"])
+def test_shape_kernels_match_plain_on_card(dev, name):
+    sa, sb, retired = _shape_rows(_shape_pairs(name), dev)
+    cfg = GJKEPAConfig.for_f32()
+    n0 = dict(fs.LAUNCHES)
+    # K5: exact
+    ck = fs.cf_shapes(sa, sb, retired, cfg)
+    cp = fs.cf_shapes_plain(sa, sb, retired, cfg)
+    for x, y in zip(ck, cp):
+        assert float((x.float() - y.float()).abs().max()) <= 1e-6
+    assert torch.equal(ck.act, cp.act) and torch.equal(ck.status, cp.status)
+    # K6a over the compacted GJK lanes
+    order, n_act = hit_first_order(cp.act)
+    gk = fs.gjk_sub_shapes(sa, sb, retired, order, n_act, cfg)
+    gp = fs.gjk_sub_shapes_plain(sa, sb, retired, order, n_act, cfg)
+    _assert_gjk_close(gk, gp, cp.act)
+    # K6b over every lane, with the closed-form channel
+    hk = fs.gjk_shapes(sa, sb, retired, cfg)
+    hp = fs.gjk_shapes_plain(sa, sb, retired, cfg)
+    _assert_gjk_close(hk, hp, cp.act)
+    assert torch.equal(hk.final, hp.final)
+    assert float((hk.cf_depth - hp.cf_depth).abs().max()) <= 1e-6
+    assert float((hk.cf_normal - hp.cf_normal).abs().max()) <= 1e-6
+    # K7 over the GJK hits
+    st = fs.shape_stages(cfg)
+    epa = hp.hit & ~hp.final
+    order, n_act = hit_first_order(epa)
+    args = (sa, sb, hp.simplex, hp.status, hp.cf_depth, hp.cf_normal, order,
+            n_act, st)
+    ek, ep = fs.epa_shapes(*args), fs.epa_shapes_plain(*args)
+    assert torch.equal(ek.status, ep.status)
+    assert float((ek.depth - ep.depth).abs().max()) <= 1e-5
+    dots = (ek.normal * ep.normal).sum(1)[epa]
+    assert float((dots > 1.0 - 1e-4).float().mean()) >= 0.98
+    assert int((ek.iters != ep.iters).sum()) <= 0.01 * int(epa.sum())
+    assert {k: fs.LAUNCHES[k] - n0[k] for k in n0} == {
+        "cf_shapes": 1, "gjk_sub_shapes": 1, "gjk_shapes": 1, "epa_shapes": 1}
+
+
+def test_shape_path_sort_hits_agree_on_card(dev):
+    a, b = (ShapeBatch.from_numpy(*p, device=dev)
+            for p in fixtures.c3_pairs(1, 8192))
+    r1 = fused_gjkepa_shapes(a, b, sort_hits=True)
+    r2 = fused_gjkepa_shapes(a, b, sort_hits=False)
+    for x, y in zip(r1, r2):
+        assert torch.equal(x, y)
+    assert all(t.device == a.kind.device for t in r1)

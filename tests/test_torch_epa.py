@@ -20,7 +20,7 @@ from gjkepa_tpu.ops.fused import fused_gjkepa_hulls as jax_fused
 from gjkepa_tpu_torch import GJKEPAConfig, Status, fused_gjkepa_hulls
 from gjkepa_tpu_torch.ops.fused import cascade_plan, hit_first_order
 from gjkepa_tpu_torch.ops.fused_epa import epa_cascade, epa_phase
-from gjkepa_tpu_torch.ops.fused_gjk import gjk_hulls
+from gjkepa_tpu_torch.ops.fused_gjk import gjk_hulls, make_hull_support
 from tests.oracle_np import OracleHalt, gjkepa_oracle
 
 torch.set_num_threads(1)
@@ -86,7 +86,8 @@ def test_capacity_lanes_are_rerun_by_the_next_tier():
     g = gjk_hulls(big, small, CFG)
     final = cascade_plan(CFG)[-1]
     tiny = (CFG.replace(epa_max_faces=12), 2)
-    _, _, _, st = epa_phase(big, small, g.simplex, g.hit, tiny[0], 12, 2)
+    _, _, _, st = epa_phase(make_hull_support(big, small), g.simplex, g.hit,
+                            tiny[0], 12, 2)
     assert int((st == Status.HIT_EPA_CAPACITY).sum()) > 20
     order, n_act = hit_first_order(g.hit)
     two = epa_cascade(big, small, g.simplex, g.status, order, n_act,

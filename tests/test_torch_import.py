@@ -24,7 +24,11 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def test_import_leaves_jax_out():
     code = ("import sys, gjkepa_tpu_torch, gjkepa_tpu_torch.api, "
-            "gjkepa_tpu_torch._build; "
+            "gjkepa_tpu_torch._build, gjkepa_tpu_torch.models, "
+            "gjkepa_tpu_torch.models.fixtures, "
+            "gjkepa_tpu_torch.ops.shape_geom, "
+            "gjkepa_tpu_torch.ops.fused_shapes, "
+            "gjkepa_tpu_torch.ops.contact_shapes; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'gjkepa_tpu.')) "
             "or m == 'gjkepa_tpu'); print(bad); sys.exit(1 if bad else 0)")
