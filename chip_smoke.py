@@ -2,7 +2,7 @@
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
 
-The port has two paths.  The hull path is the fused hull-pair query,
+The port has four paths.  The hull path is the fused hull-pair query,
 ``gjkepa_batch_fused``: K1, the GJK hull kernel
 (``gjkepa_tpu_torch/csrc/gjk_hulls.cu``), then K2, the EPA cascade kernel
 (``csrc/epa_hulls.cu``), over the hit lanes, then the contact rows.  The
@@ -10,8 +10,14 @@ shape path is the analytic-shape query, ``fused_gjkepa_shapes`` and
 ``collide_shapes_batch_fused``: K5, the closed-form kernel
 (``csrc/cf_shapes.cu``), K6a over the GJK lanes or K6b over all lanes
 (``csrc/gjk_shapes.cu``), then K7, the capped EPA cascade with the polish
-(``csrc/epa_shapes.cu``).  The script builds every kernel from the sources
-in the checkout (one nvcc per source, all at once) and runs, in phases:
+(``csrc/epa_shapes.cu``).  The distance path, ``fused_gjk_distance_hulls``,
+launches K8, distance GJK with witnesses (``csrc/distance_hulls.cu``), over
+every pair at a low cap and again over the unconverged pairs.  The mixed
+path, ``fused_gjkepa_hull_shapes``, runs K9, GJK of a hull against an
+analytic shape (``csrc/gjk_hull_shape.cu``), then K10, the capped EPA
+cascade with the polish (``csrc/epa_hull_shape.cu``).  The script builds
+every kernel from the sources in the checkout (one nvcc per source, all at
+once) and runs, in phases:
 
   0. environment: card name and power limit, torch and CUDA versions, build;
   1. K1 against its plain PyTorch version on the card (4096 x 64 vertices);
@@ -35,7 +41,25 @@ in the checkout (one nvcc per source, all at once) and runs, in phases:
      and its exact launches checked just after; then the whole result
      against the plain path;
  10. timings of each shape kernel against its plain version, and of the
-     shape path, at c3.
+     shape path, at c3;
+ 11. K8 against its plain version (4096 x 12 at spread 2.0 and bench.py's
+     c2, 65,536 x 64), two-phase equal to one pass bit for bit, and known
+     distances (cube gap, tetrahedron apex, crossing segments);
+ 12. K9 and K10 against their plain versions on bench.py's c3b (16,384 x
+     24 hulls against the four shape kinds), the mixed path against the
+     plain path, sort_hits True = False, hull-vs-sphere depths against a
+     float64 convex projection (scipy) and the separation contract;
+ 13. the distance and mixed paths at full size, each call with its
+     kernels' launch counters set to 0 just before it and its exact
+     launches checked just after, then timings of K8 (both phases), K9,
+     K10, both paths and their plain versions.
+
+Each entry of the ``kernels`` line carries a bound: the larger of the
+bytes the kernel must move (inputs read once, outputs written once, over
+the lanes it serves) at 3.35 TB/s and its float32 operations at 67 TFLOP/s
+(the H100 SXM's published peaks), the operations counted by the model in
+``work()`` at this run's iteration counts.  No single PyTorch call
+computes GJK, EPA or distance, so ``library_ms`` is null.
 
 Every check raises on failure.  It prints the ``kernels`` JSON line and
 the card's name and power limit before the last line, and as the last line
@@ -57,7 +81,22 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 TIMED_CALLS = 7
+PLAIN_CALLS = 3         # the slowest plain versions (host-synced loops)
 C3 = 65536
+HBM_BYTES_PER_MS = 3.35e12 / 1e3    # H100 SXM HBM3
+F32_OPS_PER_MS = 67e12 / 1e3        # H100 SXM float32, no tensor cores
+
+# The operation model of work(): float32 operations of each step.
+VERTEX_OPS = 5          # one vertex of a support scan: 3 multiplies, 2 adds
+SHAPE_OPS = 40          # one analytic support side (rotate, select, rotate)
+SPHERE_OPS = 12         # one vertex of a bounding-sphere pass
+GJK_INIT_PROBES = 6     # support probes of the v1-v4 init
+GJK_ITER_OPS = 400      # face normals, selection and tests of an iteration
+EPA_FACE_OPS = 20       # min scan, repeat test and visibility, per face
+EPA_FACES = 48          # faces scanned per EPA iteration (the first tier)
+POLISH_PROBES = 49
+DIST_ITER_OPS = 500     # the 15 candidates of a distance iteration
+CF_OPS = 400            # the closed forms of one shape pair
 
 
 def log(msg: str) -> None:
@@ -71,10 +110,8 @@ def check(ok: bool, what: str) -> None:
 
 def random_hulls(rng, b, n, spread=0.8):
     """bench.py's hull generator (bench.py:112-116)."""
-    v = rng.normal(size=(b, n, 3))
-    v /= np.linalg.norm(v, axis=-1, keepdims=True)
-    v *= 0.5 + 0.5 * rng.random((b, n, 1))
-    return (v + rng.normal(size=(b, 1, 3)) * spread).astype(np.float32)
+    from gjkepa_tpu_torch.models import fixtures
+    return fixtures.random_hulls(rng, b, n, spread)
 
 
 def deep_pairs(rng, b, n):
@@ -119,6 +156,43 @@ def cuda_ms(fn, calls=TIMED_CALLS, warmup=2) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def work(lanes, bytes_per_lane, ops):
+    """(bound_ms, bound_by): the least time the card could take to move
+    ``lanes * bytes_per_lane`` bytes and to do ``ops`` float32
+    operations."""
+    t_bytes = lanes * bytes_per_lane / HBM_BYTES_PER_MS
+    t_ops = ops / F32_OPS_PER_MS
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def entry(name, src, line, launches, err, ms, plain_ms, bound):
+    """One kernel of the ``kernels`` line."""
+    return {"name": name, "route": "cuda",
+            "source": f"gjkepa_tpu_torch/csrc/{src}",
+            "replaces": f"gjkepa_tpu/ops/fused.py:{line}",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": None}
+
+
+def isum(t) -> int:
+    return int(t.long().sum())
+
+
+def gjk_ops(active, iters, probe_ops) -> float:
+    """Operations of the GJK phase: the init's probes on each active lane,
+    one probe and the tests of each iteration."""
+    return ((active * GJK_INIT_PROBES + iters) * probe_ops
+            + iters * GJK_ITER_OPS)
+
+
+def epa_ops(iters, probe_ops, lanes=0) -> float:
+    """Operations of the EPA ladder (a probe and a face scan an iteration)
+    and, over ``lanes`` lanes, of the polish."""
+    return (iters * (probe_ops + EPA_FACES * EPA_FACE_OPS)
+            + lanes * POLISH_PROBES * (probe_ops + 20))
 
 
 # -- the shape path ---------------------------------------------------------
@@ -379,19 +453,345 @@ def shape_phases(gt, dev, cfg, card, n3=C3) -> list[dict]:
         f"collide_shapes_batch_fused {n3 / stimes['collide_c3'] * 1e3:,.0f} "
         f"q/s [{card}]")
 
-    kernels = []
-    for name, src, line, key in (
-            ("cf_shapes", "cf_shapes.cu", 1880, "k5_c3"),
-            ("gjk_sub_shapes", "gjk_shapes.cu", 1910, "k6a_c3"),
-            ("gjk_shapes", "gjk_shapes.cu", 1935, "k6b_c3"),
-            ("epa_shapes", "epa_shapes.cu", 2131, "k7_c3")):
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"gjkepa_tpu_torch/csrc/{src}",
-            "replaces": f"gjkepa_tpu/ops/fused.py:{line}",
-            "launches": shape_launches[name], "max_abs_err": shape_err[name],
-            "ms": stimes[key], "plain_ms": stimes[key + "_plain"]})
-    return kernels
+    # bounds at c3, from this run's lanes and iterations (see work())
+    hk3, e7 = fs.gjk_shapes(sa3, sb3, ret3, cfg), fs.epa_shapes(*k7)
+    n_gjk, n_epa, probe = int(n6), int(n7), 2 * SHAPE_OPS
+    bounds = {
+        "cf_shapes": work(n3, 129 + 26, n3 * CF_OPS),
+        "gjk_sub_shapes": work(n_gjk, 133 + 61,
+                               gjk_ops(n_gjk, isum(g6.iters), probe)),
+        "gjk_shapes": work(n3, 129 + 78, n3 * CF_OPS
+                           + gjk_ops(n_gjk, isum(hk3.iters), probe)),
+        "epa_shapes": work(n_epa, 180 + 24,
+                           epa_ops(isum(e7.iters), probe, n_epa)),
+    }
+    return [entry(name, src, line, shape_launches[name], shape_err[name],
+                  stimes[key], stimes[key + "_plain"], bounds[name])
+            for name, src, line, key in (
+                ("cf_shapes", "cf_shapes.cu", 1880, "k5_c3"),
+                ("gjk_sub_shapes", "gjk_shapes.cu", 1910, "k6a_c3"),
+                ("gjk_shapes", "gjk_shapes.cu", 1935, "k6b_c3"),
+                ("epa_shapes", "epa_shapes.cu", 2131, "k7_c3"))]
+
+
+# -- the distance and mixed paths ----------------------------------------------
+
+def known_distance_pairs():
+    """Known float32 distances, hulls padded to 8 vertices by repeating a
+    vertex: cube gap 1, overlapping cubes, a tetrahedron apex 1 from a cube
+    face, two segments crossing at height 0.3."""
+    def cube(x):
+        return np.array([[x + a, b, c] for a in (-.5, .5) for b in (-.5, .5)
+                         for c in (-.5, .5)], np.float32)
+
+    def pad(v):
+        return np.concatenate([v, np.repeat(v[:1], 8 - len(v), 0)])
+
+    tet = np.array([[1.0, 0, 0], [0, 0.6, 0.1], [0, -0.5, 0.4],
+                    [0, -0.1, -0.6]], np.float32)
+    seg1 = np.array([[-1.0, 0, 0], [1.0, 0, 0]], np.float32)
+    seg2 = np.array([[0.0, -1, 0.3], [0.0, 1, 0.3]], np.float32)
+    p1 = np.stack([cube(0.0), cube(0.0), pad(tet), pad(seg1)])
+    p2 = np.stack([cube(2.0), cube(0.5), cube(2.5), pad(seg2)])
+    return p1, p2, np.array([1.0, 0.0, 1.0, 0.3], np.float32)
+
+
+def compare_k8(gt, p1, p2, cfg, what):
+    """K8 against its plain version at the full cap, and the two-phase
+    dispatch against one pass; returns the max abs error."""
+    from gjkepa_tpu_torch.ops import fused_distance as fd
+    k = fd.distance_hulls(p1, p2, cfg, 64)
+    p = fd.distance_hulls_plain(p1, p2, cfg, 64)
+    torch.cuda.synchronize()
+    check(torch.equal(k.intersecting, p.intersecting)
+          and torch.equal(k.converged, p.converged),
+          f"{what}: K8 intersecting/converged differ")
+    it_diff = int((k.iters != p.iters).sum())
+    check(it_diff <= 0.005 * len(k.iters),
+          f"{what}: K8 iters differ on {it_diff} lanes")
+    err = max(float((x - y).abs().max()) for x, y in (
+        (k.distance, p.distance), (k.point_a, p.point_a),
+        (k.point_b, p.point_b)))
+    check(err <= 1e-5, f"{what}: K8 distance/witnesses differ by {err}")
+    two = gt.fused_gjk_distance_hulls(p1, p2, cfg=cfg)
+    one = gt.fused_gjk_distance_hulls(p1, p2, cfg=cfg, two_phase=False)
+    for name, x, y in zip(one._fields, two, one):
+        check(torch.equal(x, y), f"{what}: two-phase {name} differs from one "
+                                 "pass")
+    log(f"{what} K8 vs plain, {p1.shape[0]} x {p1.shape[1]}: intersecting "
+        f"and converged equal, {int(p.intersecting.sum())} intersecting, "
+        f"{int((~p.converged).sum())} at the cap, mean iters "
+        f"{float(p.iters.float().mean()):.3f}, iters differ on {it_diff} "
+        f"lanes, max abs err {err:.3g} (tol 1e-5); two-phase = one pass bit "
+        "for bit")
+    return err
+
+
+def mixed_plain_path(p1, shapes, cfg):
+    """fused_gjkepa_hull_shapes (sort_hits=True) through the plain
+    versions."""
+    from gjkepa_tpu_torch.ops import fused_hull_shapes as fh
+    from gjkepa_tpu_torch.ops import fused_shapes as fs
+    from gjkepa_tpu_torch.ops.fused import FusedResult, hit_first_order
+    sb = shapes.packed()
+    env = fh.hull_shape_retirement(p1, sb, cfg)
+    order, _ = hit_first_order(~env.retired)
+    g = fh.gjk_hull_shape_plain(p1, sb, env.retired, order, cfg)
+    order, n_act = hit_first_order(g.hit)
+    e = fh.epa_hull_shape_plain(p1, sb, g.simplex, g.status, order, n_act,
+                                fs.shape_stages(cfg))
+    return FusedResult(g.hit, e.status, e.depth, e.normal, g.iters, e.iters,
+                       torch.where(env.retired, env.distance, g.sep))
+
+
+def compare_k9_k10(p1, sb, cfg, what):
+    """K9 and K10 against their plain versions on the same inputs; returns
+    each kernel's max abs error and its rows."""
+    from gjkepa_tpu_torch.ops import fused_hull_shapes as fh
+    from gjkepa_tpu_torch.ops import fused_shapes as fs
+    from gjkepa_tpu_torch.ops.fused import hit_first_order
+    env = fh.hull_shape_retirement(p1, sb, cfg)
+    order, _ = hit_first_order(~env.retired)
+    gk = fh.gjk_hull_shape(p1, sb, env.retired, order, cfg)
+    gp = fh.gjk_hull_shape_plain(p1, sb, env.retired, order, cfg)
+    torch.cuda.synchronize()
+    check(torch.equal(gk.hit, gp.hit) and torch.equal(gk.status, gp.status),
+          f"{what}: K9 hit/status differ")
+    ran = gp.status != 0            # the lanes that ran GJK
+    d9 = int((gk.iters != gp.iters).sum())
+    check(d9 <= 0.01 * isum(ran),
+          f"{what}: K9 iters differ on {d9} of {isum(ran)} GJK lanes")
+    e9 = max(float((gk.sep - gp.sep).abs().max()),
+             float((gk.simplex[ran] - gp.simplex[ran]).abs().max()))
+    check(e9 <= 1e-5, f"{what}: K9 sep/simplex differ by {e9}")
+    order, n_act = hit_first_order(gp.hit)
+    args = (p1, sb, gp.simplex, gp.status, order, n_act, fs.shape_stages(cfg))
+    ek, ep = fh.epa_hull_shape(*args), fh.epa_hull_shape_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(ek.status, ep.status), f"{what}: K10 status differs")
+    e10 = max(float((ek.depth - ep.depth).abs().max()),
+              float((ek.normal - ep.normal).abs().max()))
+    check(e10 <= 1e-5, f"{what}: K10 depth/normal differ by {e10}")
+    d10 = int((ek.iters != ep.iters).sum())
+    check(d10 <= 0.01 * int(n_act),
+          f"{what}: K10 iters differ on {d10} of {int(n_act)} lanes")
+    log(f"{what} K9/K10 vs plain, {p1.shape[0]} x {p1.shape[1]}: "
+        f"{isum(env.retired)} retired, {isum(ran)} GJK lanes, hit/status "
+        f"equal, K9 iters differ on {d9}, err {e9:.3g}; K10 {int(n_act)} "
+        f"lanes, status equal, iters differ on {d10}, depth/normal err "
+        f"{e10:.3g} (tol 1e-5)")
+    return e9, e10, gp, ep, int(n_act)
+
+
+def exact_sphere_depth(verts, c, rad):
+    """Float64 depth of a sphere against a convex hull by convex projection
+    (scipy): r - dist(centre, hull) outside, r + clearance inside."""
+    from scipy.optimize import minimize
+    from scipy.spatial import ConvexHull
+    eq = ConvexHull(verts).equations
+    a, off = eq[:, :3], -eq[:, 3]
+    s = a @ c - off
+    if (s <= 0).all():
+        return rad + float(-s.max())
+    res = minimize(lambda x: np.sum((x - c) ** 2), x0=verts.mean(0),
+                   constraints=[{"type": "ineq", "fun": lambda x: off - a @ x}])
+    return rad - float(np.linalg.norm(res.x - c))
+
+
+def distance_and_mixed_phases(gt, dev, cfg, card, n2=65536, cut=1):
+    """Phases 11-13, the distance and mixed paths at bench.py's c2 (n2
+    pairs) and c3b (every ``cut``-th pair); returns K8, K9 and K10's
+    entries of the ``kernels`` line."""
+    from gjkepa_tpu_torch.models import fixtures
+    from gjkepa_tpu_torch.ops import fused_distance as fd
+    from gjkepa_tpu_torch.ops import fused_hull_shapes as fh
+    from gjkepa_tpu_torch.ops import fused_shapes as fs
+    from gjkepa_tpu_torch.ops.fused import hit_first_order
+
+    def on_dev(*arrays):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in arrays)
+
+    # -- phase 11: K8 vs plain, two-phase = one pass, known distances ---------
+    rng = np.random.default_rng(0)
+    k8_err = compare_k8(gt, *on_dev(random_hulls(rng, 4096, 12, 2.0),
+                                    random_hulls(rng, 4096, 12, 2.0)),
+                        cfg, "phase 11 spread 2.0")
+    d1, d2 = on_dev(*fixtures.c2_hulls(n=n2))
+    k8_err = max(k8_err, compare_k8(gt, d1, d2, cfg, "phase 11 c2"))
+    k1, k2, want = known_distance_pairs()
+    kr = gt.fused_gjk_distance_hulls(*on_dev(k1, k2), cfg=cfg)
+    got = kr.distance.cpu().numpy()
+    pa, pb = kr.point_a.cpu().numpy(), kr.point_b.cpu().numpy()
+    check(float(np.abs(got - want).max()) <= 1e-6
+          and abs(pa[0, 0] - 0.5) <= 1e-6 and abs(pb[0, 0] - 1.5) <= 1e-6
+          and kr.intersecting.cpu().tolist() == [False, True, False, False],
+          f"phase 11: known distances {got}, witnesses {pa[0]} {pb[0]}")
+    log(f"phase 11 known distances: {got.tolist()} within 1e-6 of "
+        f"{want.tolist()}, cube witnesses at x = {pa[0, 0]}, {pb[0, 0]}")
+
+    # -- phase 12: K9/K10 vs plain, the mixed path, depth contract ------------
+    hulls, shp = fixtures.c3b_pairs()
+    hulls, shp = hulls[::cut], tuple(x[::cut] for x in shp)
+    n3b = hulls.shape[0]
+    (h3,) = on_dev(hulls)
+    s3 = gt.ShapeBatch.from_numpy(*shp, device=dev)
+    sb3 = s3.packed()
+    e9, e10, g9, _, n10 = compare_k9_k10(h3, sb3, cfg, "phase 12 c3b")
+    mixed = gt.fused_gjkepa_hull_shapes(h3, s3, cfg=cfg)
+    unsorted = gt.fused_gjkepa_hull_shapes(h3, s3, cfg=cfg, sort_hits=False)
+    plain = mixed_plain_path(h3, s3, cfg)
+    for name, x, y, z in zip(mixed._fields, mixed, unsorted, plain):
+        check(torch.equal(x, y), f"phase 12: sort_hits=False {name} differs")
+        if name in ("hit", "status"):
+            check(torch.equal(x, z), f"phase 12: {name} differs from plain")
+        elif x.is_floating_point():
+            check(bool(torch.isfinite(x).all()), f"phase 12: {name} not "
+                                                 "finite")
+            err = float((x - z).abs().max())
+            check(err <= 1e-5, f"phase 12: {name} differs from plain by {err}")
+    hit = mixed.hit
+    moved = gt.ShapeBatch(s3.kind[hit], s3.params[hit], s3.pos[hit]
+                          + mixed.normal[hit] * (mixed.depth[hit]
+                                                 + 1e-3)[:, None],
+                          s3.rot[hit])
+    apart = gt.fused_gjkepa_hull_shapes(h3[hit].contiguous(), moved, cfg=cfg)
+    check(not bool(apart.hit.any()), f"phase 12: {isum(apart.hit)} of "
+          f"{isum(hit)} hit pairs still touch after the separating shift")
+    rng = np.random.default_rng(0)
+    sp = random_hulls(rng, 32, 16, 0.5)
+    rad = (0.4 + 0.4 * rng.random(32)).astype(np.float32)
+    ctr = rng.normal(size=(32, 3)).astype(np.float32) * 0.5
+    sr = gt.fused_gjkepa_hull_shapes(*on_dev(sp), gt.spheres(
+        rad, pos=ctr, device=dev), cfg=cfg)
+    sphere_err = [abs(float(sr.depth[i]) - exact_sphere_depth(
+        sp[i].astype(np.float64), ctr[i].astype(np.float64), float(rad[i])))
+        for i in np.nonzero(sr.hit.cpu().numpy())[0]]
+    # 2e-3 on the first 12 hits as tests/test_mixed_fused.py; the capped
+    # EPA and the polish leave up to 3.2e-3 on a later lane (JAX's depth
+    # there is the same)
+    check(len(sphere_err) >= 12 and max(sphere_err[:12]) < 2e-3
+          and max(sphere_err) < 5e-3,
+          f"phase 12: hull-sphere depth errors {sphere_err}")
+    log(f"phase 12 mixed path: c3b {n3b} pairs, {isum(hit)} hits, sort_hits "
+        f"True = False, equal to the plain path, every hit pair apart after "
+        f"the shift depth*normal + 1e-3; hull-sphere depth vs the float64 "
+        f"projection: max err {max(sphere_err[:12]):.3g} on the first 12 "
+        f"hits (tol 2e-3), {max(sphere_err):.3g} on all {len(sphere_err)} "
+        "(tol 5e-3)")
+
+    # -- phase 13: the paths at full size, launches counted, timings ----------
+    per_call = {}
+
+    def counted(what, want, fn):
+        """fn() with the distance and mixed kernels' launch counters set to
+        0 just before it; checks the exact launches it made."""
+        torch.cuda.synchronize()
+        for counts in (fd.LAUNCHES, fh.LAUNCHES):
+            for k in counts:
+                counts[k] = 0
+        out = fn()
+        torch.cuda.synchronize()
+        per_call[what] = {**fd.LAUNCHES, **fh.LAUNCHES}
+        want = {"distance_hulls": 0, "gjk_hull_shape": 0,
+                "epa_hull_shape": 0, **want}
+        check(per_call[what] == want,
+              f"phase 13: {what} launched {per_call[what]}, expected {want}")
+        return out
+
+    dist = counted("distance", {"distance_hulls": 2},
+                   lambda: gt.fused_gjk_distance_hulls(d1, d2, cfg=cfg))
+    dist1 = counted("distance one pass", {"distance_hulls": 1},
+                    lambda: gt.fused_gjk_distance_hulls(d1, d2, cfg=cfg,
+                                                        two_phase=False))
+    mix = counted("mixed", {"gjk_hull_shape": 1, "epa_hull_shape": 1},
+                  lambda: gt.fused_gjkepa_hull_shapes(h3, s3, cfg=cfg))
+    boolean = counted("mixed boolean", {"gjk_hull_shape": 1},
+                      lambda: gt.fused_gjkepa_hull_shapes(
+                          h3, s3, cfg=cfg.replace(epa_max_iters=0)))
+    check(all(torch.equal(x, y) for x, y in zip(dist, dist1))
+          and all(torch.equal(x, y) for x, y in zip(mix, mixed))
+          and torch.equal(boolean.hit, mix.hit),
+          "phase 13: a counted call differs from phases 11-12")
+    log(f"phase 13 launches per call: {per_call}")
+
+    p1_out = fd.distance_hulls(d1, d2, cfg, 10)
+    o8, n8 = hit_first_order(~p1_out.converged)
+    p2_out = fd.distance_hulls(d1, d2, cfg, 64, o8, n8,
+                               out=fd.DistanceRows(*(t.clone()
+                                                     for t in p1_out)))
+    env = fh.hull_shape_retirement(h3, sb3, cfg)
+    o9, _ = hit_first_order(~env.retired)
+    o10, n10t = hit_first_order(g9.hit)
+    k10 = (h3, sb3, g9.simplex, g9.status, o10, n10t, fs.shape_stages(cfg))
+    times = {
+        "k8_phase1_c2": cuda_ms(lambda: fd.distance_hulls(d1, d2, cfg, 10)),
+        "k8_phase2_c2": cuda_ms(lambda: fd.distance_hulls(
+            d1, d2, cfg, 64, o8, n8, out=p2_out)),
+        "k8_one_pass_c2": cuda_ms(lambda: fd.distance_hulls(d1, d2, cfg,
+                                                            64)),
+        "k8_phase1_c2_plain": cuda_ms(lambda: fd.distance_hulls_plain(
+            d1, d2, cfg, 10), PLAIN_CALLS, 1),
+        "k8_phase2_c2_plain": cuda_ms(lambda: fd.distance_hulls_plain(
+            d1, d2, cfg, 64, o8, n8, out=p2_out), PLAIN_CALLS, 1),
+        "path_dist_c2": cuda_ms(lambda: gt.fused_gjk_distance_hulls(
+            d1, d2, cfg=cfg)),
+        "path_dist_c2_one_pass": cuda_ms(lambda: gt.fused_gjk_distance_hulls(
+            d1, d2, cfg=cfg, two_phase=False)),
+        "k9_c3b": cuda_ms(lambda: fh.gjk_hull_shape(h3, sb3, env.retired, o9,
+                                                    cfg)),
+        "k9_c3b_plain": cuda_ms(lambda: fh.gjk_hull_shape_plain(
+            h3, sb3, env.retired, o9, cfg), PLAIN_CALLS, 1),
+        "k10_c3b": cuda_ms(lambda: fh.epa_hull_shape(*k10)),
+        "k10_c3b_plain": cuda_ms(lambda: fh.epa_hull_shape_plain(*k10),
+                                 PLAIN_CALLS, 1),
+        "path_c3b": cuda_ms(lambda: gt.fused_gjkepa_hull_shapes(h3, s3,
+                                                                cfg=cfg)),
+        "path_c3b_unsorted": cuda_ms(lambda: gt.fused_gjkepa_hull_shapes(
+            h3, s3, cfg=cfg, sort_hits=False)),
+        "path_c3b_plain": cuda_ms(lambda: mixed_plain_path(h3, s3, cfg),
+                                  PLAIN_CALLS, 1),
+    }
+    times["path_dist_c2_plain"] = (times["k8_phase1_c2_plain"]
+                                   + times["k8_phase2_c2_plain"])
+    for key, ms in times.items():
+        b = n3b if "c3b" in key else n2
+        log(f"phase 13 time {key}: {ms:.4f} ms = {b / ms * 1e3:,.0f} pairs/s "
+            f"[{card}]")
+    log(f"phase 13 end to end: c2 {n2} x 64 fused_gjk_distance_hulls "
+        f"{n2 / times['path_dist_c2'] * 1e3:,.0f} q/s two-phase, "
+        f"{n2 / times['path_dist_c2_one_pass'] * 1e3:,.0f} q/s one pass "
+        f"(plain {n2 / times['path_dist_c2_plain'] * 1e3:,.0f}); c3b {n3b} "
+        f"x 24 fused_gjkepa_hull_shapes "
+        f"{n3b / times['path_c3b'] * 1e3:,.0f} q/s (plain path "
+        f"{n3b / times['path_c3b_plain'] * 1e3:,.0f}) [{card}]; plain "
+        f"versions timed {PLAIN_CALLS} times after 1 warm-up call")
+
+    # bounds, from this run's lanes and iterations (see work())
+    nv2 = d1.shape[1] + d2.shape[1]
+    nv3 = h3.shape[1]
+    one = fd.distance_hulls(d1, d2, cfg, 64)
+    it8 = isum(one.iters)
+    k8_bound = work(n2, nv2 * 12 + 34,
+                    (n2 + it8) * VERTEX_OPS * nv2 + it8 * DIST_ITER_OPS)
+    probe = VERTEX_OPS * nv3 + SHAPE_OPS
+    k9_bound = work(n3b, nv3 * 12 + 69 + 61, n3b * nv3 * SPHERE_OPS
+                    + gjk_ops(isum(g9.status != 0), isum(g9.iters), probe))
+    e10r = fh.epa_hull_shape(*k10)
+    k10_bound = work(n10, nv3 * 12 + 120 + 24,
+                     epa_ops(isum(e10r.iters), probe, n10))
+    return [
+        entry("distance_hulls", "distance_hulls.cu", 2867,
+              per_call["distance"]["distance_hulls"], k8_err,
+              times["k8_phase1_c2"] + times["k8_phase2_c2"],
+              times["path_dist_c2_plain"], k8_bound),
+        entry("gjk_hull_shape", "gjk_hull_shape.cu", 2571,
+              per_call["mixed"]["gjk_hull_shape"], e9, times["k9_c3b"],
+              times["k9_c3b_plain"], k9_bound),
+        entry("epa_hull_shape", "epa_hull_shape.cu", 2588,
+              per_call["mixed"]["epa_hull_shape"], e10, times["k10_c3b"],
+              times["k10_c3b_plain"], k10_bound),
+    ]
 
 
 def main() -> int:
@@ -618,19 +1018,21 @@ def main() -> int:
         f"{65536 / times['path_c2'] * 1e3:,.0f} q/s (plain path "
         f"{65536 / times['path_c2_plain'] * 1e3:,.0f}) [{card}]")
 
+    # bounds at c4, from this run's lanes and iterations (see work())
+    e4 = fused_epa.epa_cascade(m1, m2, g4.simplex, g4.status, o4, n4, stages)
+    nv = m1.shape[1] + m2.shape[1]
+    k1_bound = work(16384, nv * 12 + 61, 16384 * nv * SPHERE_OPS + gjk_ops(
+        isum(g4.status != 0), isum(g4.iters), VERTEX_OPS * nv))
+    k2_bound = work(int(n4), nv * 12 + 56 + 24,
+                    epa_ops(isum(e4.iters), VERTEX_OPS * nv))
     kernels = [
-        {"name": "gjk_hulls", "route": "cuda",
-         "source": "gjkepa_tpu_torch/csrc/gjk_hulls.cu",
-         "replaces": "gjkepa_tpu/ops/fused.py:1099",
-         "launches": launches["gjk_hulls"], "max_abs_err": k1_err,
-         "ms": times["k1_c4"], "plain_ms": times["k1_c4_plain"]},
-        {"name": "epa_hulls", "route": "cuda",
-         "source": "gjkepa_tpu_torch/csrc/epa_hulls.cu",
-         "replaces": "gjkepa_tpu/ops/fused.py:1112",
-         "launches": launches["epa_hulls"], "max_abs_err": k2_err,
-         "ms": times["k2_c4"], "plain_ms": times["k2_c4_plain"]},
+        entry("gjk_hulls", "gjk_hulls.cu", 1099, launches["gjk_hulls"],
+              k1_err, times["k1_c4"], times["k1_c4_plain"], k1_bound),
+        entry("epa_hulls", "epa_hulls.cu", 1112, launches["epa_hulls"],
+              k2_err, times["k2_c4"], times["k2_c4_plain"], k2_bound),
     ]
     kernels += shape_phases(gt, dev, cfg, card)
+    kernels += distance_and_mixed_phases(gt, dev, cfg, card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """gjkepa_tpu_torch: the PyTorch/CUDA port of gjkepa_tpu.
 
-The port so far holds the two fused queries of the JAX package:
+The port so far holds four fused queries of the JAX package and its
+portable distance API:
 
   * hull pairs: :func:`gjkepa_batch_fused` / :func:`derive_contact_batch`
     (``api``) over :func:`fused_gjkepa_hulls` (``ops.fused``): K1, the GJK
@@ -11,7 +12,21 @@ The port so far holds the two fused queries of the JAX package:
     and cylinders): :func:`collide_shapes_batch_fused` (``api``) over
     :func:`fused_gjkepa_shapes` (``ops.fused_shapes``): K5, the closed-form
     kernel (``csrc/cf_shapes.cu``), K6a or K6b, GJK (``csrc/gjk_shapes.cu``),
-    and K7, the capped EPA cascade with the polish (``csrc/epa_shapes.cu``).
+    and K7, the capped EPA cascade with the polish (``csrc/epa_shapes.cu``);
+  * closest distance over hull pairs: :func:`fused_gjk_distance_hulls`
+    (``ops.fused_distance``): K8, distance GJK with witness points
+    (``csrc/distance_hulls.cu``), launched twice, the second time over the
+    pairs the first left unconverged;
+  * hull against analytic shape: :func:`fused_gjkepa_hull_shapes`
+    (``ops.fused_hull_shapes``): K9, GJK (``csrc/gjk_hull_shape.cu``), then
+    K10, the capped EPA cascade with the polish
+    (``csrc/epa_hull_shape.cu``), over the hit lanes;
+  * the portable distance queries :func:`gjk_distance_batch` and
+    :func:`gjk_distance_shapes_batch` (``api``): torch code over the hull or
+    shape support (``ops.distance``), float32 or float64.
+
+``ShapeBatch.from_numpy`` and the shape constructors put their tensors on
+the card unless the caller names another device (``device="cpu"``).
 
 On CUDA tensors the kernels launch (built from ``csrc/`` with ``nvcc`` at
 first use); on CPU tensors their plain PyTorch versions run.  Nothing
@@ -20,16 +35,23 @@ gjkepa_tpu.
 """
 
 from .api import (collide_shapes_batch_fused, derive_contact_batch,
+                  gjk_distance_batch, gjk_distance_shapes_batch,
                   gjkepa_batch_fused)
 from .config import DEFAULT_CONFIG, GJKEPAConfig
 from .models.shapes import (ShapeBatch, boxes, capsules, concat_shapes,
                             cylinders, spheres)
 from .ops.contact_rows import derive_contact_rows
-from .ops.fused import FusedResult, fused_gjkepa_hulls, fused_gjkepa_shapes
+from .ops.distance import DistanceResult
+from .ops.fused import (FusedResult, fused_gjk_distance_hulls,
+                        fused_gjkepa_hull_shapes, fused_gjkepa_hulls,
+                        fused_gjkepa_shapes)
 from .types import CollisionResult, Status
 
 __all__ = ["gjkepa_batch_fused", "derive_contact_batch", "fused_gjkepa_hulls",
            "derive_contact_rows", "collide_shapes_batch_fused",
-           "fused_gjkepa_shapes", "ShapeBatch", "spheres", "boxes",
-           "capsules", "cylinders", "concat_shapes", "FusedResult",
+           "fused_gjkepa_shapes", "fused_gjk_distance_hulls",
+           "fused_gjkepa_hull_shapes", "gjk_distance_batch",
+           "gjk_distance_shapes_batch", "DistanceResult", "ShapeBatch",
+           "spheres", "boxes", "capsules", "cylinders", "concat_shapes",
+           "FusedResult",
            "GJKEPAConfig", "DEFAULT_CONFIG", "CollisionResult", "Status"]

@@ -26,12 +26,16 @@ import tempfile
 import types
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = ("gjk_hulls.cu", "epa_hulls.cu", "cf_shapes.cu", "gjk_shapes.cu",
-           "epa_shapes.cu")
-HEADERS = ("lane_geom.cuh", "gjk_core.cuh", "epa_core.cuh", "shape_geom.cuh")
+           "epa_shapes.cu", "distance_hulls.cu", "gjk_hull_shape.cu",
+           "epa_hull_shape.cu")
+HEADERS = ("lane_geom.cuh", "gjk_core.cuh", "epa_core.cuh", "shape_geom.cuh",
+           "hull_shape.cuh")
 NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -53,6 +57,13 @@ ENTRY_POINTS = {
     "epa_shapes_launch": ("epa_shapes.cu", [_vp] * 10 + [_ci, _ci, _ip, _ip,
                                                          _ci, _cf, _cf, _ci,
                                                          _vp]),
+    "distance_hulls_launch": ("distance_hulls.cu", [_vp] * 10 + [_ci] * 3
+                              + [_cf, _ci, _vp]),
+    "gjk_hull_shape_launch": ("gjk_hull_shape.cu", [_vp] * 10 + [_ci] * 2
+                              + [_cf] * 4 + [_ci, _vp]),
+    "epa_hull_shape_launch": ("epa_hull_shape.cu", [_vp] * 10
+                              + [_ci, _ci, _ci, _ip, _ip, _ci, _cf, _cf, _ci,
+                                 _vp]),
 }
 
 
@@ -128,6 +139,29 @@ def bind(libs: dict[str, ctypes.CDLL]) -> types.SimpleNamespace:
 def ptr(t) -> ctypes.c_void_p:
     """A tensor's data pointer as a C pointer argument."""
     return ctypes.c_void_p(t.data_ptr())
+
+
+def on_card(t: torch.Tensor, kernel: str) -> bool:
+    """False for CPU tensors (a wrapper then runs the plain version), True
+    for CUDA tensors (it launches the kernel); any other device raises."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"no {kernel} kernel for device {t.device}")
+    return True
+
+
+def launch(name: str, dev: torch.device, counts: dict, *args) -> None:
+    """Call the C entry point ``<name>_launch(*args, stream)`` on ``dev``'s
+    current stream, raise on its CUDA error code, and count the launch in
+    ``counts[name]``."""
+    lib = load()
+    with torch.cuda.device(dev):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        rc = getattr(lib, f"{name}_launch")(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    counts[name] += 1
 
 
 @functools.cache

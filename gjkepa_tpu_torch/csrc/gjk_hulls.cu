@@ -25,24 +25,6 @@ namespace {
 
 constexpr int kThreads = 128;
 
-// Centroid (sum / n, vertex order) and max radius of one hull.
-__device__ void bounding_sphere(const float* __restrict__ v, int n, P3* c, float* r) {
-  float sx = 0.0f, sy = 0.0f, sz = 0.0f;
-  for (int i = 0; i < n; ++i) {
-    sx += v[3 * i];
-    sy += v[3 * i + 1];
-    sz += v[3 * i + 2];
-  }
-  float fn = (float)n;
-  *c = mk(sx / fn, sy / fn, sz / fn);
-  float rr = 0.0f;
-  for (int i = 0; i < n; ++i) {
-    float dx = v[3 * i] - c->x, dy = v[3 * i + 1] - c->y, dz = v[3 * i + 2] - c->z;
-    rr = fmaxf(rr, sqrtf(dx * dx + dy * dy + dz * dz));
-  }
-  *r = rr;
-}
-
 __global__ void __launch_bounds__(kThreads)
 gjk_hulls_kernel(const float* __restrict__ p1, const float* __restrict__ p2, InitDirs dirs,
                  bool* __restrict__ hit_out, int* __restrict__ status_out,

@@ -140,31 +140,36 @@ __device__ __forceinline__ P3 vec_pl(P3 p, P3 a, P3 b, float eps_zero) {
   return utz(sub(foot, p), eps_zero);
 }
 
-// Support of the Minkowski difference of two row-major (N, 3) hulls: the
-// first maximum of v.d on side 1 and of -(v.d) on side 2, in vertex order
+// Index of the first vertex of a row-major (N, 3) hull maximising <v, d>,
+// or -<v, d> when kNeg (side 2 of the Minkowski support), in vertex order
 // (strict >, as the reference's scan and torch.argmax).
+template <bool kNeg>
+__device__ __forceinline__ int first_max_vertex(const float* __restrict__ v, int n, P3 d) {
+  float best = v[0] * d.x + v[1] * d.y + v[2] * d.z;
+  if (kNeg) best = -best;
+  int idx = 0;
+  for (int i = 1; i < n; ++i) {
+    float t = v[3 * i] * d.x + v[3 * i + 1] * d.y + v[3 * i + 2] * d.z;
+    if (kNeg) t = -t;
+    if (t > best) {
+      best = t;
+      idx = i;
+    }
+  }
+  return idx;
+}
+
+__device__ __forceinline__ P3 vertex(const float* __restrict__ v, int i) {
+  return mk(v[3 * i], v[3 * i + 1], v[3 * i + 2]);
+}
+
+// Support of the Minkowski difference of two row-major (N, 3) hulls: the
+// first maximum of v.d on side 1 minus the first maximum of -(v.d) on
+// side 2.
 __device__ __forceinline__ P3 hull_support(const float* __restrict__ v1, int n1,
                                            const float* __restrict__ v2, int n2, P3 d) {
-  float best1 = v1[0] * d.x + v1[1] * d.y + v1[2] * d.z;
-  int i1 = 0;
-  for (int i = 1; i < n1; ++i) {
-    float t = v1[3 * i] * d.x + v1[3 * i + 1] * d.y + v1[3 * i + 2] * d.z;
-    if (t > best1) {
-      best1 = t;
-      i1 = i;
-    }
-  }
-  float best2 = -(v2[0] * d.x + v2[1] * d.y + v2[2] * d.z);
-  int i2 = 0;
-  for (int i = 1; i < n2; ++i) {
-    float t = -(v2[3 * i] * d.x + v2[3 * i + 1] * d.y + v2[3 * i + 2] * d.z);
-    if (t > best2) {
-      best2 = t;
-      i2 = i;
-    }
-  }
-  return mk(v1[3 * i1] - v2[3 * i2], v1[3 * i1 + 1] - v2[3 * i2 + 1],
-            v1[3 * i1 + 2] - v2[3 * i2 + 2]);
+  return sub(vertex(v1, first_max_vertex<false>(v1, n1, d)),
+             vertex(v2, first_max_vertex<true>(v2, n2, d)));
 }
 
 // hull_support as the support functor of gjk_core.cuh / epa_core.cuh.
@@ -175,5 +180,25 @@ struct HullSupport {
   int n2;
   __device__ __forceinline__ P3 operator()(P3 d) const { return hull_support(v1, n1, v2, n2, d); }
 };
+
+// Centroid (sum / n, vertex order) and largest centroid-vertex distance of
+// one row-major (N, 3) hull: the bounding sphere of the broadphase.
+__device__ __forceinline__ void bounding_sphere(const float* __restrict__ v, int n, P3* c,
+                                                float* r) {
+  float sx = 0.0f, sy = 0.0f, sz = 0.0f;
+  for (int i = 0; i < n; ++i) {
+    sx += v[3 * i];
+    sy += v[3 * i + 1];
+    sz += v[3 * i + 2];
+  }
+  float fn = (float)n;
+  *c = mk(sx / fn, sy / fn, sz / fn);
+  float rr = 0.0f;
+  for (int i = 0; i < n; ++i) {
+    float dx = v[3 * i] - c->x, dy = v[3 * i + 1] - c->y, dz = v[3 * i + 2] - c->z;
+    rr = fmaxf(rr, sqrtf(dx * dx + dy * dy + dz * dz));
+  }
+  *r = rr;
+}
 
 }  // namespace gjkepa

@@ -11,7 +11,12 @@ JAX package builds from the same seed:
   * :func:`mixed16_pairs`: the 16 kind combinations with random rotations
     of ``tests/test_shapes.py:246-276``;
   * :func:`kind_batch`: one kind (``_batch_of_kind``), e.g. the dense
-    all-cylinder batch of ``tests/test_shapes.py:317-319``.
+    all-cylinder batch of ``tests/test_shapes.py:317-319``;
+  * :func:`random_hulls`: ``bench.py``'s hull generator (:112-116), and
+    with it :func:`c2_hulls` (config 2, 65,536 pairs of 64-vertex hulls,
+    :164-194) and :func:`c3b_pairs` (config 3b, 16,384 24-vertex hulls
+    against the four analytic kinds, :252-275), drawn in the bench's order
+    from its one generator so the arrays equal the bench's.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["c3_pairs", "c3_shuffled", "mixed16_pairs", "kind_batch", "concat",
-           "permute"]
+           "permute", "random_hulls", "c2_hulls", "c3b_pairs"]
 
 _EYE = np.eye(3, dtype=np.float32)
 
@@ -110,3 +115,51 @@ def mixed16_pairs(n_per_combo: int, seed: int):
     b = concat(*[kind_batch(kb, n_per_combo, rng) for _ in range(4)
                  for kb in range(4)])
     return a, b
+
+
+def random_hulls(rng, b: int, n: int, spread: float = 0.8):
+    """(b, n, 3) float32: n points on a unit sphere, each scaled by
+    U(0.5, 1), the cloud moved by N(0, spread^2) (bench.py:112-116)."""
+    v = rng.normal(size=(b, n, 3))
+    v /= np.linalg.norm(v, axis=-1, keepdims=True)
+    v *= 0.5 + 0.5 * rng.random((b, n, 1))
+    return (v + rng.normal(size=(b, 1, 3)) * spread).astype(np.float32)
+
+
+def _c2_draws(rng, n: int, verts: int):
+    """Config 2's four hull draws: the 4096-pair cell, then the n-pair one
+    (bench.py:171-174); returns the latter."""
+    for _ in range(2):
+        random_hulls(rng, 4096, verts)
+    return random_hulls(rng, n, verts), random_hulls(rng, n, verts)
+
+
+def c2_hulls(seed: int = 0, n: int = 65536, verts: int = 64):
+    """bench.py's config-2 hull pairs (boolean and distance): (p1, p2)."""
+    return _c2_draws(np.random.default_rng(seed), n, verts)
+
+
+def c3b_pairs(seed: int = 0):
+    """bench.py's config 3b (:252-268): 16,384 24-vertex hulls and a quarter
+    each of spheres, boxes, capsules and cylinders at positions ~ N(0,
+    0.8^2), identity rotations.  Drawn after config 2's hulls from the same
+    generator, as the bench does.  Returns (hulls, (kind, params, pos,
+    rot))."""
+    rng = np.random.default_rng(seed)
+    _c2_draws(rng, 65536, 64)
+    b, q = 16384, 16384 // 4
+    hulls = random_hulls(rng, b, 24)
+
+    def pos():
+        return rng.normal(size=(q, 3)).astype(np.float32) * 0.8
+
+    def u(lo, width, shape=q):
+        return lo + width * rng.random(shape).astype(np.float32)
+
+    sph = _shapes(0, _col3(u(0.3, 0.4)), pos())
+    box = _shapes(1, u(0.25, 0.3, (q, 3)), pos())
+    r = u(0.2, 0.2)
+    cap = _shapes(2, _col3(r, u(0.25, 0.25)), pos())
+    r = u(0.2, 0.25)
+    cyl = _shapes(3, _col3(r, u(0.25, 0.25)), pos())
+    return hulls, concat(sph, box, cap, cyl)

@@ -15,8 +15,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.support import (box_support, capsule_support, cylinder_support,
-                           sphere_support)
+from ..ops.support import (SupportResult, box_support, capsule_support,
+                           cylinder_support, sphere_support)
 
 __all__ = [
     "SPHERE", "BOX", "CAPSULE", "CYLINDER", "SupportResult",
@@ -49,10 +49,11 @@ class ShapeBatch(NamedTuple):
         return self.kind.shape[0]
 
     @classmethod
-    def from_numpy(cls, kind, params, pos, rot, device="cpu",
+    def from_numpy(cls, kind, params, pos, rot, device="cuda",
                    dtype=torch.float32) -> "ShapeBatch":
         """Carry a batch across from arrays (e.g. a JAX ``ShapeBatch``'s
-        fields through ``np.asarray``)."""
+        fields through ``np.asarray``) onto ``device``: the card unless the
+        caller names another (``device="cpu"`` for the plain versions)."""
         def t(x, dt):           # a copy: the source may be read-only
             return torch.from_numpy(np.array(x)).to(device=device, dtype=dt)
         return cls(t(kind, torch.int32), t(params, dtype), t(pos, dtype),
@@ -67,14 +68,6 @@ class ShapeBatch(NamedTuple):
                           self.pos.to(torch.float32),
                           self.rot.to(torch.float32).reshape(b, 9)],
                          dim=1).contiguous()
-
-
-class SupportResult(NamedTuple):
-    """Support of the Minkowski difference A - B along each row's dir."""
-
-    w: torch.Tensor   # (B, 3) support point of A - B
-    a: torch.Tensor   # (B, 3) witness on A
-    b: torch.Tensor   # (B, 3) witness on B
 
 
 def _mk(kind, params, pos, rot, dtype, device) -> ShapeBatch:
@@ -93,19 +86,21 @@ def _col(x, dtype, device):
     return torch.as_tensor(x, dtype=dtype, device=device).reshape(-1, 1)
 
 
-def spheres(radius, pos=None, rot=None, dtype=torch.float32, device=None):
+def spheres(radius, pos=None, rot=None, dtype=torch.float32,
+            device="cuda"):
     r = _col(radius, dtype, device)
     return _mk(SPHERE, torch.cat([r, torch.zeros_like(r).expand(-1, 2)], 1),
                pos, rot, dtype, r.device)
 
 
-def boxes(half_extents, pos=None, rot=None, dtype=torch.float32, device=None):
+def boxes(half_extents, pos=None, rot=None, dtype=torch.float32,
+          device="cuda"):
     h = torch.as_tensor(half_extents, dtype=dtype, device=device).reshape(-1, 3)
     return _mk(BOX, h, pos, rot, dtype, h.device)
 
 
 def capsules(radius, half_length, pos=None, rot=None, dtype=torch.float32,
-             device=None):
+             device="cuda"):
     r = _col(radius, dtype, device)
     h = _col(half_length, dtype, r.device)
     return _mk(CAPSULE, torch.cat([r, h, torch.zeros_like(r)], 1), pos, rot,
@@ -113,7 +108,7 @@ def capsules(radius, half_length, pos=None, rot=None, dtype=torch.float32,
 
 
 def cylinders(radius, half_height, pos=None, rot=None, dtype=torch.float32,
-              device=None):
+              device="cuda"):
     r = _col(radius, dtype, device)
     h = _col(half_height, dtype, r.device)
     return _mk(CYLINDER, torch.cat([r, h, torch.zeros_like(r)], 1), pos, rot,

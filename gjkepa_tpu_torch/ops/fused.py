@@ -28,6 +28,7 @@ from .fused_epa import epa_cascade
 from .fused_gjk import gjk_hulls
 
 __all__ = ["FusedResult", "fused_gjkepa_hulls", "fused_gjkepa_shapes",
+           "fused_gjk_distance_hulls", "fused_gjkepa_hull_shapes",
            "cascade_plan", "round_cfg", "mask_to_padding", "hit_first_order"]
 
 
@@ -136,5 +137,8 @@ def fused_gjkepa_hulls(p1: torch.Tensor, p2: torch.Tensor,
                        g.sep)
 
 
-# The analytic-shape query builds on the pieces above (ops/fused_shapes.py).
+# The shape, distance and hull-vs-shape queries build on the pieces above
+# (ops/fused_shapes.py, ops/fused_distance.py, ops/fused_hull_shapes.py).
 from .fused_shapes import fused_gjkepa_shapes  # noqa: E402
+from .fused_distance import fused_gjk_distance_hulls  # noqa: E402
+from .fused_hull_shapes import fused_gjkepa_hull_shapes  # noqa: E402

@@ -1,0 +1,292 @@
+"""The fused distance query over hull pairs: K8 and its two-phase dispatch.
+
+Ports from ``gjkepa_tpu/ops/fused.py`` the kernel ``_distance_kernel_hulls``
+(K8, :2867) with ``_make_hull_support_ab`` (:2778) and
+``_closest_candidates`` (:2799), and the dispatch
+``fused_gjk_distance_hulls`` (:3002-3135).  The CUDA kernel is
+``csrc/distance_hulls.cu``; :func:`distance_hulls_plain` is its plain
+PyTorch version and keeps its operation order: the 15 candidates in the
+same order, folded one at a time with the first strict minimum winning,
+``BIG = 3.4e38`` for invalid ones, ``eps_rel = 1e-6``.  The wrapper takes
+the plain version only for tensors on the CPU; for CUDA tensors it launches
+the kernel or raises.
+
+The dispatch, ``two_phase=True``: K8 runs every pair at the low cap
+``phase1_iters``; ``hit_first_order`` of the unconverged lanes puts them
+first, their count staying on the device; K8 runs again over those lanes at
+the full cap, from scratch, and writes each one's row in place.  The
+restart retraces the same deterministic iterations, so the result equals
+the single-phase run bit for bit.  The TPU's B/8 prefix with its
+``lax.cond`` tail, the done-flag input for filler lanes and the gather and
+sort layouts are gone: a CUDA thread takes its lane from the order and
+nothing else waits on it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from .. import _build
+from ..config import GJKEPAConfig
+from .distance import SUBSETS, DistanceResult
+from .fused import hit_first_order, mask_to_padding
+from .fused_epa import check_tensors
+from .fused_gjk import check_hulls, make_hull_support_ab
+from .lane_geom import P3, fsqrt, pcoincide, pcross, pdot, pscale, pwhere
+
+__all__ = ["DistanceRows", "distance_hulls", "distance_hulls_plain",
+           "fused_gjk_distance_hulls", "LAUNCHES"]
+
+# Kernel launches made by distance_hulls (CUDA tensors only).
+LAUNCHES = {"distance_hulls": 0}
+
+BIG = 3.4e38            # distance of an invalid candidate (float32)
+EPS_REL = 1e-6          # relative duality gap, and |v|^2 of intersection
+
+
+class DistanceRows(NamedTuple):
+    """K8's per-pair output (the JAX kernel's rows 0-9)."""
+
+    distance: torch.Tensor      # (B,) f32, 0 when intersecting
+    point_a: torch.Tensor       # (B, 3) f32 witness on A
+    point_b: torch.Tensor       # (B, 3) f32 witness on B
+    intersecting: torch.Tensor  # (B,) bool
+    iters: torch.Tensor         # (B,) int32
+    converged: torch.Tensor     # (B,) bool: stopped before the cap
+
+
+def _candidates(w, n):
+    """Yield (d2, bary 4-tuple) for the 15 sub-simplices of the 4-point
+    simplex ``w`` (a tuple of P3) holding ``n`` points; an invalid
+    candidate has d2 = BIG."""
+    zero = torch.zeros_like(w[0].x)
+    one = torch.ones_like(zero)
+    for i in range(4):
+        bary = [zero] * 4
+        bary[i] = one
+        yield torch.where(i < n, pdot(w[i], w[i]), BIG), bary
+    for i, j in ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3)):
+        a, b = w[i], w[j]
+        ab = b - a
+        den = pdot(ab, ab)
+        t = pdot(-a, ab) / torch.where(den > 0, den, 1.0)
+        t = torch.minimum(torch.maximum(t, zero), one)
+        p = a + pscale(ab, t)
+        bary = [zero] * 4
+        bary[i], bary[j] = 1.0 - t, t
+        yield torch.where((j < n) & (den > 0), pdot(p, p), BIG), bary
+    for i, j, k in ((0, 1, 2), (0, 1, 3), (0, 2, 3), (1, 2, 3)):
+        a, b, c = w[i], w[j], w[k]
+        nrm = pcross(b - a, c - a)
+        nn = pdot(nrm, nrm)
+        p = pscale(nrm, pdot(a, nrm) / torch.where(nn > 0, nn, 1.0))
+        v0, v1, v2 = b - a, c - a, p - a
+        d00, d01, d11 = pdot(v0, v0), pdot(v0, v1), pdot(v1, v1)
+        d20, d21 = pdot(v2, v0), pdot(v2, v1)
+        den = d00 * d11 - d01 * d01
+        dsafe = torch.where(torch.abs(den) > 0, den, 1.0)
+        bv = (d11 * d20 - d01 * d21) / dsafe
+        bw = (d00 * d21 - d01 * d20) / dsafe
+        bu = 1.0 - bv - bw
+        inside = (bu >= 0) & (bv >= 0) & (bw >= 0) & (torch.abs(den) > 0)
+        bary = [zero] * 4
+        bary[i], bary[j], bary[k] = bu, bv, bw
+        yield torch.where((k < n) & inside, pdot(p, p), BIG), bary
+    # the tetrahedron's interior, by Cramer's rule
+    a, b, c, d = w
+    e0, e1, e2 = b - a, c - a, d - a
+    det = pdot(pcross(e0, e1), e2)
+    dsafe = torch.where(torch.abs(det) > 0, det, 1.0)
+    rhs = -a
+    l0 = pdot(pcross(rhs, e1), e2) / dsafe
+    l1 = pdot(pcross(e0, rhs), e2) / dsafe
+    l2 = pdot(pcross(e0, e1), rhs) / dsafe
+    u = 1.0 - l0 - l1 - l2
+    inside = ((u >= 0) & (l0 >= 0) & (l1 >= 0) & (l2 >= 0)
+              & (torch.abs(det) > 0))
+    yield torch.where((n >= 4) & inside, zero, BIG), [u, l0, l1, l2]
+
+
+def _distance_lanes(p1, p2, eps: float, max_iters: int):
+    """Distance GJK over every pair of (A, N, 3) hulls, lane-vectorised."""
+    support = make_hull_support_ab(p1, p2)
+    n_lanes, dev = p1.shape[0], p1.device
+    zero = torch.zeros(n_lanes, dtype=torch.float32, device=dev)
+    pz = P3(zero, zero, zero)
+    w0, a0, b0 = support(P3(torch.ones_like(zero), zero, zero))
+    w, wa, wb = (w0, pz, pz, pz), (a0, pz, pz, pz), (b0, pz, pz, pz)
+    n = torch.ones(n_lanes, dtype=torch.int32, device=dev)
+    it = torch.zeros_like(n)
+    done = torch.zeros(n_lanes, dtype=torch.bool, device=dev)
+    inter = torch.zeros_like(done)
+    d2, pa, pb = zero, pz, pz
+    while True:
+        run = ~done & (it < max_iters)
+        if not bool(run.any()):
+            break
+        # fold the candidates in order: the first strict minimum wins
+        best_d2 = best_k = bary = None
+        for k, (cd2, cbary) in enumerate(_candidates(w, n)):
+            if best_d2 is None:
+                best_d2, bary = cd2, cbary
+                best_k = torch.zeros_like(n)
+                continue
+            better = cd2 < best_d2
+            best_d2 = torch.where(better, cd2, best_d2)
+            best_k = torch.where(better, k, best_k)
+            bary = [torch.where(better, x, y) for x, y in zip(cbary, bary)]
+        vpt, pa_k, pb_k = pz, pz, pz
+        for s in range(4):
+            vpt = vpt + pscale(w[s], bary[s])
+            pa_k = pa_k + pscale(wa[s], bary[s])
+            pb_k = pb_k + pscale(wb[s], bary[s])
+        v2 = pdot(vpt, vpt)
+        now_inter = v2 < EPS_REL
+
+        # reduce to the supporting sub-simplex (compacted to the front)
+        new_w, new_a, new_b = [pz] * 4, [pz] * 4, [pz] * 4
+        size = torch.zeros_like(n)
+        for k, sub in enumerate(SUBSETS):
+            sel = best_k == k
+            size = torch.where(sel, len(sub), size)
+            for s, vi in enumerate(sub):
+                new_w[s] = pwhere(sel, w[vi], new_w[s])
+                new_a[s] = pwhere(sel, wa[vi], new_a[s])
+                new_b[s] = pwhere(sel, wb[vi], new_b[s])
+
+        rw, ra, rb = support(-vpt)
+        gap = v2 - pdot(vpt, rw)
+        converged = now_inter | (gap <= EPS_REL * torch.clamp(v2, min=1.0))
+        dup = torch.zeros_like(done)
+        for s in range(4):
+            dup = dup | ((s < size) & pcoincide(new_w[s], rw, eps))
+        done_now = run & (converged | dup)
+        grow = run & ~done_now
+        for s in range(4):              # the new support goes to slot size
+            here = (size == s) & grow
+            new_w[s] = pwhere(here, rw, new_w[s])
+            new_a[s] = pwhere(here, ra, new_a[s])
+            new_b[s] = pwhere(here, rb, new_b[s])
+        w, wa, wb = (tuple(pwhere(run, x, y) for x, y in zip(new, old))
+                     for new, old in ((new_w, w), (new_a, wa), (new_b, wb)))
+        n = torch.where(run, torch.where(grow, torch.clamp(size + 1, max=4),
+                                         size), n)
+        it = torch.where(run, it + 1, it)
+        done = done | done_now
+        d2 = torch.where(run, v2, d2)
+        pa = pwhere(run, pa_k, pa)
+        pb = pwhere(run, pb_k, pb)
+        inter = torch.where(run, now_inter, inter)
+    dist = torch.where(inter, 0.0, fsqrt(torch.clamp(d2, min=0.0)))
+    return DistanceRows(dist, torch.stack(list(pa), 1),
+                        torch.stack(list(pb), 1), inter, it, done)
+
+
+def _check_order(p1, order, n_act) -> None:
+    if (order is None) != (n_act is None):
+        raise ValueError("order and n_act go together")
+    if order is not None:
+        check_tensors(p1, order=(order, torch.int32, (p1.shape[0],)),
+                      n_act=(n_act, torch.int32, ()))
+
+
+def _empty_rows(b, dev) -> DistanceRows:
+    f32 = dict(dtype=torch.float32, device=dev)
+    return DistanceRows(torch.empty(b, **f32), torch.empty((b, 3), **f32),
+                        torch.empty((b, 3), **f32),
+                        torch.empty(b, dtype=torch.bool, device=dev),
+                        torch.empty(b, dtype=torch.int32, device=dev),
+                        torch.empty(b, dtype=torch.bool, device=dev))
+
+
+def _check_out(p1, out: DistanceRows) -> None:
+    b = p1.shape[0]
+    check_tensors(p1, distance=(out.distance, torch.float32, (b,)),
+                  point_a=(out.point_a, torch.float32, (b, 3)),
+                  point_b=(out.point_b, torch.float32, (b, 3)),
+                  intersecting=(out.intersecting, torch.bool, (b,)),
+                  iters=(out.iters, torch.int32, (b,)),
+                  converged=(out.converged, torch.bool, (b,)))
+
+
+def distance_hulls_plain(p1, p2, cfg: GJKEPAConfig, max_iters: int,
+                         order=None, n_act=None,
+                         out: DistanceRows | None = None) -> DistanceRows:
+    """Plain PyTorch version of K8: distance GJK over pairs
+    ``order[:n_act]`` (every pair without an order), each pair's row
+    written to ``out`` (new tensors without it); other rows untouched."""
+    check_hulls(p1, p2)
+    _check_order(p1, order, n_act)
+    if out is None:
+        out = _empty_rows(p1.shape[0], p1.device)
+    _check_out(p1, out)
+    if order is None:
+        lanes = torch.arange(p1.shape[0], device=p1.device)
+    else:
+        lanes = order[:int(n_act)].long()
+    if lanes.numel():
+        rows = _distance_lanes(p1[lanes], p2[lanes], cfg.eps_coincide,
+                               max_iters)
+        for dst, src in zip(out, rows):
+            dst[lanes] = src
+    return out
+
+
+def distance_hulls(p1, p2, cfg: GJKEPAConfig, max_iters: int, order=None,
+                   n_act=None, out: DistanceRows | None = None
+                   ) -> DistanceRows:
+    """K8 over (B, N, 3) float32 hull pairs ``order[:n_act]`` (``n_act`` a
+    device scalar; every pair without an order), each pair's row written
+    to ``out`` in place (new tensors without it).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (``csrc/distance_hulls.cu``), which raises if it cannot build or
+    launch."""
+    check_hulls(p1, p2)
+    _check_order(p1, order, n_act)
+    if not _build.on_card(p1, "K8"):
+        return distance_hulls_plain(p1, p2, cfg, max_iters, order, n_act,
+                                    out)
+    if out is None:
+        out = _empty_rows(p1.shape[0], p1.device)
+    _check_out(p1, out)
+    ptr = _build.ptr
+    null = ctypes.c_void_p(None)
+    _build.launch("distance_hulls", p1.device, LAUNCHES, ptr(p1), ptr(p2),
+                  null if order is None else ptr(order),
+                  null if n_act is None else ptr(n_act),
+                  *(ptr(t) for t in out), p1.shape[0], p1.shape[1],
+                  p2.shape[1], cfg.eps_coincide, max_iters)
+    return out
+
+
+def fused_gjk_distance_hulls(p1: torch.Tensor, p2: torch.Tensor,
+                             mask1: torch.Tensor | None = None,
+                             mask2: torch.Tensor | None = None,
+                             cfg: GJKEPAConfig | None = None,
+                             max_iters: int = 64, two_phase: bool = True,
+                             phase1_iters: int = 10) -> DistanceResult:
+    """Closest distance and witness points over (B, N, 3) float32 hull
+    pairs (0 for intersecting pairs); ragged hulls via (B, N) bool masks or
+    repeated-vertex padding.
+
+    ``two_phase`` runs every pair at ``phase1_iters`` and restarts the
+    unconverged ones at ``max_iters``: the same result as one pass at
+    ``max_iters``, without every warp waiting on its slowest lane."""
+    if cfg is None:
+        cfg = GJKEPAConfig.for_f32()
+    if p1.shape[0] == 0:
+        raise ValueError("empty batch")
+    p1 = mask_to_padding(p1, mask1).contiguous()
+    p2 = mask_to_padding(p2, mask2).contiguous()
+    if two_phase and phase1_iters < max_iters:
+        out = distance_hulls(p1, p2, cfg, phase1_iters)
+        order, n_unf = hit_first_order(~out.converged)
+        distance_hulls(p1, p2, cfg, max_iters, order, n_unf, out=out)
+    else:
+        out = distance_hulls(p1, p2, cfg, max_iters)
+    return DistanceResult(out.distance, out.point_a, out.point_b,
+                          out.intersecting, out.iters)

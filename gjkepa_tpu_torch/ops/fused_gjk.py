@@ -65,38 +65,51 @@ def check_hulls(p1: torch.Tensor, p2: torch.Tensor) -> None:
                          f"{p2.device}")
 
 
-def make_hull_support(p1: torch.Tensor, p2: torch.Tensor):
-    """Support of the Minkowski difference over two (B, N, 3) vertex sets,
-    first-max in vertex order on both sides (ref :1040-1057)."""
-    v1 = [p1[:, :, k] for k in range(3)]
-    v2 = [p2[:, :, k] for k in range(3)]
+def hull_vertex(p: torch.Tensor, d: P3, sign: float = 1.0) -> P3:
+    """The first vertex of each (N, 3) row of ``p`` maximising
+    ``sign * <v, d>`` (vertex order, strict ``>``, as the reference's
+    scan; ``sign = -1`` negates the dot product, ref :1040-1057)."""
+    dots = p[:, :, 0] * d.x[:, None] + p[:, :, 1] * d.y[:, None] \
+        + p[:, :, 2] * d.z[:, None]
+    idx = torch.argmax(dots if sign > 0 else -dots, dim=1)
+    return P3(*(torch.gather(p[:, :, k], 1, idx[:, None])[:, 0]
+                for k in range(3)))
 
-    def pick(v, idx):
-        return [torch.gather(c, 1, idx[:, None])[:, 0] for c in v]
 
-    def support(d: P3) -> P3:
-        dots1 = (v1[0] * d.x[:, None] + v1[1] * d.y[:, None]
-                 + v1[2] * d.z[:, None])
-        a = pick(v1, torch.argmax(dots1, dim=1))
-        dots2 = -(v2[0] * d.x[:, None] + v2[1] * d.y[:, None]
-                  + v2[2] * d.z[:, None])
-        b = pick(v2, torch.argmax(dots2, dim=1))
-        return P3(a[0] - b[0], a[1] - b[1], a[2] - b[2])
+def make_hull_support_ab(p1: torch.Tensor, p2: torch.Tensor):
+    """Support of the Minkowski difference over two (B, N, 3) vertex sets
+    with its witnesses: d -> (a - b, a, b), a the first max of <v, d> on
+    side 1 and b the first max of -<v, d> on side 2."""
+
+    def support(d: P3):
+        a = hull_vertex(p1, d)
+        b = hull_vertex(p2, d, -1.0)
+        return a - b, a, b
 
     return support
 
 
+def make_hull_support(p1: torch.Tensor, p2: torch.Tensor):
+    """Support point of the Minkowski difference over two (B, N, 3) vertex
+    sets (:func:`make_hull_support_ab` without the witnesses)."""
+    support_ab = make_hull_support_ab(p1, p2)
+    return lambda d: support_ab(d)[0]
+
+
+def hull_sphere(p: torch.Tensor):
+    """Bounding sphere of (B, N, 3) hulls: the centroid P3 and the largest
+    centroid-vertex distance."""
+    c = p.mean(dim=1)                                  # (B, 3)
+    r = fsqrt((p[:, :, 0] - c[:, 0:1]) ** 2
+              + (p[:, :, 1] - c[:, 1:2]) ** 2
+              + (p[:, :, 2] - c[:, 2:3]) ** 2).amax(dim=1)
+    return P3(c[:, 0], c[:, 1], c[:, 2]), r
+
+
 def hull_broadphase(p1: torch.Tensor, p2: torch.Tensor, tol) -> torch.Tensor:
     """Bounding-sphere overlap: centroid distance <= r1 + r2 + tol."""
-    def sphere(p):
-        c = p.mean(dim=1)                                  # (B, 3)
-        r = fsqrt((p[:, :, 0] - c[:, 0:1]) ** 2
-                       + (p[:, :, 1] - c[:, 1:2]) ** 2
-                       + (p[:, :, 2] - c[:, 2:3]) ** 2).amax(dim=1)
-        return P3(c[:, 0], c[:, 1], c[:, 2]), r
-
-    c1, r1 = sphere(p1)
-    c2, r2 = sphere(p2)
+    c1, r1 = hull_sphere(p1)
+    c2, r2 = hull_sphere(p2)
     return pnorm(c1 - c2) <= r1 + r2 + tol
 
 

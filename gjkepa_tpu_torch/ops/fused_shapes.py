@@ -116,33 +116,14 @@ def _check_rows(sa, sb, retired) -> None:
                          "read them as float4)")
 
 
-def _on_card(t: torch.Tensor, kernel: str) -> bool:
-    """False for CPU tensors (plain version), True for CUDA tensors (the
-    kernel); any other device raises."""
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"no {kernel} kernel for device {t.device}")
-    return True
-
-
-def _launch(name: str, dev, *args) -> None:
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        rc = getattr(lib, f"{name}_launch")(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
-
-
-def _gjk_args(cfg: GJKEPAConfig):
+def gjk_args(cfg: GJKEPAConfig):
+    """The GJK kernels' config arguments, in their C order."""
     return (cfg.eps_coincide, cfg.eps_zero,
             cfg.eps_coincide * cfg.eps_coincide,  # rounded once, as gjk_phase
             cfg.broadphase_tol, cfg.gjk_max_iters)
 
 
-def _empty_gjk(b, dev) -> GJKRows:
+def empty_gjk_rows(b, dev) -> GJKRows:
     """GJK rows of lanes that never run: the inactive row, all zeros
     (status MISS_BROADPHASE)."""
     return GJKRows(torch.zeros(b, dtype=torch.bool, device=dev),
@@ -174,7 +155,7 @@ def cf_shapes_plain(sa, sb, retired, cfg: GJKEPAConfig) -> CFRows:
 def cf_shapes(sa, sb, retired, cfg: GJKEPAConfig) -> CFRows:
     """K5 over (B, 16) packed shape rows, in the caller's order."""
     _check_rows(sa, sb, retired)
-    if not _on_card(sa, "K5"):
+    if not _build.on_card(sa, "K5"):
         return cf_shapes_plain(sa, sb, retired, cfg)
     b, dev = sa.shape[0], sa.device
     out = CFRows(torch.empty(b, dtype=torch.bool, device=dev),
@@ -184,8 +165,8 @@ def cf_shapes(sa, sb, retired, cfg: GJKEPAConfig) -> CFRows:
                  torch.empty(b, dtype=torch.float32, device=dev),
                  torch.empty(b, dtype=torch.bool, device=dev))
     ptr = _build.ptr
-    _launch("cf_shapes", dev, ptr(sa), ptr(sb), ptr(retired),
-            *(ptr(t) for t in out), b, cfg.broadphase_tol)
+    _build.launch("cf_shapes", dev, LAUNCHES, ptr(sa), ptr(sb), ptr(retired),
+                  *(ptr(t) for t in out), b, cfg.broadphase_tol)
     return out
 
 
@@ -202,7 +183,7 @@ def gjk_sub_shapes_plain(sa, sb, retired, order, n_act,
     other pairs left with the inactive row."""
     _check_rows(sa, sb, retired)
     _check_order(sa, order, n_act)
-    out = _empty_gjk(sa.shape[0], sa.device)
+    out = empty_gjk_rows(sa.shape[0], sa.device)
     lanes = order[:int(n_act)].long()
     if lanes.numel() == 0:
         return out
@@ -224,13 +205,14 @@ def gjk_sub_shapes(sa, sb, retired, order, n_act,
     device scalar), written back to their own pairs."""
     _check_rows(sa, sb, retired)
     _check_order(sa, order, n_act)
-    if not _on_card(sa, "K6a"):
+    if not _build.on_card(sa, "K6a"):
         return gjk_sub_shapes_plain(sa, sb, retired, order, n_act, cfg)
-    out = _empty_gjk(sa.shape[0], sa.device)
+    out = empty_gjk_rows(sa.shape[0], sa.device)
     ptr = _build.ptr
-    _launch("gjk_sub_shapes", sa.device, ptr(sa), ptr(sb), ptr(retired),
-            ptr(order), ptr(n_act), INIT_DIRS.ctypes.data_as(ctypes.c_void_p),
-            *(ptr(t) for t in out), sa.shape[0], *_gjk_args(cfg))
+    _build.launch("gjk_sub_shapes", sa.device, LAUNCHES, ptr(sa), ptr(sb),
+                  ptr(retired), ptr(order), ptr(n_act),
+                  INIT_DIRS.ctypes.data_as(ctypes.c_void_p),
+                  *(ptr(t) for t in out), sa.shape[0], *gjk_args(cfg))
     return out
 
 
@@ -251,17 +233,17 @@ def gjk_shapes_plain(sa, sb, retired, cfg: GJKEPAConfig) -> ShapeGJKRows:
 def gjk_shapes(sa, sb, retired, cfg: GJKEPAConfig) -> ShapeGJKRows:
     """K6b: closed forms and GJK over every pair, in the caller's order."""
     _check_rows(sa, sb, retired)
-    if not _on_card(sa, "K6b"):
+    if not _build.on_card(sa, "K6b"):
         return gjk_shapes_plain(sa, sb, retired, cfg)
     b, dev = sa.shape[0], sa.device
-    g = _empty_gjk(b, dev)
+    g = empty_gjk_rows(b, dev)
     out = ShapeGJKRows(*g, torch.empty(b, dtype=torch.bool, device=dev),
                        torch.empty(b, dtype=torch.float32, device=dev),
                        torch.empty((b, 3), dtype=torch.float32, device=dev))
     ptr = _build.ptr
-    _launch("gjk_shapes", dev, ptr(sa), ptr(sb), ptr(retired),
-            INIT_DIRS.ctypes.data_as(ctypes.c_void_p), *(ptr(t) for t in out),
-            b, *_gjk_args(cfg))
+    _build.launch("gjk_shapes", dev, LAUNCHES, ptr(sa), ptr(sb), ptr(retired),
+                  INIT_DIRS.ctypes.data_as(ctypes.c_void_p),
+                  *(ptr(t) for t in out), b, *gjk_args(cfg))
     return out
 
 
@@ -367,7 +349,7 @@ def epa_shapes(sa, sb, simplex, status, depth, normal, order, n_act,
     """K7 over pairs ``order[:n_act]`` (``n_act`` a device scalar)."""
     _check_epa(sa, sb, simplex, status, depth, normal, order, n_act)
     check_stages(stages)
-    if not _on_card(sa, "K7"):
+    if not _build.on_card(sa, "K7"):
         return epa_shapes_plain(sa, sb, simplex, status, depth, normal, order,
                                 n_act, stages)
     lib = _build.load()
@@ -381,10 +363,10 @@ def epa_shapes(sa, sb, simplex, status, depth, normal, order, n_act,
     scratch = torch.empty((lib.epa_scratch_words_per_face(), f_max, b),
                           dtype=torch.float32, device=dev)
     ptr = _build.ptr
-    _launch("epa_shapes", dev, ptr(sa), ptr(sb), ptr(simplex), ptr(order),
-            ptr(n_act), *(ptr(t) for t in out), ptr(scratch), b, len(stages),
-            tier_f, tier_k, f_max, cfg.eps_coincide, cfg.eps_zero,
-            cfg.epa_max_iters)
+    _build.launch("epa_shapes", dev, LAUNCHES, ptr(sa), ptr(sb), ptr(simplex),
+                  ptr(order), ptr(n_act), *(ptr(t) for t in out), ptr(scratch),
+                  b, len(stages), tier_f, tier_k, f_max, cfg.eps_coincide,
+                  cfg.eps_zero, cfg.epa_max_iters)
     return out
 
 

@@ -23,7 +23,7 @@ from .lane_geom import P3, fsqrt, pcross, pdot, pnorm, pscale, pwhere
 
 __all__ = ["Shape", "shape_of", "shape_support_side", "make_shape_support",
            "shape_radius", "shape_broadphase", "closed_form_rows",
-           "cf_kind_mask", "ClosedForm"]
+           "sphere_gap", "cf_kind_mask", "ClosedForm"]
 
 BIG = 3.4e38
 
@@ -215,24 +215,12 @@ def _box_box_sat(sa: Shape, sb: Shape):
     return best, bn, torch.clamp(sep, min=0.0)
 
 
-def closed_form_rows(sa: Shape, sb: Shape, tol) -> ClosedForm:
-    """Exact answers for the pair kinds with closed forms (K4): swept-sphere
-    segment-segment for {sphere, capsule}^2, point-box clamp, point-solid
-    cylinder clamp, box-box SAT.  Normal points A -> B."""
+def _swept_pair(sa: Shape, sb: Shape):
+    """{sphere, capsule}^2: the segment-segment closest points (clamps
+    s -> t -> s) and the radii; (depth, normal A -> B, gap)."""
     k1, k2 = sa.kind, sb.kind
     r1, r2 = sa.p0, sb.p0
-    is_ss1 = (k1 < 0.5) | ((k1 > 1.5) & (k1 < 2.5))
-    is_ss2 = (k2 < 0.5) | ((k2 > 1.5) & (k2 < 2.5))
-    both_swept = is_ss1 & is_ss2
-    s_b = (k1 < 0.5) & (torch.abs(k2 - 1.0) < 0.5)
-    b_s = (torch.abs(k1 - 1.0) < 0.5) & (k2 < 0.5)
-    s_c = (k1 < 0.5) & (k2 > 2.5)
-    c_s = (k1 > 2.5) & (k2 < 0.5)
-    b_b = (torch.abs(k1 - 1.0) < 0.5) & (torch.abs(k2 - 1.0) < 0.5)
-    final = both_swept | s_b | b_s | s_c | c_s | b_b
     pos1, pos2 = sa.pos, sb.pos
-
-    # -- swept-sphere pair: segment-segment closest points, s -> t -> s ------
     l1 = torch.where((k1 > 1.5) & (k1 < 2.5), sa.p1, 0.0)
     l2 = torch.where((k2 > 1.5) & (k2 < 2.5), sb.p1, 0.0)
     u1 = P3(sa.r[2], sa.r[5], sa.r[8])          # R column 2 (local z)
@@ -253,8 +241,39 @@ def closed_form_rows(sa: Shape, sb: Shape, tol) -> ClosedForm:
     zero = torch.zeros_like(dist)
     n_ss = pwhere(dist > 1e-12, pscale(dvec, inv),
                   P3(zero, zero, torch.ones_like(dist)))
-    depth_ss = r1 + r2 - dist
-    gap_ss = dist - (r1 + r2)
+    return r1 + r2 - dist, n_ss, dist - (r1 + r2)
+
+
+def sphere_gap(sa: Shape, sb: Shape):
+    """``closed_form_rows(sa, sb, tol).gap`` where every side-A row is a
+    sphere, from the three branches a sphere can take: the swept pair (B a
+    sphere or capsule), the point-box clamp and the point-cylinder clamp."""
+    k2 = sb.kind
+    _, _, g_ss = _swept_pair(sa, sb)
+    _, _, g_sb = _sphere_vs_box(sa.pos, sa.p0, sb)
+    _, _, g_sc = _sphere_vs_cyl(sa.pos, sa.p0, sb)
+    is_ss2 = (k2 < 0.5) | ((k2 > 1.5) & (k2 < 2.5))
+    return torch.where(is_ss2, g_ss, torch.where(k2 > 2.5, g_sc, g_sb))
+
+
+def closed_form_rows(sa: Shape, sb: Shape, tol) -> ClosedForm:
+    """Exact answers for the pair kinds with closed forms (K4): swept-sphere
+    segment-segment for {sphere, capsule}^2, point-box clamp, point-solid
+    cylinder clamp, box-box SAT.  Normal points A -> B."""
+    k1, k2 = sa.kind, sb.kind
+    r1, r2 = sa.p0, sb.p0
+    is_ss1 = (k1 < 0.5) | ((k1 > 1.5) & (k1 < 2.5))
+    is_ss2 = (k2 < 0.5) | ((k2 > 1.5) & (k2 < 2.5))
+    both_swept = is_ss1 & is_ss2
+    s_b = (k1 < 0.5) & (torch.abs(k2 - 1.0) < 0.5)
+    b_s = (torch.abs(k1 - 1.0) < 0.5) & (k2 < 0.5)
+    s_c = (k1 < 0.5) & (k2 > 2.5)
+    c_s = (k1 > 2.5) & (k2 < 0.5)
+    b_b = (torch.abs(k1 - 1.0) < 0.5) & (torch.abs(k2 - 1.0) < 0.5)
+    final = both_swept | s_b | b_s | s_c | c_s | b_b
+    pos1, pos2 = sa.pos, sb.pos
+    depth_ss, n_ss, gap_ss = _swept_pair(sa, sb)
+    zero = torch.zeros_like(depth_ss)
 
     d_sb, n_sb, g_sb = _sphere_vs_box(pos1, r1, sb)
     d_bs, n_bs, g_bs = _sphere_vs_box(pos2, r2, sa)

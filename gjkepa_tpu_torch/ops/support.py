@@ -1,21 +1,58 @@
-"""Closed-form supports of the analytic primitives, in the local frame.
+"""Support maps: padded hulls and the analytic primitives.
 
-Port of the analytic half of ``gjkepa_tpu/ops/support.py`` (:84-108),
-row-vectorised: ``d`` is (B, 3) and the parameters are (B,), one shape per
-row.  Each returns a maximiser of <d, x> over the shape; on a zero
-direction component any maximiser would do, and the sign tests keep the
-JAX package's ``>=`` (the +half-extent side).  The hull half of that file
-belongs to the portable path and is not ported here.
+Port of ``gjkepa_tpu/ops/support.py``, row-vectorised: ``d`` is (B, 3),
+one query per row.  The hull support (:42-74) is the first maximum of
+<d, v> over a padded (B, N, 3) vertex buffer, masked rows excluded (ties go
+to the lower index, as the reference's strict-``>`` scan); it returns the
+witness on each side with the Minkowski point.  The analytic supports
+(:84-108) take (B,) parameters and return a maximiser of <d, x> over the
+shape in its local frame; on a zero direction component any maximiser would
+do, and the sign tests keep the JAX package's ``>=`` (the +half-extent
+side).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from .lane_geom import fsqrt
 
-__all__ = ["sphere_support", "box_support", "capsule_support",
+__all__ = ["SupportResult", "hull_support_point", "make_hull_support",
+           "sphere_support", "box_support", "capsule_support",
            "cylinder_support"]
+
+
+class SupportResult(NamedTuple):
+    """Support of the Minkowski difference A - B along each row's dir."""
+
+    w: torch.Tensor   # (B, 3) support point of A - B
+    a: torch.Tensor   # (B, 3) witness on A
+    b: torch.Tensor   # (B, 3) witness on B
+
+
+def hull_support_point(verts: torch.Tensor, d: torch.Tensor,
+                       mask: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, 3): the first vertex of each (N, 3) row maximising <d, v>."""
+    dots = (verts[:, :, 0] * d[:, 0:1] + verts[:, :, 1] * d[:, 1:2]
+            + verts[:, :, 2] * d[:, 2:3])
+    if mask is not None:
+        dots = torch.where(mask, dots, -torch.inf)
+    i = torch.argmax(dots, dim=1)
+    return torch.gather(verts, 1, i[:, None, None].expand(-1, 1, 3))[:, 0]
+
+
+def make_hull_support(p1, p2, mask1=None, mask2=None):
+    """Minkowski support over two padded hull batches (B, N, 3), with
+    optional (B, N) bool validity masks."""
+
+    def support(d: torch.Tensor) -> SupportResult:
+        a = hull_support_point(p1, d, mask1)
+        b = hull_support_point(p2, -d, mask2)
+        return SupportResult(a - b, a, b)
+
+    return support
 
 
 def _safe_unit(v: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:

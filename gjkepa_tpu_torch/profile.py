@@ -1,0 +1,194 @@
+"""Profile the port's query paths on one NVIDIA GPU.
+
+Usage, from the root of a checkout:
+
+    python3 -m gjkepa_tpu_torch.profile [path ...]
+
+Paths, each at its bench.py configuration (``models/fixtures.py``):
+
+  c2        ``fused_gjkepa_hulls``, boolean, 65,536 x 64 hull pairs;
+  c2dist    ``fused_gjk_distance_hulls``, two-phase, the same pairs;
+  c2dist1   the same, one pass (``two_phase=False``);
+  c3        ``fused_gjkepa_shapes``, 65,536 analytic shape pairs;
+  c3b       ``fused_gjkepa_hull_shapes``, 16,384 24-vertex hulls against
+            the four shape kinds;
+  c3b_unsorted  the same with ``sort_hits=False``;
+  c4        ``gjkepa_batch_fused``, 16,384 x 24 deep pairs, full contact.
+
+Without arguments it profiles them all; named paths run in the order given,
+repeats included (``c3b c3b_unsorted c3b_unsorted c3b`` compares two in
+turns).  For each path it prints the host
+wall per call (``torch.cuda.synchronize`` after each call, median of 7
+after 2 warm-up calls), then, over 5 calls under ``torch.profiler``: the
+device time per call (kernel self time), the device's busy share of the
+wall, the kernel launches per call and the operations with the most device
+time.  For c2dist and c3b it also times each step of the dispatch alone
+(host wall, synchronised, median of 7).  Every line names the card and its
+power limit.  Without a CUDA device it exits non-zero.
+"""
+
+from __future__ import annotations
+
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from . import (GJKEPAConfig, ShapeBatch, fused_gjk_distance_hulls,
+               fused_gjkepa_hull_shapes, fused_gjkepa_hulls,
+               fused_gjkepa_shapes, gjkepa_batch_fused)
+from .models import fixtures
+from .ops import fused_distance as fd
+from .ops import fused_hull_shapes as fh
+from .ops.fused import hit_first_order
+from .ops.fused_shapes import shape_stages
+
+WALL_CALLS = 7
+PROFILED_CALLS = 5
+TOP_OPS = 8
+
+
+def wall_ms(fn, calls=WALL_CALLS, warmup=2) -> float:
+    """Median host wall of ``fn()`` in ms, synchronised after each call."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _self_device_us(event) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(event, name):
+            return getattr(event, name)
+    raise AttributeError("profiler event without a device time")
+
+
+def profile_path(name, fn, card) -> None:
+    """Wall, device time, busy share, launches and top ops of one path."""
+    from torch.profiler import ProfilerActivity, profile
+    wall = wall_ms(fn)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILED_CALLS):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.events() if e.device_type == cuda]
+    device_ms = (sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+                 / PROFILED_CALLS)
+    if device_ms <= 0:
+        raise RuntimeError(f"{name}: the profiler saw no device time")
+    print(f"{name}: wall {wall:.4f} ms a call; device {device_ms:.4f} ms a "
+          f"call, busy {device_ms / wall:.3f} of the wall; "
+          f"{len(kernels) / PROFILED_CALLS:.0f} kernel launches a call "
+          f"[{card}]", flush=True)
+    ops = sorted(prof.key_averages(), key=_self_device_us, reverse=True)
+    for e in ops[:TOP_OPS]:
+        ms = _self_device_us(e) / 1e3 / PROFILED_CALLS
+        print(f"  {name} op {e.key}: {ms:.4f} ms a call, "
+              f"{e.count / PROFILED_CALLS:.0f} calls", flush=True)
+
+
+def steps_c2dist(d1, d2, cfg, card) -> None:
+    """The distance dispatch step by step."""
+    out = fd.distance_hulls(d1, d2, cfg, 10)
+    order, n_unf = hit_first_order(~out.converged)
+    steps = {
+        "K8 phase 1 (cap 10)": lambda: fd.distance_hulls(d1, d2, cfg, 10),
+        "hit_first_order": lambda: hit_first_order(~out.converged),
+        "K8 phase 2 (cap 64)": lambda: fd.distance_hulls(
+            d1, d2, cfg, 64, order, n_unf, out=out),
+        "K8 one pass (cap 64)": lambda: fd.distance_hulls(d1, d2, cfg, 64),
+    }
+    print(f"c2dist: {int(n_unf)} of {d1.shape[0]} lanes unconverged after "
+          "phase 1", flush=True)
+    for what, fn in steps.items():
+        print(f"  c2dist step {what}: {wall_ms(fn):.4f} ms [{card}]",
+              flush=True)
+
+
+def steps_c3b(p1, shapes, cfg, card) -> None:
+    """The hull-vs-shape dispatch step by step."""
+    sb = shapes.packed()
+    env = fh.hull_shape_retirement(p1, sb, cfg)
+    order, _ = hit_first_order(~env.retired)
+    g = fh.gjk_hull_shape(p1, sb, env.retired, order, cfg)
+    o10, n10 = hit_first_order(g.hit)
+    stages = shape_stages(cfg)
+    steps = {
+        "packed": shapes.packed,
+        "retirement": lambda: fh.hull_shape_retirement(p1, sb, cfg),
+        "hit_first_order": lambda: hit_first_order(~env.retired),
+        "K9": lambda: fh.gjk_hull_shape(p1, sb, env.retired, order, cfg),
+        "K10": lambda: fh.epa_hull_shape(p1, sb, g.simplex, g.status, o10,
+                                         n10, stages),
+    }
+    print(f"c3b: {int(env.retired.sum())} retired, {int(g.hit.sum())} hits",
+          flush=True)
+    for what, fn in steps.items():
+        print(f"  c3b step {what}: {wall_ms(fn):.4f} ms [{card}]", flush=True)
+
+
+def main(argv) -> int:
+    if not torch.cuda.is_available():
+        print("profile: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    cfg = GJKEPAConfig.for_f32()
+    order = argv or ["c2", "c2dist", "c2dist1", "c3", "c3b", "c3b_unsorted",
+                     "c4"]
+    want = set(order)
+
+    def on_dev(*arrays):
+        return tuple(torch.from_numpy(a).to(dev) for a in arrays)
+
+    paths = {}
+    if want & {"c2", "c2dist", "c2dist1"}:
+        d1, d2 = on_dev(*fixtures.c2_hulls())
+        bool_cfg = cfg.replace(epa_max_iters=0)
+        paths["c2"] = lambda: fused_gjkepa_hulls(d1, d2, cfg=bool_cfg)
+        paths["c2dist"] = lambda: fused_gjk_distance_hulls(d1, d2, cfg=cfg)
+        paths["c2dist1"] = lambda: fused_gjk_distance_hulls(
+            d1, d2, cfg=cfg, two_phase=False)
+    if "c3" in want:
+        a3, b3 = (ShapeBatch.from_numpy(*p, device=dev)
+                  for p in fixtures.c3_pairs())
+        paths["c3"] = lambda: fused_gjkepa_shapes(a3, b3, cfg=cfg)
+    if want & {"c3b", "c3b_unsorted"}:
+        hulls, shp = fixtures.c3b_pairs()
+        (h3,) = on_dev(hulls)
+        s3 = ShapeBatch.from_numpy(*shp, device=dev)
+        paths["c3b"] = lambda: fused_gjkepa_hull_shapes(h3, s3, cfg=cfg)
+        paths["c3b_unsorted"] = lambda: fused_gjkepa_hull_shapes(
+            h3, s3, cfg=cfg, sort_hits=False)
+    if "c4" in want:
+        rng = np.random.default_rng(0)        # bench.py:278-281's recipe
+        big = fixtures.random_hulls(rng, 16384, 24, spread=0.0) * 2.0
+        small = fixtures.random_hulls(rng, 16384, 24, spread=0.0) * 0.5
+        small += rng.normal(size=(16384, 1, 3)).astype(np.float32) * 0.2
+        m1, m2 = on_dev(big, small)
+        paths["c4"] = lambda: gjkepa_batch_fused(m1, m2, cfg=cfg)
+    for name in order:
+        profile_path(name, paths[name], card)
+    if "c2dist" in want:
+        steps_c2dist(d1, d2, cfg, card)
+    if "c3b" in want:
+        steps_c3b(h3, s3, cfg, card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

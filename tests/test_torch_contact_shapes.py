@@ -77,7 +77,7 @@ def test_support_polygon_matches_jax(tol):
     a = pairs[0]
     ref = jax.vmap(lambda k, p, x, r, n: _shape_support_polygon(
         k, p, x, r, n, tol, k=8))(*a, normal)
-    got = shape_support_polygon(*ShapeBatch.from_numpy(*a),
+    got = shape_support_polygon(*ShapeBatch.from_numpy(*a, device="cpu"),
                                 torch.from_numpy(normal), tol, 8)
     np.testing.assert_allclose(got[0].numpy(), np.asarray(ref[0]), rtol=0,
                                atol=1e-6)
@@ -94,7 +94,8 @@ def test_derive_contact_shapes_matches_jax(version):
     normal = _normals(pairs, 256)
     ref = derive_contact_shapes_batch(*_jax(pairs), jnp.asarray(normal),
                                       JAX_CFG.replace(version=version))
-    got = derive_contact_shapes(*(ShapeBatch.from_numpy(*p) for p in pairs),
+    got = derive_contact_shapes(*(ShapeBatch.from_numpy(*p, device="cpu")
+                                  for p in pairs),
                                 torch.from_numpy(normal),
                                 CFG.replace(version=version))
     for name, x, y in zip(("nearest_points", "contact_point", "normal"),
@@ -105,7 +106,7 @@ def test_derive_contact_shapes_matches_jax(version):
     assert set(got[3].tolist()) == {1, 2}
     if version == 2:
         # the fixture reaches every branch of the case tree
-        ta, tb = (ShapeBatch.from_numpy(*p) for p in pairs)
+        ta, tb = (ShapeBatch.from_numpy(*p, device="cpu") for p in pairs)
         tn = torch.from_numpy(normal)
         n1 = shape_support_polygon(*ta, tn, CFG.support_set_tol)[1].sum(1)
         n2 = shape_support_polygon(*tb, -tn, CFG.support_set_tol)[1].sum(1)
@@ -123,7 +124,7 @@ def end_to_end():
     ref = jax_collide(*_jax(pairs), cfg=JAX_CFG, interpret=True)
     ref = {f: np.asarray(x) for f, x in zip(ref._fields, ref)}
     got = collide_shapes_batch_fused(
-        *(ShapeBatch.from_numpy(*p) for p in pairs), cfg=CFG)
+        *(ShapeBatch.from_numpy(*p, device="cpu") for p in pairs), cfg=CFG)
     got = {f: x.numpy() for f, x in zip(got._fields, got)}
     cf = cf_kind_mask(*(torch.from_numpy(p[0]).float() for p in pairs))
     return ref, got, cf.numpy()
@@ -170,7 +171,7 @@ def test_collide_known_geometry_and_devices():
         np.array([0, 1], np.int32),
         np.array([[1, 0, 0], [0.5, 0.5, 0.5]], np.float32),
         np.zeros((2, 3), np.float32),
-        np.stack([np.eye(3, dtype=np.float32)] * 2))
+        np.stack([np.eye(3, dtype=np.float32)] * 2), device="cpu")
     b = ShapeBatch(a.kind, a.params,
                    torch.tensor([[1.5, 0, 0], [0.7, 0.0, 0.0]]), a.rot)
     r = collide_shapes_batch_fused(a, b)

@@ -9,7 +9,9 @@ the card has no JAX, so run this file without the JAX conftest:
 Tolerances: hit and status exact, separation and depth 1e-5, iteration
 counts on >= 99.5% / 99% of lanes (both versions round every op on their
 own: the kernels are built with --fmad=false), normals dot > 1-1e-4 on
->= 98% of hit lanes; closed-form depth and normal 1e-6.
+>= 98% of hit lanes; closed-form depth and normal 1e-6.  Distance (K8):
+intersecting and converged exact, distance and witnesses 1e-5, iteration
+counts on >= 99.5% of lanes, two-phase equal to one pass bit for bit.
 """
 
 import numpy as np
@@ -17,9 +19,13 @@ import pytest
 import torch
 
 from gjkepa_tpu_torch import (GJKEPAConfig, ShapeBatch,
-                              fused_gjkepa_shapes, gjkepa_batch_fused)
+                              fused_gjk_distance_hulls,
+                              fused_gjkepa_hull_shapes, fused_gjkepa_shapes,
+                              gjkepa_batch_fused)
 from gjkepa_tpu_torch.models import fixtures
+from gjkepa_tpu_torch.ops import fused_distance as fd
 from gjkepa_tpu_torch.ops import fused_epa, fused_gjk
+from gjkepa_tpu_torch.ops import fused_hull_shapes as fh
 from gjkepa_tpu_torch.ops import fused_shapes as fs
 from gjkepa_tpu_torch.ops.fused import cascade_plan, hit_first_order
 
@@ -160,3 +166,61 @@ def test_shape_path_sort_hits_agree_on_card(dev):
     for x, y in zip(r1, r2):
         assert torch.equal(x, y)
     assert all(t.device == a.kind.device for t in r1)
+
+
+def test_k8_matches_plain_on_card(dev):
+    rng = np.random.default_rng(4)
+    p1, p2 = (torch.from_numpy(_hulls(rng, 4096, 12, spread=2.0)).to(dev)
+              for _ in range(2))
+    cfg = GJKEPAConfig.for_f32()
+    n0 = fd.LAUNCHES["distance_hulls"]
+    k = fd.distance_hulls(p1, p2, cfg, 64)
+    p = fd.distance_hulls_plain(p1, p2, cfg, 64)
+    assert fd.LAUNCHES["distance_hulls"] == n0 + 1
+    assert torch.equal(k.intersecting, p.intersecting)
+    assert torch.equal(k.converged, p.converged)
+    assert float((k.iters == p.iters).float().mean()) >= 0.995
+    for x, y in ((k.distance, p.distance), (k.point_a, p.point_a),
+                 (k.point_b, p.point_b)):
+        assert float((x - y).abs().max()) <= 1e-5
+    two = fused_gjk_distance_hulls(p1, p2, cfg=cfg)
+    one = fused_gjk_distance_hulls(p1, p2, cfg=cfg, two_phase=False)
+    assert fd.LAUNCHES["distance_hulls"] == n0 + 4
+    for x, y in zip(two, one):
+        assert torch.equal(x, y)
+
+
+def test_k9_k10_match_plain_on_card(dev):
+    hulls, shapes = fixtures.c3b_pairs()
+    p1 = torch.from_numpy(hulls[:4096]).to(dev)
+    sb = ShapeBatch.from_numpy(*(x[::4] for x in shapes),
+                               device=dev).packed()
+    cfg = GJKEPAConfig.for_f32()
+    env = fh.hull_shape_retirement(p1, sb, cfg)
+    order, _ = hit_first_order(~env.retired)
+    n0 = dict(fh.LAUNCHES)
+    gk = fh.gjk_hull_shape(p1, sb, env.retired, order, cfg)
+    gp = fh.gjk_hull_shape_plain(p1, sb, env.retired, order, cfg)
+    lanes = gp.status != 0          # the lanes that ran GJK
+    _assert_gjk_close(gk, gp, lanes)
+    order, n_act = hit_first_order(gp.hit)
+    args = (p1, sb, gp.simplex, gp.status, order, n_act, fs.shape_stages(cfg))
+    ek, ep = fh.epa_hull_shape(*args), fh.epa_hull_shape_plain(*args)
+    assert torch.equal(ek.status, ep.status)
+    assert float((ek.depth - ep.depth).abs().max()) <= 1e-5
+    dots = (ek.normal * ep.normal).sum(1)[gp.hit]
+    assert float((dots > 1.0 - 1e-4).float().mean()) >= 0.98
+    assert int((ek.iters != ep.iters).sum()) <= 0.01 * int(n_act)
+    assert {k: fh.LAUNCHES[k] - n0[k] for k in n0} == {
+        "gjk_hull_shape": 1, "epa_hull_shape": 1}
+
+
+def test_mixed_path_sort_hits_agree_on_card(dev):
+    hulls, shapes = fixtures.c3b_pairs()
+    p1 = torch.from_numpy(hulls).to(dev)
+    sh = ShapeBatch.from_numpy(*shapes, device=dev)
+    r1 = fused_gjkepa_hull_shapes(p1, sh, sort_hits=True)
+    r2 = fused_gjkepa_hull_shapes(p1, sh, sort_hits=False)
+    for x, y in zip(r1, r2):
+        assert torch.equal(x, y)
+    assert all(t.device == p1.device for t in r1)

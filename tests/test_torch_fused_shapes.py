@@ -43,8 +43,8 @@ CFG = GJKEPAConfig.from_reference(dataclasses.asdict(JAX_CFG))
 
 
 def _port(pairs, cfg=CFG, **kw):
-    return fused_gjkepa_shapes(*(ShapeBatch.from_numpy(*p) for p in pairs),
-                               cfg=cfg, **kw)
+    return fused_gjkepa_shapes(*(ShapeBatch.from_numpy(*p, device="cpu")
+                                 for p in pairs), cfg=cfg, **kw)
 
 
 @pytest.fixture(scope="module")
@@ -101,7 +101,7 @@ def test_distance_and_retirement_match_jax(mixed):
 
     assert retired(got).sum() >= 4
     assert int((retired(got) != retired(ref)).sum()) == 0
-    a, b = (ShapeBatch.from_numpy(*p) for p in pairs)
+    a, b = (ShapeBatch.from_numpy(*p, device="cpu") for p in pairs)
     np.testing.assert_array_equal(fs.retirement(a, b)[0].numpy(), retired(got))
     err = np.abs(got["distance"] - ref["distance"])
     assert (err <= 1e-6).mean() >= 0.95 and err.max() <= 5e-5, err.max()
@@ -184,7 +184,7 @@ def test_split_membership_on_razor_edge_lanes():
          np.tile(np.float32([0.3, 0.4, 0]), (n, 1)),
          np.stack([rr + off, 0 * off, 0 * off], 1).astype(np.float32),
          np.stack([eye] * n))
-    A, B = ShapeBatch.from_numpy(*a), ShapeBatch.from_numpy(*b)
+    A, B = (ShapeBatch.from_numpy(*x, device="cpu") for x in (a, b))
     sa, sb = A.packed(), B.packed()
     retired, _ = fs.retirement(A, B)
     c = fs.cf_shapes(sa, sb, retired, CFG)
@@ -218,7 +218,7 @@ def test_polish_matches_jax():
     status = np.where(np.arange(n) % 3 == 0, Status.HIT_EPA_CAPACITY,
                       Status.HIT_EPA_CAP).astype(np.int32)
     ok = np.arange(n) % 7 != 3
-    A, B = ShapeBatch.from_numpy(*a), ShapeBatch.from_numpy(*b)
+    A, B = (ShapeBatch.from_numpy(*x, device="cpu") for x in (a, b))
     sa, sb = A.packed(), B.packed()
     d, nn, st = fs.polish_direction(
         make_shape_support(shape_of(sa), shape_of(sb)), torch.from_numpy(depth),
@@ -250,7 +250,7 @@ def test_shape_stage_plan():
 
 def _rows():
     pairs = fixtures.mixed16_pairs(1, 2)
-    A, B = (ShapeBatch.from_numpy(*p) for p in pairs)
+    A, B = (ShapeBatch.from_numpy(*p, device="cpu") for p in pairs)
     return A.packed(), B.packed(), fs.retirement(A, B)[0]
 
 
@@ -303,7 +303,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     order, n_act = hit_first_order(ret)
     with pytest.raises(ValueError, match="n_act"):
         fs.gjk_sub_shapes(sa, sb, ret, order, n_act.long(), CFG)
-    a, b = (ShapeBatch.from_numpy(*p) for p in fixtures.mixed16_pairs(1, 2))
+    a, b = (ShapeBatch.from_numpy(*p, device="cpu")
+            for p in fixtures.mixed16_pairs(1, 2))
     with pytest.raises(ValueError, match="batch sizes differ"):
         fused_gjkepa_shapes(a, ShapeBatch(*(t[:3] for t in b)))
     with pytest.raises(ValueError, match="is on meta"):

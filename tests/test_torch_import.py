@@ -28,7 +28,10 @@ def test_import_leaves_jax_out():
             "gjkepa_tpu_torch.models.fixtures, "
             "gjkepa_tpu_torch.ops.shape_geom, "
             "gjkepa_tpu_torch.ops.fused_shapes, "
-            "gjkepa_tpu_torch.ops.contact_shapes; "
+            "gjkepa_tpu_torch.ops.contact_shapes, "
+            "gjkepa_tpu_torch.ops.distance, "
+            "gjkepa_tpu_torch.ops.fused_distance, "
+            "gjkepa_tpu_torch.ops.fused_hull_shapes; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'gjkepa_tpu.')) "
             "or m == 'gjkepa_tpu'); print(bad); sys.exit(1 if bad else 0)")

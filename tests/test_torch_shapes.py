@@ -96,14 +96,16 @@ def test_constructors_and_packing_match_jax():
     r = rng.random(4).astype(np.float32)
     h = rng.random((4, 3)).astype(np.float32)
     pos = rng.normal(size=(4, 3)).astype(np.float32)
-    got = concat_shapes(spheres(r, pos=pos), boxes(h), capsules(r, r * 2),
-                        cylinders(r, r, pos=pos))
+    cpu = {"device": "cpu"}
+    got = concat_shapes(spheres(r, pos=pos, **cpu), boxes(h, **cpu),
+                        capsules(r, r * 2, **cpu),
+                        cylinders(r, r, pos=pos, **cpu))
     ref = jshapes.concat_shapes(jshapes.spheres(r, pos=pos), jshapes.boxes(h),
                                 jshapes.capsules(r, r * 2),
                                 jshapes.cylinders(r, r, pos=pos))
     for x, y in zip(got, ref):
         np.testing.assert_array_equal(x.numpy(), np.asarray(y))
-    carried = ShapeBatch.from_numpy(*_np(ref))
+    carried = ShapeBatch.from_numpy(*_np(ref), device="cpu")
     np.testing.assert_array_equal(carried.packed().numpy(),
                                   np.asarray(jfused._pack_rows(ref))[:, :16])
 
@@ -133,12 +135,13 @@ def test_shape_support_world_and_pair_support_match_jax():
     a, b = fixtures.mixed16_pairs(8, 4)
     d = _dirs(np.random.default_rng(4), 128)
     ref = jax.vmap(jshapes.shape_support_world)(*a, d)
-    got = shape_support_world(*ShapeBatch.from_numpy(*a), torch.from_numpy(d))
+    got = shape_support_world(*ShapeBatch.from_numpy(*a, device="cpu"),
+                              torch.from_numpy(d))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=1e-6)
     ref = jax.vmap(lambda *x: jshapes.make_shape_pair_support(*x[:8])(x[8]))(
         *a, *b, d)
-    support = make_shape_pair_support(ShapeBatch.from_numpy(*a),
-                                      ShapeBatch.from_numpy(*b))
+    support = make_shape_pair_support(ShapeBatch.from_numpy(*a, device="cpu"),
+                                      ShapeBatch.from_numpy(*b, device="cpu"))
     got = support(torch.from_numpy(d))
     for x, y in zip(got, ref):
         np.testing.assert_allclose(x.numpy(), np.asarray(y), rtol=0, atol=1e-6)
@@ -147,7 +150,7 @@ def test_shape_support_world_and_pair_support_match_jax():
 def _packed_pair(a, b):
     """Both packings of a pair: the port's (B, 16) rows as Shapes, JAX's
     (16, B) kernel rows."""
-    ta, tb = ShapeBatch.from_numpy(*a), ShapeBatch.from_numpy(*b)
+    ta, tb = (ShapeBatch.from_numpy(*x, device="cpu") for x in (a, b))
     ja = jnp.asarray(np.asarray(jfused._pack_rows(_jax_batch(a))).T)
     jb = jnp.asarray(np.asarray(jfused._pack_rows(_jax_batch(b))).T)
     return (shape_geom.shape_of(ta.packed()), shape_geom.shape_of(tb.packed()),
@@ -210,3 +213,38 @@ def test_k4_closed_forms_match_jax_rows_and_pairs(seed, spread):
     gn = torch.stack(list(got.normal), 1).numpy()
     np.testing.assert_allclose(gn[fin], pnormal[fin], rtol=0, atol=1e-6)
     assert 0 < int(hit.sum()) < fin.sum()
+
+
+@pytest.mark.parametrize("make", [
+    lambda: ShapeBatch.from_numpy(*fixtures.mixed16_pairs(1, 0)[0]),
+    lambda: spheres([1.0]),
+    lambda: boxes([[0.5, 0.5, 0.5]]),
+    lambda: capsules([0.3], [0.5]),
+    lambda: cylinders([0.3], [0.5]),
+], ids=["from_numpy", "spheres", "boxes", "capsules", "cylinders"])
+def test_constructors_default_to_the_card(make):
+    """Shapes land on the card unless the caller names another device;
+    without a card the constructor raises rather than fall back."""
+    if torch.cuda.is_available():
+        assert make().kind.device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            make()
+
+
+def test_hull_support_matches_jax():
+    """The hull support with its witnesses, masked rows excluded, against
+    ``ops/support.py``'s ``minkowski_support_hulls``."""
+    rng = np.random.default_rng(6)
+    p1 = rng.normal(size=(64, 9, 3)).astype(np.float32)
+    p2 = rng.normal(size=(64, 7, 3)).astype(np.float32)
+    m1 = np.arange(9)[None, :] < rng.integers(1, 10, size=64)[:, None]
+    d = _dirs(rng, 64)
+    ref = jax.vmap(jsup.minkowski_support_hulls)(
+        jnp.asarray(p1), jnp.asarray(p2), jnp.asarray(d), jnp.asarray(m1),
+        None)
+    got = support.make_hull_support(torch.from_numpy(p1),
+                                    torch.from_numpy(p2),
+                                    torch.from_numpy(m1))(torch.from_numpy(d))
+    for f, x, y in zip(got._fields, got, ref):
+        np.testing.assert_array_equal(x.numpy(), np.asarray(y), err_msg=f)
