@@ -2,10 +2,15 @@
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
 
-The port has four paths.  The hull path is the fused hull-pair query,
+The port has five paths.  The hull path is the fused hull-pair query,
 ``gjkepa_batch_fused``: K1, the GJK hull kernel
 (``gjkepa_tpu_torch/csrc/gjk_hulls.cu``), then K2, the EPA cascade kernel
-(``csrc/epa_hulls.cu``), over the hit lanes, then the contact rows.  The
+(``csrc/epa_hulls.cu``), over the hit lanes, then the contact rows.  Hull
+pairs with n1 + n2 > 4096 vertices take the large-hull path instead: the
+broadphase on the tile-padded hulls, K12, GJK a warp a pair
+(``csrc/gjk_hulls_big.cu``), then K13, the EPA cascade a warp a hit
+(``csrc/epa_hulls_big.cu``), both over the warp support K11
+(``csrc/hull_stream.cuh``).  The
 shape path is the analytic-shape query, ``fused_gjkepa_shapes`` and
 ``collide_shapes_batch_fused``: K5, the closed-form kernel
 (``csrc/cf_shapes.cu``), K6a over the GJK lanes or K6b over all lanes
@@ -52,7 +57,20 @@ once) and runs, in phases:
  13. the distance and mixed paths at full size, each call with its
      kernels' launch counters set to 0 just before it and its exact
      launches checked just after, then timings of K8 (both phases), K9,
-     K10, both paths and their plain versions.
+     K10, both paths and their plain versions;
+ 14. K12 and K13 against their plain versions on 4096 x 2600 pairs, on
+     tie pairs (box corners copied one ulp apart at vertices i, i + 1 and
+     i + 32k, n1 + n2 = 4200) bit for bit and on 256 x 8192 pairs
+     (tests/test_fused_tpu.py:248-290); 2048-vertex sub-hulls through K1/K2
+     against the same padded to 8192 through K12/K13; K1/K2 against
+     K12/K13 at 256 x 8192, bit for bit;
+ 15. the large-hull path at full width: ``gjkepa_batch_fused`` at 256 x
+     8192 with full contact, ``fused_gjkepa_hulls`` at 4096 x 2600 with
+     EPA and boolean, each call with the hull kernels' counters set to 0
+     just before it (exactly one K12 and one K13, no K1/K2); masks against
+     repeated-vertex padding bit for bit; the path against the plain path;
+     timings of K12, K13, their plain versions, K1/K2 on the same inputs,
+     the padded broadphase, the contact rows and both paths.
 
 Each entry of the ``kernels`` line carries a bound: the larger of the
 bytes the kernel must move (inputs read once, outputs written once, over
@@ -794,6 +812,279 @@ def distance_and_mixed_phases(gt, dev, cfg, card, n2=65536, cut=1):
     ]
 
 
+# -- the large-hull path -------------------------------------------------------
+
+def big_phases(gt, dev, cfg, card) -> list[dict]:
+    """Phases 14-15, the large-hull path (n1 + n2 > 4096) at 256 x 8192
+    (tests/test_fused_tpu.py:248-290's pairs) and 4096 x 2600; returns K12
+    and K13's entries of the ``kernels`` line."""
+    from gjkepa_tpu_torch.models import fixtures
+    from gjkepa_tpu_torch.ops import contact_rows, fused_epa, fused_gjk
+    from gjkepa_tpu_torch.ops import fused_streamed as fst
+    from gjkepa_tpu_torch.ops.fused import (cascade_plan, hit_first_order,
+                                            hulls_result)
+    stages = cascade_plan(cfg)
+    bool_cfg = cfg.replace(epa_max_iters=0)
+
+    def on_dev(*arrays):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in arrays)
+
+    def rows_equal(x, y, active=None):
+        """Bit-equal rows; GJK rows' simplex on the ``active`` lanes only
+        (the plain version leaves probes in the others, the kernels
+        zeros)."""
+        if active is not None:
+            x, y = ((*r[:4], r.simplex[active]) for r in (x, y))
+        return all(torch.equal(a, b) for a, b in zip(x, y))
+
+    def plain_big_path(p1, p2, c):
+        """fused_hulls_streamed through the plain versions."""
+        active = fst.streamed_broadphase(p1, p2, c.broadphase_tol)
+        g = fst.gjk_hulls_big_plain(p1, p2, active, c)
+        return hulls_result(g, cascade_plan(c), lambda *a: (
+            fst.epa_hulls_big_plain(p1, p2, g.simplex, g.status, *a)))
+
+    def compare_big(p1, p2, what, exact=False):
+        """K12 and K13 against their plain versions on the same inputs (bit
+        for bit with ``exact``); returns their max abs errors."""
+        active = fst.streamed_broadphase(p1, p2, cfg.broadphase_tol)
+        gk = fst.gjk_hulls_big(p1, p2, active, cfg)
+        gp = fst.gjk_hulls_big_plain(p1, p2, active, cfg)
+        torch.cuda.synchronize()
+        check(torch.equal(gk.hit, gp.hit) and torch.equal(gk.status,
+                                                          gp.status),
+              f"{what}: K12 hit/status differ")
+        n_on = isum(active)
+        d12 = int((gk.iters != gp.iters).sum())
+        e12 = max(float((gk.sep - gp.sep).abs().max()),
+                  float((gk.simplex - gp.simplex)[active].abs().max()))
+        check(d12 <= 0.005 * n_on and e12 <= 1e-5,
+              f"{what}: K12 iters differ on {d12} of {n_on} lanes, sep/"
+              f"simplex by {e12}")
+        check(not exact or rows_equal(gk, gp, active),
+              f"{what}: K12 rows are not bit-equal to the plain version")
+        order, n_act = hit_first_order(gp.hit)
+        args = (p1, p2, gp.simplex, gp.status, order, n_act, stages)
+        ek, ep = fst.epa_hulls_big(*args), fst.epa_hulls_big_plain(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(ek.status, ep.status), f"{what}: K13 status differs")
+        e13 = max(float((ek.depth - ep.depth).abs().max()),
+                  float((ek.normal - ep.normal).abs().max()))
+        dots = (ek.normal * ep.normal).sum(dim=1)[gp.hit]
+        agree = float((dots > 1.0 - 1e-4).float().mean()) if dots.numel() \
+            else 1.0
+        d13 = int((ek.iters != ep.iters).sum())
+        check(float((ek.depth - ep.depth).abs().max()) <= 1e-5
+              and agree >= 0.98 and d13 <= 0.01 * int(n_act),
+              f"{what}: K13 depth err {e13}, normals agree on {agree:.4f}, "
+              f"iters differ on {d13} of {int(n_act)}")
+        check(not exact or rows_equal(ek, ep),
+              f"{what}: K13 rows are not bit-equal to the plain version")
+        log(f"{what} K12/K13 vs plain, {p1.shape[0]} x {p1.shape[1]} + "
+            f"{p2.shape[1]}: {n_on} active, {int(n_act)} hits; hit/status "
+            f"equal, K12 iters differ on {d12}, sep/simplex err {e12:.3g}; "
+            f"K13 status equal, iters differ on {d13}, depth/normal err "
+            f"{e13:.3g} (tol 1e-5)" + ("; bit for bit" if exact else ""))
+        return e12, e13
+
+    # -- phase 14: K12/K13 vs plain, ties, sub-hulls, K1/K2 = K12/K13 ---------
+    t0 = time.perf_counter()
+    h1, h2 = on_dev(*fixtures.big_c2_pairs())
+    b1, b2 = on_dev(*fixtures.big_pairs_8192())
+    (s1, s2), (q1, q2) = (on_dev(*x) for x in fixtures.big_subhull_pairs())
+    log(f"phase 14 inputs: 4096 x 2600 and 256 x 8192 pairs made and moved "
+        f"in {time.perf_counter() - t0:.2f} s")
+    errs = [compare_big(h1, h2, "phase 14 4096 x 2600"),
+            compare_big(*on_dev(*fixtures.tie_pairs()), "phase 14 ties",
+                        exact=True),
+            compare_big(b1, b2, "phase 14 256 x 8192")]
+    e12, e13 = (max(e[k] for e in errs) for k in (0, 1))
+
+    rr = gt.fused_gjkepa_hulls(s1, s2, cfg=cfg)      # n1 + n2 = 4096: K1/K2
+    rs = gt.fused_gjkepa_hulls(q1, q2, cfg=cfg)      # padded to 8192: K12/K13
+    hit = rr.hit
+    sub_err = float((rs.depth - rr.depth)[hit].abs().max())
+    check(torch.equal(rs.hit, rr.hit) and sub_err <= 1e-6,
+          f"phase 14: sub-hulls padded to 8192 differ from the resident "
+          f"path (depth err {sub_err})")
+    log(f"phase 14 sub-hulls: 256 x 2048 through K1/K2 and padded to 8192 "
+        f"through K12/K13: hit equal ({isum(hit)} hits), depth err "
+        f"{sub_err:.3g} (tol 1e-6)")
+
+    # K1/K2 on the 256 x 8192 pairs, where every lane is active on both
+    act = fst.streamed_broadphase(b1, b2, cfg.broadphase_tol)
+    g1 = fused_gjk.gjk_hulls(b1, b2, cfg)
+    g12 = fst.gjk_hulls_big(b1, b2, act, cfg)
+    check(bool(act.all()) and bool((g1.status != 0).all()),
+          "phase 14: a 256 x 8192 lane is inactive")
+    check(rows_equal(g1, g12), "phase 14: K1 rows differ from K12's")
+    o8, n8 = hit_first_order(g12.hit)
+    k2_rows = fused_epa.epa_cascade(b1, b2, g12.simplex, g12.status, o8, n8,
+                                    stages)
+    k13_rows = fst.epa_hulls_big(b1, b2, g12.simplex, g12.status, o8, n8,
+                                 stages)
+    check(rows_equal(k2_rows, k13_rows), "phase 14: K2 rows differ from K13's")
+    log("phase 14 K1/K2 against K12/K13 at 256 x 8192: every lane active on "
+        "both, GJK and EPA rows bit for bit")
+
+    # -- phase 15: the large-hull path at full width, launches counted -------
+    per_call = {}
+
+    def counted(what, want, fn):
+        """fn() with the hull kernels' counters set to 0 just before it;
+        checks the exact launches it made."""
+        torch.cuda.synchronize()
+        fused_gjk.LAUNCHES = fused_epa.LAUNCHES = 0
+        for k in fst.LAUNCHES:
+            fst.LAUNCHES[k] = 0
+        out = fn()
+        torch.cuda.synchronize()
+        per_call[what] = {"gjk_hulls": fused_gjk.LAUNCHES,
+                          "epa_hulls": fused_epa.LAUNCHES, **fst.LAUNCHES}
+        want = {"gjk_hulls": 0, "epa_hulls": 0, "gjk_hulls_big": 1,
+                "epa_hulls_big": 0, **want}
+        check(per_call[what] == want,
+              f"phase 15: {what} launched {per_call[what]}, expected {want}")
+        return out
+
+    full = counted("256 x 8192 contact", {"epa_hulls_big": 1},
+                   lambda: gt.gjkepa_batch_fused(b1, b2, cfg=cfg))
+    c2r = counted("4096 x 2600", {"epa_hulls_big": 1},
+                  lambda: gt.fused_gjkepa_hulls(h1, h2, cfg=cfg))
+    c2b = counted("4096 x 2600 boolean", {},
+                  lambda: gt.fused_gjkepa_hulls(h1, h2, cfg=bool_cfg))
+    for name, t in (*full._asdict().items(), *c2r._asdict().items()):
+        if t.is_floating_point():
+            check(bool(torch.isfinite(t).all()), f"phase 15: {name} not "
+                                                 "finite")
+    check(isum(full.hit) > 50, f"phase 15: {isum(full.hit)} hits at 8192")
+    check(torch.equal(c2b.hit, c2r.hit), "phase 15: boolean hits differ")
+
+    # masks equal repeated-vertex padding: 10% of rows out, row 0 kept
+    rng = np.random.default_rng(15)
+    m1, m2 = (torch.from_numpy(rng.random((256, 8192)) > 0.1).to(dev)
+              for _ in range(2))
+    m1[:, 0] = m2[:, 0] = True
+    pad1 = torch.where(m1[:, :, None], b1, b1[:, :1])
+    pad2 = torch.where(m2[:, :, None], b2, b2[:, :1])
+    masked = gt.gjkepa_batch_fused(b1, b2, m1, m2, cfg=cfg)
+    padded = gt.fused_gjkepa_hulls(pad1, pad2, cfg=cfg)
+    for name in ("hit", "status", "depth", "gjk_iters", "epa_iters",
+                 "distance"):
+        check(torch.equal(getattr(masked, name), getattr(padded, name)),
+              f"phase 15: masked {name} differs from repeated-vertex "
+              "padding")
+    for name, t in masked._asdict().items():
+        if t.is_floating_point():
+            check(bool(torch.isfinite(t).all()), f"phase 15: masked {name} "
+                                                 "not finite")
+
+    # the whole path against the plain path
+    pr = plain_big_path(b1, b2, cfg)
+    pc = plain_big_path(h1, h2, cfg)
+    check(torch.equal(pr.hit, full.hit) and torch.equal(pr.status, full.status)
+          and torch.equal(pc.hit, c2r.hit) and torch.equal(pc.status,
+                                                           c2r.status),
+          "phase 15: hit/status differ from the plain path")
+    depth_err = max(float((pr.depth - full.depth).abs().max()),
+                    float((pc.depth - c2r.depth).abs().max()))
+    check(depth_err <= 1e-5, f"phase 15: depth differs by {depth_err}")
+    _, cp, _, ct = contact_rows.derive_contact_rows(b1, b2, pr.normal, cfg)
+    ph = pr.hit & ((pr.normal * full.normal).sum(1) > 1.0 - 1e-5)
+    cp_err = float((cp[ph] - full.contact_point[ph]).abs().max())
+    check(cp_err <= 1e-5 and torch.equal(ct[ph], full.colli_type[ph]),
+          f"phase 15: contact rows differ from plain by {cp_err}")
+    log(f"phase 15 large-hull path: gjkepa_batch_fused 256 x 8192 full "
+        f"contact v2: finite, {isum(full.hit)} hits, mean gjk_iters "
+        f"{float(full.gjk_iters.float().mean()):.3f}, mean epa_iters "
+        f"{float(full.epa_iters.float().mean()):.3f}; fused_gjkepa_hulls "
+        f"4096 x 2600: {isum(c2r.hit)} hits, "
+        f"{isum(c2r.status == 0)} broadphase misses; masked 10% = "
+        f"repeated-vertex padding bit for bit; equal to the plain path "
+        f"(depth err {depth_err:.3g}, contact point err {cp_err:.3g} on "
+        f"{isum(ph)} lanes); launches per call {per_call}")
+
+    # -- timings -------------------------------------------------------------
+    rows = {}
+    for key, p1, p2 in (("8192", b1, b2), ("2600", h1, h2)):
+        a = fst.streamed_broadphase(p1, p2, cfg.broadphase_tol)
+        g = fst.gjk_hulls_big(p1, p2, a, cfg)
+        o, n = hit_first_order(g.hit)
+        rows[key] = (p1, p2, a, g, o, n)
+    times = {}
+    for key, (p1, p2, a, g, o, n) in rows.items():
+        k13 = (p1, p2, g.simplex, g.status, o, n, stages)
+        times.update({
+            f"broadphase_{key}": cuda_ms(lambda: fst.streamed_broadphase(
+                p1, p2, cfg.broadphase_tol)),
+            f"k12_{key}": cuda_ms(lambda: fst.gjk_hulls_big(p1, p2, a, cfg)),
+            f"k12_{key}_plain": cuda_ms(lambda: fst.gjk_hulls_big_plain(
+                p1, p2, a, cfg), PLAIN_CALLS, 1),
+            f"k13_{key}": cuda_ms(lambda: fst.epa_hulls_big(*k13)),
+            f"k13_{key}_plain": cuda_ms(lambda: fst.epa_hulls_big_plain(
+                *k13), PLAIN_CALLS, 1),
+            f"k1_{key}": cuda_ms(lambda: fused_gjk.gjk_hulls(p1, p2, cfg)),
+            f"k2_{key}": cuda_ms(lambda: fused_epa.epa_cascade(*k13)),
+            f"query_{key}": cuda_ms(lambda: gt.fused_gjkepa_hulls(
+                p1, p2, cfg=cfg)),
+            f"query_{key}_plain": cuda_ms(lambda: plain_big_path(
+                p1, p2, cfg), PLAIN_CALLS, 1),
+        })
+    times["path_8192"] = cuda_ms(lambda: gt.gjkepa_batch_fused(b1, b2,
+                                                               cfg=cfg))
+    times["contact_8192"] = cuda_ms(lambda: gt.derive_contact_batch(
+        b1, b2, full, cfg))
+    times["query_2600_boolean"] = cuda_ms(lambda: gt.fused_gjkepa_hulls(
+        h1, h2, cfg=bool_cfg))
+    times["query_2048_resident"] = cuda_ms(lambda: gt.fused_gjkepa_hulls(
+        s1, s2, cfg=cfg))
+    for key, ms in times.items():
+        b = 4096 if "2600" in key else 256
+        log(f"phase 15 time {key}: {ms:.4f} ms = {b / ms * 1e3:,.0f} pairs/s "
+            f"[{card}]")
+    ratio = times["query_8192"] / (4 * times["query_2048_resident"])
+    log(f"phase 15 end to end: gjkepa_batch_fused 256 x 8192 full contact "
+        f"{256 / times['path_8192'] * 1e3:,.0f} q/s; fused_gjkepa_hulls "
+        f"256 x 8192 {256 / times['query_8192'] * 1e3:,.0f} q/s (plain "
+        f"{256 / times['query_8192_plain'] * 1e3:,.0f}), 4096 x 2600 "
+        f"{4096 / times['query_2600'] * 1e3:,.0f} q/s (boolean "
+        f"{4096 / times['query_2600_boolean'] * 1e3:,.0f}, plain "
+        f"{4096 / times['query_2600_plain'] * 1e3:,.0f}); K1/K2 on the same "
+        f"inputs {times['k1_8192']:.4f}/{times['k2_8192']:.4f} ms at 8192, "
+        f"{times['k1_2600']:.4f}/{times['k2_2600']:.4f} ms at 2600 against "
+        f"K12/K13 {times['k12_8192']:.4f}/{times['k13_8192']:.4f} and "
+        f"{times['k12_2600']:.4f}/{times['k13_2600']:.4f} ms; scaling "
+        f"t(8192) / (4 t(2048 resident)) = {ratio:.3f} (observed, no "
+        f"limit) [{card}]")
+
+    def bounds(key):
+        """K12's and K13's bounds, from this run's lanes and iterations
+        (see work())."""
+        p1, p2, a, g, o, n = rows[key]
+        nv = p1.shape[1] + p2.shape[1]
+        e = fst.epa_hulls_big(p1, p2, g.simplex, g.status, o, n, stages)
+        return (work(p1.shape[0], nv * 12 + 1 + 61,
+                     gjk_ops(isum(a), isum(g.iters), VERTEX_OPS * nv)),
+                work(int(n), nv * 12 + 56 + 24,
+                     epa_ops(isum(e.iters), VERTEX_OPS * nv)))
+
+    (k12_bound, k13_bound), (b12, b13) = bounds("8192"), bounds("2600")
+    log(f"phase 15 bounds: 256 x 8192 K12 {k12_bound[0]:.4f} ms "
+        f"({k12_bound[1]}), K13 {k13_bound[0]:.4f} ms ({k13_bound[1]}); "
+        f"4096 x 2600 K12 {b12[0]:.4f} ms ({b12[1]}), K13 {b13[0]:.4f} ms "
+        f"({b13[1]})")
+    launches = per_call["256 x 8192 contact"]
+    return [
+        entry("gjk_hulls_big", "gjk_hulls_big.cu", 1073,
+              launches["gjk_hulls_big"], e12, times["k12_8192"],
+              times["k12_8192_plain"], k12_bound),
+        entry("epa_hulls_big", "epa_hulls_big.cu", 1086,
+              launches["epa_hulls_big"], e13, times["k13_8192"],
+              times["k13_8192_plain"], k13_bound),
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -802,8 +1093,8 @@ def main() -> int:
     import gjkepa_tpu_torch as gt
     from gjkepa_tpu_torch import _build
     from gjkepa_tpu_torch.ops import contact_rows, fused_epa, fused_gjk
-    from gjkepa_tpu_torch.ops.fused import (FusedResult, cascade_plan,
-                                            hit_first_order)
+    from gjkepa_tpu_torch.ops.fused import (cascade_plan, hit_first_order,
+                                            hulls_result)
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -828,17 +1119,8 @@ def main() -> int:
     def plain_path(p1, p2, c):
         """fused_gjkepa_hulls through the plain versions."""
         g = fused_gjk.gjk_hulls_plain(p1, p2, c)
-        st = cascade_plan(c)
-        if not st:
-            z = torch.zeros_like(g.sep)
-            return FusedResult(g.hit, g.status, z,
-                               torch.zeros_like(g.simplex[:, 0]), g.iters,
-                               torch.zeros_like(g.iters), g.sep)
-        order, n_act = hit_first_order(g.hit)
-        e = fused_epa.epa_cascade_plain(p1, p2, g.simplex, g.status, order,
-                                        n_act, st)
-        return FusedResult(g.hit, e.status, e.depth, e.normal, g.iters,
-                           e.iters, g.sep)
+        return hulls_result(g, cascade_plan(c), lambda *a: (
+            fused_epa.epa_cascade_plain(p1, p2, g.simplex, g.status, *a)))
 
     def compare_k1(p1, p2, c, what):
         """K1 against its plain version; returns the sep max abs error."""
@@ -1033,6 +1315,7 @@ def main() -> int:
     ]
     kernels += shape_phases(gt, dev, cfg, card)
     kernels += distance_and_mixed_phases(gt, dev, cfg, card)
+    kernels += big_phases(gt, dev, cfg, card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

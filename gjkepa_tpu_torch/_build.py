@@ -33,9 +33,9 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = ("gjk_hulls.cu", "epa_hulls.cu", "cf_shapes.cu", "gjk_shapes.cu",
            "epa_shapes.cu", "distance_hulls.cu", "gjk_hull_shape.cu",
-           "epa_hull_shape.cu")
+           "epa_hull_shape.cu", "gjk_hulls_big.cu", "epa_hulls_big.cu")
 HEADERS = ("lane_geom.cuh", "gjk_core.cuh", "epa_core.cuh", "shape_geom.cuh",
-           "hull_shape.cuh")
+           "hull_shape.cuh", "hull_stream.cuh")
 NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -49,6 +49,10 @@ ENTRY_POINTS = {
     "epa_hulls_launch": ("epa_hulls.cu", [_vp] * 10 + [_ci] * 4
                          + [_ip, _ip, _ci, _cf, _cf, _ci, _vp]),
     "epa_scratch_words_per_face": ("epa_hulls.cu", []),
+    "gjk_hulls_big_launch": ("gjk_hulls_big.cu", [_vp] * 9 + [_ci] * 3
+                             + [_cf] * 4 + [_ci, _vp]),
+    "epa_hulls_big_launch": ("epa_hulls_big.cu", [_vp] * 10 + [_ci] * 4
+                             + [_ip, _ip, _ci, _cf, _cf, _ci, _vp]),
     "cf_shapes_launch": ("cf_shapes.cu", [_vp] * 9 + [_ci, _cf, _vp]),
     "gjk_sub_shapes_launch": ("gjk_shapes.cu", [_vp] * 11 + [_ci]
                               + [_cf] * 4 + [_ci, _vp]),

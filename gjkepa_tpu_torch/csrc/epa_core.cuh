@@ -46,7 +46,10 @@ struct EpaParams {
   int max_iters;  // epa_max_iters
 };
 
-// One lane's view of the [field][face][lane] scratch buffer.
+// One lane's view of the [field][face][lane] scratch buffer.  The EPA
+// tier calls before_store() ahead of each group of stores: nothing for a
+// thread that owns its lane (K2, K7, K10); a warp that shares one lane's
+// faces (K13, hull_stream.cuh WarpFaces) puts its barrier there.
 struct Faces {
   float* base;
   size_t field_stride;  // f_max * B
@@ -54,6 +57,7 @@ struct Faces {
   __device__ __forceinline__ float& at(int field, int f) const {
     return base[field * field_stride + (size_t)f * B];
   }
+  __device__ __forceinline__ void before_store() const {}
 };
 
 struct Plane {
@@ -87,9 +91,11 @@ __device__ __forceinline__ Plane plane_of(P3 a, P3 b, P3 c, P3 interior, float e
   return p;
 }
 
-__device__ __forceinline__ void write_face(const Faces& fs, int f, P3 a, P3 b, P3 c, int i0,
+template <class FaceSet>
+__device__ __forceinline__ void write_face(const FaceSet& fs, int f, P3 a, P3 b, P3 c, int i0,
                                            int i1, int i2, P3 interior, float epz) {
   Plane p = plane_of(a, b, c, interior, epz);
+  fs.before_store();
   fs.at(AX, f) = a.x;
   fs.at(AY, f) = a.y;
   fs.at(AZ, f) = a.z;
@@ -117,9 +123,9 @@ struct TierOut {
 };
 
 // One tier of compact-visible EPA (_epa_phase_fast) for one lane.
-template <class Support>
+template <class Support, class FaceSet>
 __device__ TierOut epa_tier(const Support& support, const P3* s, P3 interior, int F, int K,
-                            const Faces& fs, const EpaParams& prm) {
+                            const FaceSet& fs, const EpaParams& prm) {
   const float eps = prm.eps, epz = prm.epz;
   // seed: the 4 simplex faces (ref :279-293)
   const int seed[4][3] = {{0, 1, 2}, {0, 2, 3}, {0, 1, 3}, {1, 2, 3}};
@@ -127,6 +133,7 @@ __device__ TierOut epa_tier(const Support& support, const P3* s, P3 interior, in
     write_face(fs, f, s[seed[f][0]], s[seed[f][1]], s[seed[f][2]], seed[f][0], seed[f][1],
                seed[f][2], interior, epz);
   }
+  fs.before_store();
   for (int f = 4; f < F; ++f) fs.at(ALIVE, f) = kDead;
 
   TierOut out;
@@ -182,6 +189,7 @@ __device__ TierOut epa_tier(const Support& support, const P3* s, P3 interior, in
       bool beyond = (fs.at(NX, f) * w.x + fs.at(NY, f) * w.y + fs.at(NZ, f) * w.z) > dd + epz;
       bool vis = ((beyond || star) && dd < kBig * 0.5f) || star;
       if (!vis) continue;
+      fs.before_store();
       fs.at(ALIVE, f) = kVisible;
       if (nvis < K) {
         for (int j = 0; j < 9; ++j) scor[nvis][j] = fs.at(AX + j, f);
@@ -233,6 +241,7 @@ __device__ TierOut epa_tier(const Support& support, const P3* s, P3 interior, in
         write_face(fs, f, pa, pb, w, sid[k][a], sid[k][b], nv, interior, epz);
         ++r;
       } else {
+        fs.before_store();
         fs.at(ALIVE, f) = kDead;  // visible and not reused
       }
     }
@@ -241,9 +250,9 @@ __device__ TierOut epa_tier(const Support& support, const P3* s, P3 interior, in
   return out;  // iteration cap: HIT_EPA_CAP
 }
 
-template <class Support>
+template <class Support, class FaceSet>
 __device__ __forceinline__ TierOut epa_cascade(const Support& support, const P3* s,
-                                               const Tiers& tiers, const Faces& fs,
+                                               const Tiers& tiers, const FaceSet& fs,
                                                const EpaParams& prm) {
   const P3 interior = mean4(s);
   TierOut r = epa_tier(support, s, interior, tiers.faces[0], tiers.kvis[0], fs, prm);

@@ -16,7 +16,12 @@ JAX package builds from the same seed:
     with it :func:`c2_hulls` (config 2, 65,536 pairs of 64-vertex hulls,
     :164-194) and :func:`c3b_pairs` (config 3b, 16,384 24-vertex hulls
     against the four analytic kinds, :252-275), drawn in the bench's order
-    from its one generator so the arrays equal the bench's.
+    from its one generator so the arrays equal the bench's;
+  * the large-hull path (n1 + n2 > 4096): :func:`big_pairs_8192` and
+    :func:`big_subhull_pairs` (``tests/test_fused_tpu.py:248-273``),
+    :func:`big_c2_pairs` (4,096 pairs of 2,600-vertex hulls),
+    :func:`large_hulls` (``tests/test_large_hulls.py:30-35``) and
+    :func:`tie_pairs`, hulls whose support probes tie.
 """
 
 from __future__ import annotations
@@ -24,7 +29,9 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["c3_pairs", "c3_shuffled", "mixed16_pairs", "kind_batch", "concat",
-           "permute", "random_hulls", "c2_hulls", "c3b_pairs"]
+           "permute", "random_hulls", "c2_hulls", "c3b_pairs",
+           "big_pairs_8192", "big_subhull_pairs", "big_c2_pairs",
+           "large_hulls", "tie_pairs"]
 
 _EYE = np.eye(3, dtype=np.float32)
 
@@ -163,3 +170,81 @@ def c3b_pairs(seed: int = 0):
     r = u(0.2, 0.25)
     cyl = _shapes(3, _col3(r, u(0.25, 0.25)), pos())
     return hulls, concat(sph, box, cap, cyl)
+
+
+# -- large hulls --------------------------------------------------------------
+
+def big_pairs_8192():
+    """256 pairs of 8,192-vertex hulls, ``(big, big + 0.1)``, as
+    ``tests/test_fused_tpu.py:257-261`` (seed 23, spread 0.4): 25.2 MB a
+    side, nearly every pair a hit."""
+    big = random_hulls(np.random.default_rng(23), 256, 8192, spread=0.4)
+    return big, big + np.float32(0.1)
+
+
+def big_subhull_pairs(n_sub: int = 2048):
+    """The first ``n_sub`` vertices of :func:`big_pairs_8192`'s hulls, and
+    the same padded back to 8,192 by repeating vertex 0
+    (``tests/test_fused_tpu.py:263-269``): ((sub, sub + 0.1), (padded,
+    padded + 0.1)).  The padded pairs take the large-hull path, the others
+    (n1 + n2 = 4096) the resident one."""
+    big, _ = big_pairs_8192()
+    sub = np.ascontiguousarray(big[:, :n_sub])
+    pad = np.concatenate(
+        [sub, np.repeat(sub[:, :1], big.shape[1] - n_sub, axis=1)], axis=1)
+    return (sub, sub + np.float32(0.1)), (pad, pad + np.float32(0.1))
+
+
+def big_c2_pairs(seed: int = 0):
+    """4,096 pairs of 2,600-vertex ``random_hulls`` at spread 0.8 (n1 + n2 =
+    5,200, each hull padded to 3,072 in the broadphase): a mix of misses and
+    hits, 128 MB a side."""
+    rng = np.random.default_rng(seed)
+    return (random_hulls(rng, 4096, 2600, 0.8),
+            random_hulls(rng, 4096, 2600, 0.8))
+
+
+def large_hulls(rng, b: int, n: int, radius: float = 1.0,
+                spread: float = 0.5):
+    """``tests/test_large_hulls.py``'s generator (:30-35)."""
+    v = rng.normal(size=(b, n, 3))
+    v /= np.linalg.norm(v, axis=-1, keepdims=True)
+    v *= radius * (0.6 + 0.4 * rng.random((b, n, 1)))
+    v += rng.normal(size=(b, 1, 3)) * spread
+    return v.astype(np.float32)
+
+
+# (first slot, second slot, third slot) of each cube corner's three copies:
+# i, i + 1 (two threads of a warp's scan) and i + 32 (j + 1) (one thread)
+TIE_SLOTS = tuple((2 + 4 * j, 3 + 4 * j, 34 + 36 * j) for j in range(8))
+
+
+def _tie_hulls(rng, b: int, n: int, centre_spread: float):
+    """(b, n, 3) float32 hulls on a 1/8 grid whose support probes tie: the
+    8 corners of a box, each three times at :data:`TIE_SLOTS` (once exact,
+    twice moved by one ulp along an axis, in an order that turns with the
+    corner), and the other vertices on grid points inside the box."""
+    half = rng.integers(3, 9, size=(b, 1, 3))               # 3/8 .. 1
+    centre = np.round(rng.normal(size=(b, 1, 3)) * centre_spread * 8)
+    inner = rng.integers(-(half - 1), half, size=(b, n, 3))
+    v = (inner + centre) / 8.0
+    signs = np.array([[x, y, z] for x in (-1, 1) for y in (-1, 1)
+                      for z in (-1, 1)])
+    for j, slots in enumerate(TIE_SLOTS):
+        corner = ((signs[j] * half + centre) / 8.0)[:, 0].astype(np.float32)
+        for k, slot in enumerate(slots):
+            c = corner.copy()
+            axis = (j + k) % 3 - 1               # -1: exact, else one ulp
+            if axis >= 0:
+                c[:, axis] = np.nextafter(c[:, axis], np.float32(np.inf))
+            v[:, slot] = c
+    return v.astype(np.float32)
+
+
+def tie_pairs(b: int = 2048, n1: int = 2100, n2: int = 2100, seed: int = 31):
+    """Box pairs on a 1/8 grid whose support probes tie between copies of
+    a corner (:func:`_tie_hulls`), n1 + n2 > 4096 so that they take the
+    large-hull path; the boxes' centres spread so that about half the
+    pairs overlap."""
+    rng = np.random.default_rng(seed)
+    return _tie_hulls(rng, b, n1, 0.6), _tie_hulls(rng, b, n2, 0.6)

@@ -10,11 +10,13 @@ two-phase dispatch ``_run_two_phase`` (:1188-1385) re-expressed for CUDA:
   * K2 (:mod:`.fused_epa`) gets that order and the hit count as a device
     scalar, so nothing waits on the host between the two kernels.
 
+Hulls with n1 + n2 > 4096 vertices take the large-hull path instead, as in
+the JAX package (:1533-1540): K12 and K13 of :mod:`.fused_streamed`, a
+warp a pair, after a broadphase on the tile-padded hulls.
+
 The TPU-only machinery is gone: the B/8 EPA prefix with its ``lax.cond``
 fallback, the swapaxes layouts, the sort-for-scatter trick and the batch
-padding (a CUDA kernel masks its own ragged edge).  Hull pairs of any N
-run on K1/K2; the JAX package's HBM-streamed branch for n1+n2 > 4096 has
-no counterpart here.
+padding (a CUDA kernel masks its own ragged edge).
 """
 
 from __future__ import annotations
@@ -25,11 +27,12 @@ import torch
 
 from ..config import GJKEPAConfig
 from .fused_epa import epa_cascade
-from .fused_gjk import gjk_hulls
+from .fused_gjk import GJKRows, gjk_hulls
 
 __all__ = ["FusedResult", "fused_gjkepa_hulls", "fused_gjkepa_shapes",
            "fused_gjk_distance_hulls", "fused_gjkepa_hull_shapes",
-           "cascade_plan", "round_cfg", "mask_to_padding", "hit_first_order"]
+           "cascade_plan", "round_cfg", "mask_to_padding", "hit_first_order",
+           "hulls_result"]
 
 
 class FusedResult(NamedTuple):
@@ -106,6 +109,22 @@ def hit_first_order(act: torch.Tensor):
     return order, n_act.contiguous()
 
 
+def hulls_result(g: GJKRows, stages, epa) -> FusedResult:
+    """The query's result from GJK rows ``g``: ``epa(order, n_act,
+    stages)`` (K2 or K13) over the hit lanes, or no EPA at all in the
+    boolean-only mode (no stages)."""
+    if not stages:           # boolean-only: the miss path never enters EPA
+        zero = torch.zeros_like(g.sep)
+        return FusedResult(g.hit, g.status, zero,
+                           torch.zeros_like(g.simplex[:, 0]), g.iters,
+                           torch.zeros_like(g.iters), g.sep)
+    # hull pairs have no closed-form lanes, so every hit enters EPA
+    order, n_act = hit_first_order(g.hit)
+    e = epa(order, n_act, stages)
+    return FusedResult(g.hit, e.status, e.depth, e.normal, g.iters, e.iters,
+                       g.sep)
+
+
 def fused_gjkepa_hulls(p1: torch.Tensor, p2: torch.Tensor,
                        mask1: torch.Tensor | None = None,
                        mask2: torch.Tensor | None = None,
@@ -117,28 +136,26 @@ def fused_gjkepa_hulls(p1: torch.Tensor, p2: torch.Tensor,
       p1, p2: (B, N, 3) float32 vertex buffers on one device.
       mask1, mask2: optional (B, N) bool validity masks; equivalent to
         padding by repeating a real vertex.
+
+    Pairs with n1 + n2 > 4096 vertices take the large-hull path (K12, K13;
+    :func:`.fused_streamed.fused_hulls_streamed`), the rest K1 and K2.
     """
     cfg = round_cfg(cfg)
     if p1.shape[0] == 0:
         raise ValueError("empty batch")
     p1 = mask_to_padding(p1, mask1).contiguous()
     p2 = mask_to_padding(p2, mask2).contiguous()
+    if streams(p1.shape[1], p2.shape[1]):
+        return fused_hulls_streamed(p1, p2, cfg)
     g = gjk_hulls(p1, p2, cfg)
-    stages = cascade_plan(cfg)
-    if not stages:           # boolean-only: the miss path never enters EPA
-        zero = torch.zeros_like(g.sep)
-        return FusedResult(g.hit, g.status, zero,
-                           torch.zeros_like(g.simplex[:, 0]), g.iters,
-                           torch.zeros_like(g.iters), g.sep)
-    # hull pairs have no closed-form lanes, so every hit enters EPA
-    order, n_act = hit_first_order(g.hit)
-    e = epa_cascade(p1, p2, g.simplex, g.status, order, n_act, stages)
-    return FusedResult(g.hit, e.status, e.depth, e.normal, g.iters, e.iters,
-                       g.sep)
+    return hulls_result(g, cascade_plan(cfg), lambda *a: epa_cascade(
+        p1, p2, g.simplex, g.status, *a))
 
 
-# The shape, distance and hull-vs-shape queries build on the pieces above
-# (ops/fused_shapes.py, ops/fused_distance.py, ops/fused_hull_shapes.py).
+# The shape, distance, hull-vs-shape and large-hull queries build on the
+# pieces above (ops/fused_shapes.py, ops/fused_distance.py,
+# ops/fused_hull_shapes.py, ops/fused_streamed.py).
 from .fused_shapes import fused_gjkepa_shapes  # noqa: E402
 from .fused_distance import fused_gjk_distance_hulls  # noqa: E402
 from .fused_hull_shapes import fused_gjkepa_hull_shapes  # noqa: E402
+from .fused_streamed import fused_hulls_streamed, streams  # noqa: E402

@@ -249,15 +249,21 @@ def gjk_phase(support, active: torch.Tensor, cfg: GJKEPAConfig):
     return s, status, it, sep
 
 
-def gjk_hulls_plain(p1: torch.Tensor, p2: torch.Tensor,
-                    cfg: GJKEPAConfig) -> GJKRows:
-    """Plain PyTorch version of K1 (lane-vectorised masked tensor code)."""
-    check_hulls(p1, p2)
-    active = hull_broadphase(p1, p2, cfg.broadphase_tol)
+def gjk_rows(p1: torch.Tensor, p2: torch.Tensor, active: torch.Tensor,
+             cfg: GJKEPAConfig) -> GJKRows:
+    """The GJK phase over hull pairs whose broadphase is decided
+    (``active``), as GJK rows: the plain body of K1 and K12."""
     s, status, it, sep = gjk_phase(make_hull_support(p1, p2), active, cfg)
     simplex = torch.stack([torch.stack([v.x, v.y, v.z], dim=1) for v in s],
                           dim=1)
     return GJKRows(status == Status.HIT, status, it, sep, simplex)
+
+
+def gjk_hulls_plain(p1: torch.Tensor, p2: torch.Tensor,
+                    cfg: GJKEPAConfig) -> GJKRows:
+    """Plain PyTorch version of K1 (lane-vectorised masked tensor code)."""
+    check_hulls(p1, p2)
+    return gjk_rows(p1, p2, hull_broadphase(p1, p2, cfg.broadphase_tol), cfg)
 
 
 def _gjk_hulls_cuda(p1, p2, cfg: GJKEPAConfig) -> GJKRows:

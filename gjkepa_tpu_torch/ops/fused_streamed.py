@@ -1,0 +1,189 @@
+"""The large-hull path: K12, K13 and their dispatch for n1 + n2 > 4096.
+
+Ports ``_fused_hulls_streamed`` (``gjkepa_tpu/ops/fused.py:1434-1502``)
+with its kernels ``_gjk_kernel_hulls_big`` (K12, :1073) and
+``_epa_cascade_kernel_hulls_big`` (K13, :1086) over the streamed support
+``_make_hull_support_streamed`` (K11, :1010).  The CUDA kernels are
+``csrc/gjk_hulls_big.cu`` and ``csrc/epa_hulls_big.cu`` over the warp
+support of ``csrc/hull_stream.cuh``; each has its plain PyTorch version
+here.  A wrapper takes the plain version only for tensors on the CPU; for
+CUDA tensors it launches the kernel or raises.
+
+``fused_gjkepa_hulls`` routes a batch here when n1 + n2 exceeds
+:data:`STREAM_THRESHOLD`, as the JAX package does (:1533-1540), and the
+route is visible in the results: the JAX package decides the
+bounding-sphere broadphase on the hulls padded to a multiple of the
+1024-vertex tile by repeating vertex 0 (:1449-1478), so the centroid
+counts the repeats.  :func:`streamed_broadphase` does the same.  The
+kernels then read the unpadded hulls: trailing repeats of vertex 0 never
+change a first-max support (:1443-1446).
+
+On the TPU the support streams vertex slabs through VMEM and folds them
+with strict ``>``; on the card one warp scans a pair's vertices, 32 at a
+time, and a shuffle reduction keeps the first maximum
+(:func:`warp_first_max_plain` is that reduction in torch).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from ..config import GJKEPAConfig
+from .fused import FusedResult, cascade_plan, hulls_result, round_cfg
+from .fused_epa import (MAX_TIERS, EPARows, _check_inputs, _passthrough,
+                        check_stages, check_tensors, epa_cascade_plain)
+from .fused_gjk import (INIT_DIRS, GJKRows, check_hulls, gjk_rows,
+                        hull_broadphase)
+from .fused_shapes import empty_gjk_rows, gjk_args
+
+__all__ = ["STREAM_THRESHOLD", "TILE", "streams", "pad_tile",
+           "streamed_broadphase", "gjk_hulls_big", "gjk_hulls_big_plain",
+           "epa_hulls_big", "epa_hulls_big_plain", "warp_first_max_plain",
+           "fused_hulls_streamed", "LAUNCHES"]
+
+# n1 + n2 above which the JAX package streams: _AUTO_BLOCK_BUDGET //
+# (3 * 4 * 128), both hulls of a 128-lane block in a 6 MB VMEM budget
+# (fused.py:1403, :1533).
+STREAM_THRESHOLD = 4096
+# The vertex tile the JAX package pads each hull to a multiple of (:1435).
+TILE = 1024
+WARP = 32
+
+# Kernel launches made by the wrappers below (CUDA tensors only).
+LAUNCHES = {"gjk_hulls_big": 0, "epa_hulls_big": 0}
+
+
+def streams(n1: int, n2: int) -> bool:
+    """Whether hulls of n1 and n2 vertices take the large-hull path."""
+    return n1 + n2 > STREAM_THRESHOLD
+
+
+def pad_tile(p: torch.Tensor, tile: int = TILE) -> torch.Tensor:
+    """(B, N, 3) hulls padded to a multiple of ``tile`` vertices by
+    repeating vertex 0 (:1449-1453)."""
+    pad = (-p.shape[1]) % tile
+    if pad == 0:
+        return p
+    return torch.cat([p, p[:, :1].expand(-1, pad, -1)], dim=1)
+
+
+def streamed_broadphase(p1: torch.Tensor, p2: torch.Tensor, tol,
+                        tile: int = TILE) -> torch.Tensor:
+    """The (B,) bool broadphase of the large-hull path: bounding spheres of
+    the tile-padded hulls (:1467-1476)."""
+    return hull_broadphase(pad_tile(p1, tile), pad_tile(p2, tile), tol)
+
+
+def warp_first_max_plain(dots: torch.Tensor, width: int = WARP
+                         ) -> torch.Tensor:
+    """K11's reduction over (B, N) dots in torch: thread t of a ``width``
+    warp keeps the first maximum of columns t, t + width, ...; then
+    log2(width) xor-shuffle steps keep the larger value, and on an equal
+    value the smaller index.  Returns the (B,) int64 index every thread
+    ends with (held to ``torch.argmax``, the first maximum)."""
+    b, n = dots.shape
+    cols = -(-n // width) * width
+    vals = torch.full((b, cols), -torch.inf, dtype=dots.dtype,
+                      device=dots.device)
+    vals[:, :n] = dots
+    idx = torch.arange(cols, device=dots.device).expand(b, -1)
+    idx = torch.where(idx < n, idx, torch.iinfo(torch.int32).max)
+    # thread t owns column t + width * k, k = 0, 1, ...: row k of the view
+    vals = vals.view(b, -1, width)
+    idx = idx.reshape(b, -1, width)
+    best, bidx = vals[:, 0], idx[:, 0]
+    for k in range(1, vals.shape[1]):
+        take = vals[:, k] > best                     # strict: first wins
+        best = torch.where(take, vals[:, k], best)
+        bidx = torch.where(take, idx[:, k], bidx)
+    lane = torch.arange(width, device=dots.device)
+    off = width // 2
+    while off:
+        ob, oi = best[:, lane ^ off], bidx[:, lane ^ off]
+        take = (ob > best) | ((ob == best) & (oi < bidx))
+        best = torch.where(take, ob, best)
+        bidx = torch.where(take, oi, bidx)
+        off //= 2
+    return bidx[:, 0]
+
+
+# -- K12 ----------------------------------------------------------------------
+
+def _check_gjk(p1, p2, active) -> None:
+    check_hulls(p1, p2)
+    check_tensors(p1, active=(active, torch.bool, (p1.shape[0],)))
+
+
+def gjk_hulls_big_plain(p1, p2, active, cfg: GJKEPAConfig) -> GJKRows:
+    """Plain PyTorch version of K12: the GJK phase over every pair, with
+    the broadphase decided by the caller (``active``)."""
+    _check_gjk(p1, p2, active)
+    return gjk_rows(p1, p2, active, cfg)
+
+
+def gjk_hulls_big(p1, p2, active, cfg: GJKEPAConfig) -> GJKRows:
+    """K12 over (B, N, 3) float32 hull pairs, a warp a pair."""
+    _check_gjk(p1, p2, active)
+    if not _build.on_card(p1, "K12"):
+        return gjk_hulls_big_plain(p1, p2, active, cfg)
+    out = empty_gjk_rows(p1.shape[0], p1.device)
+    ptr = _build.ptr
+    _build.launch("gjk_hulls_big", p1.device, LAUNCHES, ptr(p1), ptr(p2),
+                  ptr(active), INIT_DIRS.ctypes.data_as(ctypes.c_void_p),
+                  *(ptr(t) for t in out), p1.shape[0], p1.shape[1],
+                  p2.shape[1], *gjk_args(cfg))
+    return out
+
+
+# -- K13 ----------------------------------------------------------------------
+
+# Plain PyTorch version of K13: K2's cascade (the support map is the same
+# function).
+epa_hulls_big_plain = epa_cascade_plain
+
+
+def epa_hulls_big(p1, p2, simplex, gjk_status, order, n_act,
+                  stages: list[tuple[GJKEPAConfig, int]]) -> EPARows:
+    """K13: the EPA tier ladder over pairs ``order[:n_act]`` (``n_act`` a
+    device scalar), a warp a pair."""
+    _check_inputs(p1, p2, simplex, gjk_status, order, n_act)
+    check_stages(stages)
+    if not _build.on_card(p1, "K13"):
+        return epa_hulls_big_plain(p1, p2, simplex, gjk_status, order, n_act,
+                                   stages)
+    lib = _build.load()
+    b, dev = p1.shape[0], p1.device
+    cfg = stages[0][0]
+    f_max = max(c.epa_max_faces for c, _ in stages)
+    tier_f = (ctypes.c_int * MAX_TIERS)(*[c.epa_max_faces for c, _ in stages])
+    tier_k = (ctypes.c_int * MAX_TIERS)(*[k for _, k in stages])
+    out = _passthrough(gjk_status, b, dev)
+    # per-slot polytope state, [field][face][slot] (see csrc/epa_hulls_big.cu)
+    scratch = torch.empty((lib.epa_scratch_words_per_face(), f_max, b),
+                          dtype=torch.float32, device=dev)
+    ptr = _build.ptr
+    _build.launch("epa_hulls_big", dev, LAUNCHES, ptr(p1), ptr(p2),
+                  ptr(simplex), ptr(order), ptr(n_act), *(ptr(t) for t in out),
+                  ptr(scratch), b, p1.shape[1], p2.shape[1], len(stages),
+                  tier_f, tier_k, f_max, cfg.eps_coincide, cfg.eps_zero,
+                  cfg.epa_max_iters)
+    return out
+
+
+# -- dispatch -----------------------------------------------------------------
+
+def fused_hulls_streamed(p1: torch.Tensor, p2: torch.Tensor,
+                         cfg: GJKEPAConfig | None = None,
+                         tile: int = TILE) -> FusedResult:
+    """The large-hull pipeline over (B, N, 3) float32 hull pairs (masks
+    already turned into padding): the broadphase on the tile-padded hulls,
+    K12 over every pair, a hit-first order with the count on the device,
+    then K13 over the hits.  ``epa_max_iters == 0`` runs no EPA."""
+    cfg = round_cfg(cfg)
+    active = streamed_broadphase(p1, p2, cfg.broadphase_tol, tile)
+    g = gjk_hulls_big(p1, p2, active, cfg)
+    return hulls_result(g, cascade_plan(cfg), lambda *a: epa_hulls_big(
+        p1, p2, g.simplex, g.status, *a))

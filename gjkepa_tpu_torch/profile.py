@@ -13,7 +13,10 @@ Paths, each at its bench.py configuration (``models/fixtures.py``):
   c3b       ``fused_gjkepa_hull_shapes``, 16,384 24-vertex hulls against
             the four shape kinds;
   c3b_unsorted  the same with ``sort_hits=False``;
-  c4        ``gjkepa_batch_fused``, 16,384 x 24 deep pairs, full contact.
+  c4        ``gjkepa_batch_fused``, 16,384 x 24 deep pairs, full contact;
+  big8192   ``gjkepa_batch_fused``, 256 x 8,192 hull pairs (the large-hull
+            path: K12, K13), full contact;
+  big2600   ``fused_gjkepa_hulls``, 4,096 x 2,600 hull pairs (K12, K13).
 
 Without arguments it profiles them all; named paths run in the order given,
 repeats included (``c3b c3b_unsorted c3b_unsorted c3b`` compares two in
@@ -22,9 +25,9 @@ wall per call (``torch.cuda.synchronize`` after each call, median of 7
 after 2 warm-up calls), then, over 5 calls under ``torch.profiler``: the
 device time per call (kernel self time), the device's busy share of the
 wall, the kernel launches per call and the operations with the most device
-time.  For c2dist and c3b it also times each step of the dispatch alone
-(host wall, synchronised, median of 7).  Every line names the card and its
-power limit.  Without a CUDA device it exits non-zero.
+time.  For c2dist, c3b, big8192 and big2600 it also times each step of the
+dispatch alone (host wall, synchronised, median of 7).  Every line names
+the card and its power limit.  Without a CUDA device it exits non-zero.
 """
 
 from __future__ import annotations
@@ -37,13 +40,14 @@ import time
 import numpy as np
 import torch
 
-from . import (GJKEPAConfig, ShapeBatch, fused_gjk_distance_hulls,
-               fused_gjkepa_hull_shapes, fused_gjkepa_hulls,
-               fused_gjkepa_shapes, gjkepa_batch_fused)
+from . import (GJKEPAConfig, ShapeBatch, derive_contact_batch,
+               fused_gjk_distance_hulls, fused_gjkepa_hull_shapes,
+               fused_gjkepa_hulls, fused_gjkepa_shapes, gjkepa_batch_fused)
 from .models import fixtures
 from .ops import fused_distance as fd
 from .ops import fused_hull_shapes as fh
-from .ops.fused import hit_first_order
+from .ops import fused_streamed as fst
+from .ops.fused import cascade_plan, hit_first_order
 from .ops.fused_shapes import shape_stages
 
 WALL_CALLS = 7
@@ -138,6 +142,30 @@ def steps_c3b(p1, shapes, cfg, card) -> None:
         print(f"  c3b step {what}: {wall_ms(fn):.4f} ms [{card}]", flush=True)
 
 
+def steps_big(name, p1, p2, cfg, card, contact) -> None:
+    """The large-hull dispatch step by step."""
+    active = fst.streamed_broadphase(p1, p2, cfg.broadphase_tol)
+    g = fst.gjk_hulls_big(p1, p2, active, cfg)
+    order, n_act = hit_first_order(g.hit)
+    stages = cascade_plan(cfg)
+    steps = {
+        "broadphase (tile-padded)": lambda: fst.streamed_broadphase(
+            p1, p2, cfg.broadphase_tol),
+        "K12": lambda: fst.gjk_hulls_big(p1, p2, active, cfg),
+        "hit_first_order": lambda: hit_first_order(g.hit),
+        "K13": lambda: fst.epa_hulls_big(p1, p2, g.simplex, g.status, order,
+                                         n_act, stages),
+    }
+    if contact:
+        r = fused_gjkepa_hulls(p1, p2, cfg=cfg)
+        steps["contact rows"] = lambda: derive_contact_batch(p1, p2, r, cfg)
+    print(f"{name}: {int(active.sum())} active, {int(n_act)} hits",
+          flush=True)
+    for what, fn in steps.items():
+        print(f"  {name} step {what}: {wall_ms(fn):.4f} ms [{card}]",
+              flush=True)
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("profile: no CUDA device", file=sys.stderr)
@@ -149,7 +177,7 @@ def main(argv) -> int:
                           text=True, check=True).stdout.strip()
     cfg = GJKEPAConfig.for_f32()
     order = argv or ["c2", "c2dist", "c2dist1", "c3", "c3b", "c3b_unsorted",
-                     "c4"]
+                     "c4", "big8192", "big2600"]
     want = set(order)
 
     def on_dev(*arrays):
@@ -181,12 +209,22 @@ def main(argv) -> int:
         small += rng.normal(size=(16384, 1, 3)).astype(np.float32) * 0.2
         m1, m2 = on_dev(big, small)
         paths["c4"] = lambda: gjkepa_batch_fused(m1, m2, cfg=cfg)
+    if "big8192" in want:
+        g1, g2 = on_dev(*fixtures.big_pairs_8192())
+        paths["big8192"] = lambda: gjkepa_batch_fused(g1, g2, cfg=cfg)
+    if "big2600" in want:
+        h1, h2 = on_dev(*fixtures.big_c2_pairs())
+        paths["big2600"] = lambda: fused_gjkepa_hulls(h1, h2, cfg=cfg)
     for name in order:
         profile_path(name, paths[name], card)
     if "c2dist" in want:
         steps_c2dist(d1, d2, cfg, card)
     if "c3b" in want:
         steps_c3b(h3, s3, cfg, card)
+    if "big8192" in want:
+        steps_big("big8192", g1, g2, cfg, card, contact=True)
+    if "big2600" in want:
+        steps_big("big2600", h1, h2, cfg, card, contact=False)
     return 0
 
 

@@ -12,6 +12,8 @@ own: the kernels are built with --fmad=false), normals dot > 1-1e-4 on
 >= 98% of hit lanes; closed-form depth and normal 1e-6.  Distance (K8):
 intersecting and converged exact, distance and witnesses 1e-5, iteration
 counts on >= 99.5% of lanes, two-phase equal to one pass bit for bit.
+Large hulls (K12, K13): K1/K2's tolerances, and bit for bit on the tie
+fixture.
 """
 
 import numpy as np
@@ -25,6 +27,7 @@ from gjkepa_tpu_torch import (GJKEPAConfig, ShapeBatch,
 from gjkepa_tpu_torch.models import fixtures
 from gjkepa_tpu_torch.ops import fused_distance as fd
 from gjkepa_tpu_torch.ops import fused_epa, fused_gjk
+from gjkepa_tpu_torch.ops import fused_streamed as fst
 from gjkepa_tpu_torch.ops import fused_hull_shapes as fh
 from gjkepa_tpu_torch.ops import fused_shapes as fs
 from gjkepa_tpu_torch.ops.fused import cascade_plan, hit_first_order
@@ -224,3 +227,65 @@ def test_mixed_path_sort_hits_agree_on_card(dev):
     for x, y in zip(r1, r2):
         assert torch.equal(x, y)
     assert all(t.device == p1.device for t in r1)
+
+
+def _big_rows_match(p1, p2, cfg, exact):
+    """K12 and K13 against their plain versions (bit for bit with
+    ``exact``, else within this file's tolerances)."""
+    active = fst.streamed_broadphase(p1, p2, cfg.broadphase_tol)
+    gk = fst.gjk_hulls_big(p1, p2, active, cfg)
+    gp = fst.gjk_hulls_big_plain(p1, p2, active, cfg)
+    assert torch.equal(gk.hit, gp.hit) and torch.equal(gk.status, gp.status)
+    assert float((gk.iters == gp.iters).float().mean()) >= 0.995
+    assert float((gk.sep - gp.sep).abs().max()) <= 1e-5
+    # the simplex of the lanes that ran GJK (the plain version leaves
+    # probes in the others, the kernel zeros)
+    assert float((gk.simplex - gp.simplex)[active].abs().max()) <= 1e-5
+    order, n_act = hit_first_order(gp.hit)
+    args = (p1, p2, gp.simplex, gp.status, order, n_act, cascade_plan(cfg))
+    ek, ep = fst.epa_hulls_big(*args), fst.epa_hulls_big_plain(*args)
+    assert torch.equal(ek.status, ep.status)
+    assert float((ek.depth - ep.depth).abs().max()) <= 1e-5
+    dots = (ek.normal * ep.normal).sum(1)[gp.hit]
+    assert float((dots > 1.0 - 1e-4).float().mean()) >= 0.98
+    assert int((ek.iters != ep.iters).sum()) <= 0.01 * int(n_act)
+    if exact:
+        for x, y in zip((*gk[:4], gk.simplex[active], *ek),
+                        (*gp[:4], gp.simplex[active], *ep)):
+            assert torch.equal(x, y)
+
+
+def test_k12_k13_match_plain_on_card(dev):
+    rng = np.random.default_rng(6)
+    p1, p2 = (torch.from_numpy(_hulls(rng, 512, 2600)).to(dev)
+              for _ in range(2))
+    n0 = dict(fst.LAUNCHES)
+    _big_rows_match(p1, p2, GJKEPAConfig.for_f32(), exact=False)
+    assert {k: fst.LAUNCHES[k] - n0[k] for k in n0} == {
+        "gjk_hulls_big": 1, "epa_hulls_big": 1}
+
+
+def test_k12_k13_keep_the_first_maximum_on_ties(dev):
+    """Support probes that tie between copies of a box corner one ulp apart,
+    in one thread's scan and across threads: bit for bit."""
+    p1, p2 = (torch.from_numpy(x).to(dev)
+              for x in fixtures.tie_pairs(512, 2100, 2100))
+    _big_rows_match(p1, p2, GJKEPAConfig.for_f32(), exact=True)
+
+
+def test_large_hull_path_launches_on_card(dev):
+    """One call with n1 + n2 > 4096 launches K12 and K13 once each and K1
+    and K2 never; boolean mode launches K12 only."""
+    rng = np.random.default_rng(7)
+    p1, p2 = (torch.from_numpy(_hulls(rng, 256, 2049, 0.3)).to(dev)
+              for _ in range(2))
+    cfg = GJKEPAConfig.for_f32()
+    for c, want in ((cfg, 1), (cfg.replace(epa_max_iters=0), 0)):
+        n0 = (dict(fst.LAUNCHES), fused_gjk.LAUNCHES, fused_epa.LAUNCHES)
+        r = gjkepa_batch_fused(p1, p2, cfg=c)
+        assert {k: fst.LAUNCHES[k] - n0[0][k] for k in n0[0]} == {
+            "gjk_hulls_big": 1, "epa_hulls_big": want}
+        assert (fused_gjk.LAUNCHES, fused_epa.LAUNCHES) == n0[1:]
+        assert int(r.hit.sum()) > 0
+        assert all(bool(torch.isfinite(t).all()) for t in r
+                   if t.is_floating_point())

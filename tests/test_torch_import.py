@@ -14,6 +14,7 @@ from gjkepa_tpu import GJKEPAConfig as JaxConfig
 from gjkepa_tpu.ops.directions import DIRECTION_TABLE as JAX_TABLE
 from gjkepa_tpu_torch import GJKEPAConfig, _build
 from gjkepa_tpu_torch.ops import fused_epa, fused_gjk
+from gjkepa_tpu_torch.ops import fused_streamed as fst
 from gjkepa_tpu_torch.ops.directions import DIRECTION_TABLE
 from gjkepa_tpu_torch.ops.fused import cascade_plan, hit_first_order
 
@@ -31,7 +32,8 @@ def test_import_leaves_jax_out():
             "gjkepa_tpu_torch.ops.contact_shapes, "
             "gjkepa_tpu_torch.ops.distance, "
             "gjkepa_tpu_torch.ops.fused_distance, "
-            "gjkepa_tpu_torch.ops.fused_hull_shapes; "
+            "gjkepa_tpu_torch.ops.fused_hull_shapes, "
+            "gjkepa_tpu_torch.ops.fused_streamed; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'gjkepa_tpu.')) "
             "or m == 'gjkepa_tpu'); print(bad); sys.exit(1 if bad else 0)")
@@ -80,7 +82,7 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
         raise AssertionError("kernel build attempted for CPU tensors")
 
     monkeypatch.setattr(_build, "load", no_build)
-    n1, n2 = fused_gjk.LAUNCHES, fused_epa.LAUNCHES
+    n1, n2, n3 = fused_gjk.LAUNCHES, fused_epa.LAUNCHES, dict(fst.LAUNCHES)
     p1, p2 = _cubes()
     cfg = GJKEPAConfig.for_f32()
     g = fused_gjk.gjk_hulls(p1, p2, cfg)
@@ -89,7 +91,14 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
                               cascade_plan(cfg))
     assert bool(g.hit.all())
     np.testing.assert_allclose(e.depth.numpy(), 0.5, atol=1e-6)
+    # the large-hull kernels' wrappers (K12, K13) on the same pairs
+    gb = fst.gjk_hulls_big(p1, p2, fst.streamed_broadphase(
+        p1, p2, cfg.broadphase_tol), cfg)
+    eb = fst.epa_hulls_big(p1, p2, gb.simplex, gb.status, order, n_act,
+                           cascade_plan(cfg))
+    assert all(torch.equal(x, y) for x, y in zip((*g, *e), (*gb, *eb)))
     assert (fused_gjk.LAUNCHES, fused_epa.LAUNCHES) == (n1, n2)
+    assert fst.LAUNCHES == n3
 
 
 def test_kernel_entry_raises_without_nvcc(monkeypatch, tmp_path):
