@@ -5,13 +5,14 @@ portable distance API:
 
   * hull pairs: :func:`gjkepa_batch_fused` / :func:`derive_contact_batch`
     (``api``) over :func:`fused_gjkepa_hulls` (``ops.fused``): K1, the GJK
-    hull kernel (``csrc/gjk_hulls.cu``), then K2, the EPA cascade kernel
-    (``csrc/epa_hulls.cu``), over the hit lanes; contact versions 1, 2
-    and 3 from :func:`derive_contact_rows` (``ops.contact_rows``); hull
-    pairs with n1 + n2 > 4096 vertices take the large-hull path
-    (``ops.fused_streamed``): K12 (``csrc/gjk_hulls_big.cu``) and K13
-    (``csrc/epa_hulls_big.cu``), a warp a pair over the warp support K11
-    (``csrc/hull_stream.cuh``);
+    hull kernel, a team of threads a pair (``csrc/gjk_hulls.cu``), then
+    K2, the EPA cascade kernel (``csrc/epa_hulls.cu``), over the hit
+    lanes; contact versions 1, 2 and 3 from :func:`derive_contact_rows`
+    (``ops.contact_rows``); hull pairs with n1 + n2 > 4096 vertices take
+    the large-hull path (``ops.fused_streamed``): K12, a warp a pair
+    (``csrc/gjk_hulls_big.cu``), and K13, a block of warps a hit with the
+    polytope in shared memory (``csrc/epa_hulls_big.cu``), over the team
+    support K11 (``csrc/hull_stream.cuh``);
   * analytic shape pairs (:class:`ShapeBatch` of spheres, boxes, capsules
     and cylinders): :func:`collide_shapes_batch_fused` (``api``) over
     :func:`fused_gjkepa_shapes` (``ops.fused_shapes``): K5, the closed-form

@@ -35,7 +35,7 @@ SOURCES = ("gjk_hulls.cu", "epa_hulls.cu", "cf_shapes.cu", "gjk_shapes.cu",
            "epa_shapes.cu", "distance_hulls.cu", "gjk_hull_shape.cu",
            "epa_hull_shape.cu", "gjk_hulls_big.cu", "epa_hulls_big.cu")
 HEADERS = ("lane_geom.cuh", "gjk_core.cuh", "epa_core.cuh", "shape_geom.cuh",
-           "hull_shape.cuh", "hull_stream.cuh")
+           "hull_shape.cuh", "hull_stream.cuh", "epa_warp.cuh")
 NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -44,15 +44,17 @@ _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ip = ctypes.POINTER(ctypes.c_int)
 # C entry points: name -> (source, argument types); each returns an int.
 ENTRY_POINTS = {
-    "gjk_hulls_launch": ("gjk_hulls.cu", [_vp] * 8 + [_ci] * 3
+    "gjk_hulls_launch": ("gjk_hulls.cu", [_vp] * 8 + [_ci] * 4
                          + [_cf] * 4 + [_ci, _vp]),
     "epa_hulls_launch": ("epa_hulls.cu", [_vp] * 10 + [_ci] * 4
                          + [_ip, _ip, _ci, _cf, _cf, _ci, _vp]),
     "epa_scratch_words_per_face": ("epa_hulls.cu", []),
     "gjk_hulls_big_launch": ("gjk_hulls_big.cu", [_vp] * 9 + [_ci] * 3
                              + [_cf] * 4 + [_ci, _vp]),
-    "epa_hulls_big_launch": ("epa_hulls_big.cu", [_vp] * 10 + [_ci] * 4
+    "epa_hulls_big_launch": ("epa_hulls_big.cu", [_vp] * 9 + [_ci] * 4
                              + [_ip, _ip, _ci, _cf, _cf, _ci, _vp]),
+    "epa_hulls_big_smem_bytes": ("epa_hulls_big.cu", [_ci]),
+    "epa_hulls_big_smem_limit": ("epa_hulls_big.cu", []),
     "cf_shapes_launch": ("cf_shapes.cu", [_vp] * 9 + [_ci, _cf, _vp]),
     "gjk_sub_shapes_launch": ("gjk_shapes.cu", [_vp] * 11 + [_ci]
                               + [_cf] * 4 + [_ci, _vp]),
@@ -155,16 +157,20 @@ def on_card(t: torch.Tensor, kernel: str) -> bool:
     return True
 
 
-def launch(name: str, dev: torch.device, counts: dict, *args) -> None:
+def launch(name: str, dev: torch.device, counts: dict, *args,
+           explain=None) -> None:
     """Call the C entry point ``<name>_launch(*args, stream)`` on ``dev``'s
-    current stream, raise on its CUDA error code, and count the launch in
+    current stream, raise on its CUDA error code (with what
+    ``explain(rc)`` says, if anything, on ``dev``), and count the launch in
     ``counts[name]``."""
     lib = load()
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         rc = getattr(lib, f"{name}_launch")(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+        if rc != 0:
+            why = explain(rc) if explain else None
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}"
+                               + (f": {why}" if why else ""))
     counts[name] += 1
 
 

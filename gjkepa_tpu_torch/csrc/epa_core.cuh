@@ -3,7 +3,11 @@
 // Ports _epa_phase_fast (gjkepa_tpu/ops/fused.py:456-749) and _epa_cascade
 // (:837-873).  Plain PyTorch version: epa_phase and run_cascade in
 // gjkepa_tpu_torch/ops/fused_epa.py.  K2 (epa_hulls.cu) instantiates it with
-// the hull support, K7 (epa_shapes.cu) with the analytic-shape support.
+// the hull support, K7 (epa_shapes.cu) with the analytic-shape support, K10
+// (epa_hull_shape.cu) with the hull-vs-shape support.  K13
+// (epa_hulls_big.cu) runs its own tier, epa_warp.cuh's epa_tier_warp: the
+// same arithmetic (plane_of, write_face) with the polytope in shared memory
+// and each face scan split across a warp.
 //
 // A lane runs the tiers (F, K) in sequence from the GJK simplex, each later
 // tier only if the previous one stopped for capacity.  Polytope state, per
@@ -46,10 +50,11 @@ struct EpaParams {
   int max_iters;  // epa_max_iters
 };
 
-// One lane's view of the [field][face][lane] scratch buffer.  The EPA
-// tier calls before_store() ahead of each group of stores: nothing for a
-// thread that owns its lane (K2, K7, K10); a warp that shares one lane's
-// faces (K13, hull_stream.cuh WarpFaces) puts its barrier there.
+// One lane's view of the [field][face][lane] scratch buffer.  write_face
+// calls before_store() ahead of each group of stores, the place for the
+// barrier of a face store that several threads write; each store of the
+// port is written only by its faces' owner (a lane's thread here, a face's
+// thread in epa_warp.cuh SmemFaces), so it is empty in each.
 struct Faces {
   float* base;
   size_t field_stride;  // f_max * B

@@ -1,0 +1,260 @@
+// The EPA capacity cascade for one pair, run by one warp over a polytope in
+// shared memory, templated on its support map.
+//
+// Ports _epa_phase_fast (gjkepa_tpu/ops/fused.py:456-749) and _epa_cascade
+// (:837-873), as epa_core.cuh's epa_tier does for one thread.  Plain
+// PyTorch version: epa_phase and run_cascade in
+// gjkepa_tpu_torch/ops/fused_epa.py, whose per-face tensor operations are
+// what the warp computes 32 faces at a time; the reductions' rules in torch
+// are warp_first_min_plain and ballot_rank_plain in
+// gjkepa_tpu_torch/ops/fused_streamed.py.  K13 (epa_hulls_big.cu) runs it.
+//
+// The face store (SmemFaces) is one pair's polytope, [field][face] with
+// f_max faces a field, 17 words a face (epa_core.cuh Field): 14,144 B at
+// the default ladder's F = 208.  Thread t of the warp owns faces t, t + 32,
+// ...: it alone writes them, and the others read them only after a
+// __syncwarp().  Each EPA iteration:
+//
+//   min face    each thread folds its faces' distances (dead: kBig) with
+//               strict <, then five xor shuffles keep the smaller value
+//               and, on an equal value, the smaller index, and lane 0's
+//               pair is broadcast: the first minimum, torch.argmin's index
+//               (0 when every face is dead or degenerate);
+//   probe       the warp support (hull_stream.cuh), one direction for all;
+//   repeat      each thread tests its own live faces' corners, __any_sync;
+//   visible     per 32-face chunk a __ballot_sync of the visible faces; a
+//               face's rank is __popc(ballot & lanemask_lt) plus the
+//               chunk's running count, the stable argsort's order, and the
+//               first K are staged (9 corners, 3 ids) in WarpScratch, since
+//               the new faces overwrite visible slots; nvis > K exits with
+//               HIT_EPA_CAPACITY;
+//   horizon     one thread per edge row (edge e of staged face k, e-major)
+//               of the 3 * nvis: its undirected key is counted among them,
+//               and the unique rows are ranked by ballot in row order
+//               (hord);
+//   new faces   the free faces (dead or visible) are ranked by ballot in
+//               index order (rank_f); the r-th takes the r-th horizon edge
+//               through epa_core.cuh's plane_of / write_face, written by
+//               the thread that owns it, and the rest are set dead.
+//
+// Every value that decides control flow is the same in all 32 threads (a
+// shuffle broadcast, a ballot count or a value read from the store after a
+// __syncwarp), so every exit (hit, capacity, degenerate, iteration cap) is
+// taken by the whole warp and every full-mask shuffle finds it.
+#pragma once
+
+#include "epa_core.cuh"
+#include "hull_stream.cuh"
+
+namespace gjkepa {
+
+// One pair's polytope in shared memory, [field][face].  Each face is stored
+// by the thread that owns it, so a store needs no barrier of its own.
+struct SmemFaces {
+  float* base;
+  int f_max;
+  __device__ __forceinline__ float& at(int field, int f) const { return base[field * f_max + f]; }
+  __device__ __forceinline__ void before_store() const {}
+};
+
+// The warp's per-iteration scratch in shared memory.
+struct WarpScratch {
+  float vis[kKMax][12];  // the first K visible faces: 9 corner coordinates, 3 ids
+  int key[3 * kKMax];    // undirected key of edge row j (edge j / nvis of face j % nvis)
+  int hor[3 * kKMax];    // horizon rows, in row order
+};
+
+__device__ __forceinline__ unsigned lanemask_lt() {
+  unsigned m;
+  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
+  return m;
+}
+
+// One tier of compact-visible EPA (_epa_phase_fast) for one pair, run by a
+// whole warp.
+template <class Support>
+__device__ TierOut epa_tier_warp(const Support& support, const P3* s, P3 interior, int F,
+                                 int K, const SmemFaces& fs, WarpScratch& ws,
+                                 const EpaParams& prm) {
+  const float eps = prm.eps, epz = prm.epz;
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int chunks = (F + kWarp - 1) / kWarp;
+  // seed: the 4 simplex faces (ref :279-293), each by its owner
+  __syncwarp();  // a previous tier's reads of the store are done
+  const int seed[4][3] = {{0, 1, 2}, {0, 2, 3}, {0, 1, 3}, {1, 2, 3}};
+#pragma unroll
+  for (int f = 0; f < 4; ++f) {
+    if (lane == f) {
+      write_face(fs, f, s[seed[f][0]], s[seed[f][1]], s[seed[f][2]], seed[f][0], seed[f][1],
+                 seed[f][2], interior, epz);
+    }
+  }
+  for (int f = 4 + lane; f < F; f += kWarp) fs.at(ALIVE, f) = kDead;
+
+  TierOut out;
+  out.depth = 0.0f;
+  out.normal = mk(0.0f, 0.0f, 0.0f);
+  out.iters = 0;
+  out.status = kHitEpaCap;
+  int nv = 4;
+
+  while (out.iters < prm.max_iters) {
+    __syncwarp();  // the faces written last (seed or new faces) before any read
+    // -- min face (first minimum over alive faces) / probe direction --------
+    float d_min = INFINITY;
+    int kmin = INT_MAX;
+    for (int f = lane; f < F; f += kWarp) {
+      const float dv = fs.at(ALIVE, f) != kDead ? fs.at(DD, f) : kBig;
+      if (dv < d_min) {
+        d_min = dv;
+        kmin = f;
+      }
+    }
+#pragma unroll
+    for (int off = kWarp / 2; off > 0; off >>= 1) {
+      const float ov = __shfl_xor_sync(kFullMask, d_min, off);
+      const int oi = __shfl_xor_sync(kFullMask, kmin, off);
+      if (ov < d_min || (ov == d_min && oi < kmin)) {
+        d_min = ov;
+        kmin = oi;
+      }
+    }
+    d_min = __shfl_sync(kFullMask, d_min, 0);
+    kmin = __shfl_sync(kFullMask, kmin, 0);
+    if (kmin == INT_MAX) {  // no face below +inf: every distance is NaN
+      kmin = 0;
+      d_min = fs.at(ALIVE, 0) != kDead ? fs.at(DD, 0) : kBig;
+    }
+    const bool all_deg = d_min >= kBig * 0.5f;
+    if (all_deg) d_min = 0.0f;
+    P3 dir = all_deg ? mk(0.0f, 0.0f, 0.0f)
+                     : mk(fs.at(NX, kmin), fs.at(NY, kmin), fs.at(NZ, kmin));
+
+    P3 w = support(dir);
+    float gain = dot(w, dir) - d_min;
+    bool dup = false;
+    for (int f = lane; f < F; f += kWarp) {
+      if (fs.at(ALIVE, f) == kDead) continue;
+      for (int c = 0; c < 3; ++c) {
+        P3 q = mk(fs.at(AX + 3 * c, f), fs.at(AY + 3 * c, f), fs.at(AZ + 3 * c, f));
+        if (coincide(q, w, eps)) dup = true;
+      }
+    }
+    dup = __any_sync(kFullMask, dup);
+    ++out.iters;
+    out.depth = d_min;
+    out.normal = dir;
+    if (gain < eps || dup) {
+      out.status = kHit;
+      return out;
+    }
+
+    // -- visible set; stage the first K visible faces ------------------------
+    int nvis = 0, n_free = 0;
+    for (int c = 0; c < chunks; ++c) {
+      const int f = c * kWarp + lane;
+      bool vis = false, is_free = false;
+      if (f < F) {
+        const float alive = fs.at(ALIVE, f);
+        if (alive != kDead) {
+          const float dd = fs.at(DD, f);
+          const bool star = f == kmin;
+          const bool beyond =
+              (fs.at(NX, f) * w.x + fs.at(NY, f) * w.y + fs.at(NZ, f) * w.z) > dd + epz;
+          vis = ((beyond || star) && dd < kBig * 0.5f) || star;
+        }
+        is_free = vis || alive != kAlive;
+      }
+      const unsigned vmask = __ballot_sync(kFullMask, vis);
+      if (vis) {
+        fs.at(ALIVE, f) = kVisible;
+        const int rank = nvis + __popc(vmask & lanemask_lt());
+        if (rank < K) {
+          for (int j = 0; j < 12; ++j) ws.vis[rank][j] = fs.at(AX + j, f);
+        }
+      }
+      nvis += __popc(vmask);
+      n_free += __popc(__ballot_sync(kFullMask, is_free));
+    }
+    if (nvis > K) {
+      out.status = kHitEpaCapacity;
+      return out;
+    }
+
+    // -- horizon: edges whose undirected key is unique among the 3*nvis -----
+    // row j < 3 * nvis is edge e = j / nvis of staged face k = j % nvis:
+    // e-major, the serial order e * K + k over the valid rows
+    __syncwarp();  // the staged faces before the edge rows read them
+    const int rows = 3 * nvis;
+    for (int j = lane; j < rows; j += kWarp) {
+      const int e = j / nvis, k = j - e * nvis;
+      const int u = (int)ws.vis[k][9 + e], v = (int)ws.vis[k][9 + (e + 1) % 3];
+      ws.key[j] = min(u, v) * kMaxId + max(u, v);
+    }
+    __syncwarp();  // every key before the counts
+    int n_new = 0;
+    for (int c = 0; c * kWarp < rows; ++c) {
+      const int j = c * kWarp + lane;
+      bool h = false;
+      if (j < rows) {
+        const int key = ws.key[j];
+        int cnt = 0;
+        for (int j2 = 0; j2 < rows; ++j2) cnt += ws.key[j2] == key;
+        h = cnt == 1;
+      }
+      const unsigned hmask = __ballot_sync(kFullMask, h);
+      if (h) ws.hor[n_new + __popc(hmask & lanemask_lt())] = j;
+      n_new += __popc(hmask);
+    }
+    if (n_new > n_free) {
+      out.status = kHitEpaCapacity;
+      return out;
+    }
+    if (n_new == 0 || all_deg) {
+      out.status = kHitEpaDegenerate;
+      return out;
+    }
+
+    // -- r-th free face (ascending index) <- r-th horizon edge --------------
+    __syncwarp();  // the horizon rows before the free faces read them
+    int r0 = 0;
+    for (int c = 0; c < chunks; ++c) {
+      const int f = c * kWarp + lane;
+      const bool is_free = f < F && fs.at(ALIVE, f) != kAlive;
+      const unsigned fmask = __ballot_sync(kFullMask, is_free);
+      if (is_free) {
+        const int r = r0 + __popc(fmask & lanemask_lt());
+        if (r < n_new) {
+          const int j = ws.hor[r];
+          const int e = j / nvis, k = j - e * nvis;
+          const int a = e, b = (e + 1) % 3;
+          const float* q = ws.vis[k];
+          write_face(fs, f, mk(q[3 * a], q[3 * a + 1], q[3 * a + 2]),
+                     mk(q[3 * b], q[3 * b + 1], q[3 * b + 2]), w, (int)q[9 + a], (int)q[9 + b],
+                     nv, interior, epz);
+        } else {
+          fs.at(ALIVE, f) = kDead;  // visible and not reused
+        }
+      }
+      r0 += __popc(fmask);
+    }
+    ++nv;
+  }
+  return out;  // iteration cap: HIT_EPA_CAP
+}
+
+// The tier ladder for one pair, run by a whole warp: each later tier only
+// if the previous one stopped for capacity, over the same face store.
+template <class Support>
+__device__ __forceinline__ TierOut epa_cascade_warp(const Support& support, const P3* s,
+                                                    const Tiers& tiers, const SmemFaces& fs,
+                                                    WarpScratch& ws, const EpaParams& prm) {
+  const P3 interior = mean4(s);
+  TierOut r = epa_tier_warp(support, s, interior, tiers.faces[0], tiers.kvis[0], fs, ws, prm);
+  for (int t = 1; t < tiers.n && r.status == kHitEpaCapacity; ++t) {
+    r = epa_tier_warp(support, s, interior, tiers.faces[t], tiers.kvis[t], fs, ws, prm);
+  }
+  return r;
+}
+
+}  // namespace gjkepa

@@ -23,7 +23,7 @@
 // (n1 + n2) bytes (98 KB at n1 = n2 = 4096), about 6 + iterations probes a
 // pair; the GJK arithmetic between probes is a few hundred operations.
 // Small blocks (kWarpsPerBlock warps) spread 256 pairs over most of the
-// SMs, where K1 puts them on 2.
+// SMs.
 #include "gjk_core.cuh"
 #include "hull_stream.cuh"
 

@@ -25,7 +25,8 @@ from .lane_geom import (FACE_IDX, P3, dist_pf_sign, fsqrt, is_inside_tri,
                         pcoincide, pcross, pdot, pmean4, pnorm,
                         point_in_simplex, putz, pwhere, pzero_like, vec_pl)
 
-__all__ = ["GJKRows", "gjk_hulls", "gjk_hulls_plain", "LAUNCHES"]
+__all__ = ["GJKRows", "gjk_hulls", "gjk_hulls_plain", "team_size", "TEAMS",
+           "TEAM_MAX_VERTICES", "LAUNCHES"]
 
 # Kernel launches made by gjk_hulls (CUDA tensors only).
 LAUNCHES = 0
@@ -37,6 +38,13 @@ _RUNNING = -1
 N_INIT_UNROLL = 8
 INIT_DIRS = np.ascontiguousarray(DIRECTION_TABLE[:N_INIT_UNROLL],
                                  dtype=np.float32)
+
+# K1's team sizes (threads a pair; csrc/gjk_hulls.cu instantiates each) and
+# the largest hull each of the first three takes: on an H100 a team of 4
+# was the fastest up to 64 vertices, 8 up to 256, 16 at 512 and 32 from
+# 1024 on (scripts/torch_kernel_sweep.py teams; PERF.md).
+TEAMS = (4, 8, 16, 32)
+TEAM_MAX_VERTICES = (64, 256, 512)
 
 
 class GJKRows(NamedTuple):
@@ -266,10 +274,26 @@ def gjk_hulls_plain(p1: torch.Tensor, p2: torch.Tensor,
     return gjk_rows(p1, p2, hull_broadphase(p1, p2, cfg.broadphase_tol), cfg)
 
 
-def _gjk_hulls_cuda(p1, p2, cfg: GJKEPAConfig) -> GJKRows:
+def team_size(n1: int, n2: int) -> int:
+    """Threads of K1 that share one pair (a divisor of the 32-thread warp):
+    the first of TEAMS whose TEAM_MAX_VERTICES holds the larger hull, else
+    the last."""
+    n = max(n1, n2)
+    return next((t for t, m in zip(TEAMS, TEAM_MAX_VERTICES) if n <= m),
+                TEAMS[-1])
+
+
+def _gjk_hulls_cuda(p1, p2, cfg: GJKEPAConfig, team: int | None = None
+                    ) -> GJKRows:
+    """K1 on the card; ``team`` (threads a pair, one of TEAMS) defaults to
+    :func:`team_size`."""
     global LAUNCHES
     lib = _build.load()
     b, n1, n2 = p1.shape[0], p1.shape[1], p2.shape[1]
+    if team is None:
+        team = team_size(n1, n2)
+    if team not in TEAMS:
+        raise ValueError(f"K1 team of {team} threads, expected one of {TEAMS}")
     dev = p1.device
     out = GJKRows(torch.empty(b, dtype=torch.bool, device=dev),
                   torch.empty(b, dtype=torch.int32, device=dev),
@@ -282,7 +306,7 @@ def _gjk_hulls_cuda(p1, p2, cfg: GJKEPAConfig) -> GJKRows:
         rc = lib.gjk_hulls_launch(
             ptr(p1), ptr(p2), INIT_DIRS.ctypes.data_as(ctypes.c_void_p),
             ptr(out.hit), ptr(out.status), ptr(out.iters), ptr(out.sep),
-            ptr(out.simplex), b, n1, n2,
+            ptr(out.simplex), b, n1, n2, team,
             cfg.eps_coincide, cfg.eps_zero,
             cfg.eps_coincide * cfg.eps_coincide,  # rounded once, as gjk_phase
             cfg.broadphase_tol, cfg.gjk_max_iters, ctypes.c_void_p(stream))

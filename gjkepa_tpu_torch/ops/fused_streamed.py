@@ -19,9 +19,13 @@ kernels then read the unpadded hulls: trailing repeats of vertex 0 never
 change a first-max support (:1443-1446).
 
 On the TPU the support streams vertex slabs through VMEM and folds them
-with strict ``>``; on the card one warp scans a pair's vertices, 32 at a
-time, and a shuffle reduction keeps the first maximum
-(:func:`warp_first_max_plain` is that reduction in torch).
+with strict ``>``; on the card a team of threads scans a pair's vertices
+(a warp in K12, W warps of a block in K13, 4-32 threads in K1) and a
+shuffle reduction keeps the first maximum (:func:`warp_first_max_plain`
+is that reduction in torch).  K13 keeps each pair's polytope in shared
+memory and splits its face scans across a warp
+(``csrc/epa_warp.cuh``): :func:`warp_first_min_plain` and
+:func:`ballot_rank_plain` are its reductions in torch.
 """
 
 from __future__ import annotations
@@ -41,8 +45,8 @@ from .fused_shapes import empty_gjk_rows, gjk_args
 
 __all__ = ["STREAM_THRESHOLD", "TILE", "streams", "pad_tile",
            "streamed_broadphase", "gjk_hulls_big", "gjk_hulls_big_plain",
-           "epa_hulls_big", "epa_hulls_big_plain", "warp_first_max_plain",
-           "fused_hulls_streamed", "LAUNCHES"]
+           "epa_hulls_big", "epa_hulls_big_plain", "warp_first_max_plain", "warp_first_min_plain",
+           "ballot_rank_plain", "fused_hulls_streamed", "LAUNCHES"]
 
 # n1 + n2 above which the JAX package streams: _AUTO_BLOCK_BUDGET //
 # (3 * 4 * 128), both hulls of a 128-lane block in a 6 MB VMEM budget
@@ -110,6 +114,43 @@ def warp_first_max_plain(dots: torch.Tensor, width: int = WARP
     return bidx[:, 0]
 
 
+def warp_first_min_plain(vals: torch.Tensor, width: int = WARP
+                         ) -> torch.Tensor:
+    """The min-face reduction of ``csrc/epa_warp.cuh`` over (B, F) face
+    distances in torch: thread t of a ``width`` warp keeps the first
+    (strict <) minimum of faces t, t + width, ...; xor-shuffle steps keep
+    the smaller value, and on an equal value the smaller index.  It is
+    :func:`warp_first_max_plain` on the negated distances (negation is exact
+    and reverses the order, ties included; the kernel's +inf for a thread
+    without faces is the -inf there).  Returns the (B,) int64 index (held
+    to ``torch.argmin``, the first minimum)."""
+    return warp_first_max_plain(-vals, width)
+
+
+def _popcount(x: torch.Tensor, width: int) -> torch.Tensor:
+    return sum((x >> k) & 1 for k in range(width))
+
+
+def ballot_rank_plain(flags: torch.Tensor, width: int = WARP):
+    """The ballot/prefix ranking of ``csrc/epa_warp.cuh`` over (B, N) flags
+    in torch: per ``width``-column chunk a ballot word, each flagged
+    column's rank the popcount of the ballot below its lane plus the
+    flagged columns of the earlier chunks.  Returns the (B, N) int64 rank
+    (-1 where not flagged) and the (B,) count: the order of the stable
+    ``argsort`` that puts flagged columns first, and ``cumsum - 1``."""
+    b, n = flags.shape
+    cols = -(-n // width) * width
+    f = torch.zeros((b, cols), dtype=torch.int64, device=flags.device)
+    f[:, :n] = flags.long()
+    lane = torch.arange(width, device=flags.device)
+    ballot = (f.view(b, -1, width) << lane).sum(dim=2)       # (B, chunks)
+    below = _popcount(ballot[:, :, None] & ((1 << lane) - 1), width)
+    total = _popcount(ballot, width)
+    rank = (torch.cumsum(total, 1) - total)[:, :, None] + below
+    rank = rank.view(b, cols)[:, :n]
+    return torch.where(flags, rank, -1), total.sum(dim=1)
+
+
 # -- K12 ----------------------------------------------------------------------
 
 def _check_gjk(p1, p2, active) -> None:
@@ -148,28 +189,36 @@ epa_hulls_big_plain = epa_cascade_plain
 def epa_hulls_big(p1, p2, simplex, gjk_status, order, n_act,
                   stages: list[tuple[GJKEPAConfig, int]]) -> EPARows:
     """K13: the EPA tier ladder over pairs ``order[:n_act]`` (``n_act`` a
-    device scalar), a warp a pair."""
+    device scalar), a block of warps a pair with the polytope in shared
+    memory.  Raises, naming the bytes, for a face capacity whose store does
+    not fit in a block's shared memory."""
     _check_inputs(p1, p2, simplex, gjk_status, order, n_act)
     check_stages(stages)
     if not _build.on_card(p1, "K13"):
         return epa_hulls_big_plain(p1, p2, simplex, gjk_status, order, n_act,
                                    stages)
-    lib = _build.load()
-    b, dev = p1.shape[0], p1.device
+    b, n1, n2, dev = p1.shape[0], p1.shape[1], p2.shape[1], p1.device
     cfg = stages[0][0]
     f_max = max(c.epa_max_faces for c, _ in stages)
     tier_f = (ctypes.c_int * MAX_TIERS)(*[c.epa_max_faces for c, _ in stages])
     tier_k = (ctypes.c_int * MAX_TIERS)(*[k for _, k in stages])
     out = _passthrough(gjk_status, b, dev)
-    # per-slot polytope state, [field][face][slot] (see csrc/epa_hulls_big.cu)
-    scratch = torch.empty((lib.epa_scratch_words_per_face(), f_max, b),
-                          dtype=torch.float32, device=dev)
+    lib = _build.load()
+
+    def explain(rc):
+        need = lib.epa_hulls_big_smem_bytes(f_max)
+        limit = lib.epa_hulls_big_smem_limit()
+        if need > limit:
+            return (f"the polytope of {f_max} faces needs {need} bytes of "
+                    f"shared memory a block, the device allows {limit}")
+        return None
+
     ptr = _build.ptr
     _build.launch("epa_hulls_big", dev, LAUNCHES, ptr(p1), ptr(p2),
                   ptr(simplex), ptr(order), ptr(n_act), *(ptr(t) for t in out),
-                  ptr(scratch), b, p1.shape[1], p2.shape[1], len(stages),
-                  tier_f, tier_k, f_max, cfg.eps_coincide, cfg.eps_zero,
-                  cfg.epa_max_iters)
+                  b, n1, n2, len(stages), tier_f, tier_k, f_max,
+                  cfg.eps_coincide, cfg.eps_zero, cfg.epa_max_iters,
+                  explain=explain)
     return out
 
 

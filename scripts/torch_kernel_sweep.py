@@ -1,0 +1,305 @@
+"""Block-size sweeps and parent-against-change kernel times for the
+PyTorch/CUDA port (``gjkepa_tpu_torch``), on one card.
+
+Usage, from the root of a checkout:
+
+    python3 scripts/torch_kernel_sweep.py teams
+    python3 scripts/torch_kernel_sweep.py warps
+    python3 scripts/torch_kernel_sweep.py times [--root DIR] [--tag NAME]
+
+``teams``: K1 (``csrc/gjk_hulls.cu``) runs a team of T threads a pair, T
+picked by ``fused_gjk.team_size`` from the hull size.  This runs every T
+of ``fused_gjk.TEAMS`` on a grid of (pairs, vertices), each bit for bit
+against the plain version, and prints each one's device time.
+
+``warps``: K13 (``csrc/epa_hulls_big.cu``) runs a block of 8 warps a pair.
+This rebuilds that source with ``-DK13_WARPS=W`` for W = 1, 2, 4 and 8
+(into ``gjkepa_tpu_torch/build/sweep/``), runs each build through the
+wrapper on 4096 x 2600 and 256 x 8192 pairs and over a tier ladder forced
+to overflow at 512 x 2601, bit for bit against the plain version, and
+prints each one's time, registers and the least-squares fit t(W) = face +
+probe / W.
+
+``times``: device times of K1 (c4, c2), K2 (c4), K7 (c3) and K10 (c3b),
+chip_smoke.py's inputs, from the package under DIR (default: this
+checkout), so that a parent and a change can be timed in turn on one
+card.  Prints one JSON line tagged NAME.
+
+Device times are chip_smoke.py's ``device_ms``: CUDA events around 10
+back-to-back calls queued behind a sleep kernel, so that the host's
+enqueue time does not show.  ``times`` also prints chip_smoke.py's
+``cuda_ms``, one call between two events.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import subprocess
+import sys
+import types
+from pathlib import Path
+from unittest import mock
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _chip_smoke():
+    """chip_smoke.py of this checkout, for its input recipes and checks."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def card_name() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+
+def rows_equal(x, y, active=None) -> bool:
+    """Bit-equal rows; GJK rows' simplex on the ``active`` lanes only."""
+    if active is not None:
+        x, y = ((*r[:4], r.simplex[active]) for r in (x, y))
+    return all(torch.equal(a, b) for a, b in zip(x, y))
+
+
+# -- teams ---------------------------------------------------------------------
+
+# (pairs, vertices, kind): c4, c2, phase 14's sub-hulls, a ladder of sizes,
+# and vertex counts that are not a multiple of 4 (K11's scalar scan).
+TEAM_GRID = ((16384, 24, "deep"), (2048, 23, "deep"), (65536, 64, "boolean"),
+             (4096, 63, "boolean"), (4096, 128, "boolean"),
+             (4096, 256, "boolean"), (4096, 256, "deep"),
+             (65536, 256, "boolean"), (4096, 512, "boolean"),
+             (4096, 1024, "boolean"), (4096, 1024, "deep"),
+             (1024, 2047, "boolean"), (4096, 2048, "boolean"),
+             (256, 2048, "subhull"))
+
+
+def teams(cs, dev, card) -> None:
+    from gjkepa_tpu_torch import GJKEPAConfig
+    from gjkepa_tpu_torch.models import fixtures
+    from gjkepa_tpu_torch.ops import fused_gjk
+    cfg = GJKEPAConfig.for_f32()
+    bool_cfg = cfg.replace(epa_max_iters=0)
+    rng = np.random.default_rng(5)
+    table = []
+    for b, n, kind in TEAM_GRID:
+        if kind == "deep":
+            pair, c = cs.deep_pairs(rng, b, n), cfg
+        elif kind == "boolean":
+            pair, c = (cs.random_hulls(rng, b, n),
+                       cs.random_hulls(rng, b, n)), bool_cfg
+        else:
+            pair, c = fixtures.big_subhull_pairs(n)[0], cfg
+        p1, p2 = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                  for a in pair)
+        want = fused_gjk.gjk_hulls_plain(p1, p2, c)
+        ran = want.status != 0
+        row = {"pairs": b, "vertices": n, "kind": kind,
+               "gjk_lanes": int(ran.sum()),
+               "mean_iters": float(want.iters[ran].float().mean()),
+               "rule": fused_gjk.team_size(n, n)}
+        for t in fused_gjk.TEAMS:
+            got = fused_gjk._gjk_hulls_cuda(p1, p2, c, t)
+            torch.cuda.synchronize()
+            if not rows_equal(got, want, ran):
+                raise AssertionError(f"K1 at a team of {t} differs from plain "
+                                     f"at {b} x {n} {kind}")
+            row[f"T{t}"] = cs.device_ms(
+                lambda: fused_gjk._gjk_hulls_cuda(p1, p2, c, t))
+        best = min(fused_gjk.TEAMS, key=lambda t: row[f"T{t}"])
+        row["fastest"] = best
+        table.append(row)
+        print(f"K1 {b} x {n} {kind}: {row['gjk_lanes']} GJK lanes, mean "
+              f"iters {row['mean_iters']:.3f}; every team bit-equal to plain; "
+              + ", ".join(f"T={t} {row[f'T{t}']:.4f}" for t in fused_gjk.TEAMS)
+              + f" ms; fastest T={best}, rule T={row['rule']} [{card}]",
+              flush=True)
+        del p1, p2, want
+        torch.cuda.empty_cache()
+    print(json.dumps({"k1_teams": table, "card": card}), flush=True)
+
+
+# -- warps ---------------------------------------------------------------------
+
+WARPS = (1, 2, 4, 8)
+
+
+def build_warps(out_dir: Path) -> dict[int, Path]:
+    """epa_hulls_big.cu built with -DK13_WARPS=W for each W, in parallel."""
+    from gjkepa_tpu_torch import _build
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src = _build.CSRC / "epa_hulls_big.cu"
+    libs, jobs = {}, []
+    for w in WARPS:
+        libs[w] = out_dir / f"libepa_hulls_big_W{w}.so"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f"-DK13_WARPS={w}", "-o",
+               str(libs[w]), str(src)]
+        jobs.append((w, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True)))
+    for w, proc in jobs:
+        log_text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"K13 at W={w}: nvcc failed:\n{log_text}")
+        libs[w].with_suffix(".log").write_text(log_text)
+    return libs
+
+
+def bound_to(lib_path: Path) -> types.SimpleNamespace:
+    """The port's entry points with epa_hulls_big.cu's taken from another
+    build of it."""
+    import ctypes
+    from gjkepa_tpu_torch import _build
+    ns = types.SimpleNamespace(**vars(_build.load()))
+    lib = ctypes.CDLL(str(lib_path))
+    for name, (source, argtypes) in _build.ENTRY_POINTS.items():
+        if source == "epa_hulls_big.cu":
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            setattr(ns, name, fn)
+    return ns
+
+
+def warps(cs, dev, card) -> None:
+    from gjkepa_tpu_torch import GJKEPAConfig, _build
+    from gjkepa_tpu_torch.models import fixtures
+    from gjkepa_tpu_torch.ops import fused_streamed as fst
+    from gjkepa_tpu_torch.ops.fused import cascade_plan, hit_first_order
+    cfg = GJKEPAConfig.for_f32()
+    stages = cascade_plan(cfg)
+    ladder = [(cfg.replace(epa_max_faces=f), k)
+              for f, k in ((8, 2), (16, 4), (208, 16))]
+    libs = build_warps(_build.BUILD_DIR / "sweep")
+    for w, path in libs.items():
+        for line in cs.ptxas_report(path.with_suffix(".log").read_text()):
+            print(f"K13 W={w} ptxas: {line}", flush=True)
+    variants = {w: bound_to(p) for w, p in libs.items()}
+
+    def on_dev(*arrays):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in arrays)
+
+    cases = (("4096 x 2600", on_dev(*fixtures.big_c2_pairs()), stages, True),
+             ("256 x 8192", on_dev(*fixtures.big_pairs_8192()), stages, True),
+             ("ladder 512 x 2601", on_dev(
+                 *(fixtures.random_hulls(np.random.default_rng(12), 512, 2601)
+                   for _ in range(2))), ladder, False))
+    table = []
+    for what, (p1, p2), st, timed in cases:
+        active = fst.streamed_broadphase(p1, p2, cfg.broadphase_tol)
+        g = fst.gjk_hulls_big(p1, p2, active, cfg)
+        order, n_act = hit_first_order(g.hit)
+        args = (p1, p2, g.simplex, g.status, order, n_act, st)
+        want = fst.epa_hulls_big_plain(*args)
+        row = {"case": what, "hits": int(n_act),
+               "mean_epa_iters": float(want.iters[g.hit].float().mean())}
+        for w, ns in variants.items():
+            with mock.patch.object(_build, "load", lambda ns=ns: ns):
+                got = fst.epa_hulls_big(*args)
+                torch.cuda.synchronize()
+                if not rows_equal(got, want):
+                    raise AssertionError(f"K13 at W={w} differs from plain at "
+                                         f"{what}")
+                if timed:
+                    row[f"W{w}"] = cs.device_ms(lambda: fst.epa_hulls_big(*args))
+        if timed:
+            x = np.array([1.0 / w for w in WARPS])
+            y = np.array([row[f"W{w}"] for w in WARPS])
+            probe, face = np.polyfit(x, y, 1)
+            row.update(face_ms=float(face), probe_ms_one_warp=float(probe))
+        table.append(row)
+        print(f"K13 {what}: {row['hits']} hits, mean epa_iters "
+              f"{row['mean_epa_iters']:.3f}; every W bit-equal to plain"
+              + ("; " + ", ".join(f"W={w} {row[f'W{w}']:.4f}" for w in WARPS)
+                 + f" ms; fit t(W) = {row['face_ms']:.4f} + "
+                   f"{row['probe_ms_one_warp']:.4f} / W ms" if timed else "")
+              + f" [{card}]", flush=True)
+    print(json.dumps({"k13_warps": table, "card": card}), flush=True)
+
+
+# -- times ---------------------------------------------------------------------
+
+def times(cs, dev, card, tag) -> None:
+    import gjkepa_tpu_torch as gt
+    from gjkepa_tpu_torch.models import fixtures
+    from gjkepa_tpu_torch.ops import fused_epa, fused_gjk
+    from gjkepa_tpu_torch.ops import fused_hull_shapes as fh
+    from gjkepa_tpu_torch.ops import fused_shapes as fs
+    from gjkepa_tpu_torch.ops.fused import cascade_plan, hit_first_order
+    cfg = gt.GJKEPAConfig.for_f32()
+    bool_cfg = cfg.replace(epa_max_iters=0)
+    stages = cascade_plan(cfg)
+
+    def on_dev(*arrays):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in arrays)
+
+    rng = np.random.default_rng(0)                   # chip_smoke.py phase 5
+    m1, m2 = on_dev(*cs.deep_pairs(rng, 16384, 24))
+    b1, b2 = on_dev(cs.random_hulls(rng, 65536, 64),
+                    cs.random_hulls(rng, 65536, 64))
+    g4 = fused_gjk.gjk_hulls(m1, m2, cfg)
+    o4, n4 = hit_first_order(g4.hit)
+    _, _, sa3, sb3, ret3 = cs.shape_inputs(fixtures.c3_pairs(0, cs.C3), dev)
+    c5 = fs.cf_shapes(sa3, sb3, ret3, cfg)           # chip_smoke.py phase 10
+    o6, n6 = hit_first_order(c5.act)
+    g6 = fs.gjk_sub_shapes(sa3, sb3, ret3, o6, n6, cfg)
+    o7, n7 = hit_first_order(g6.hit)
+    k7 = (sa3, sb3, g6.simplex, torch.where(c5.act, g6.status, c5.status),
+          c5.depth, c5.normal, o7, n7, fs.shape_stages(cfg))
+    hulls, shp = fixtures.c3b_pairs()                # chip_smoke.py phase 13
+    (h3,) = on_dev(hulls)
+    sb = gt.ShapeBatch.from_numpy(*shp, device=dev).packed()
+    env = fh.hull_shape_retirement(h3, sb, cfg)
+    o9, _ = hit_first_order(~env.retired)
+    g9 = fh.gjk_hull_shape_plain(h3, sb, env.retired, o9, cfg)
+    o10, n10 = hit_first_order(g9.hit)
+    k10 = (h3, sb, g9.simplex, g9.status, o10, n10, fs.shape_stages(cfg))
+    fns = {
+        "k1_c4": lambda: fused_gjk.gjk_hulls(m1, m2, cfg),
+        "k1_c2": lambda: fused_gjk.gjk_hulls(b1, b2, bool_cfg),
+        "k2_c4": lambda: fused_epa.epa_cascade(m1, m2, g4.simplex, g4.status,
+                                               o4, n4, stages),
+        "k7_c3": lambda: fs.epa_shapes(*k7),
+        "k10_c3b": lambda: fh.epa_hull_shape(*k10),
+    }
+    out = {"tag": tag, "root": str(Path(gt.__file__).parents[1]),
+           "card": card}
+    for key, fn in fns.items():
+        out[key] = cs.device_ms(fn)
+        out[key + "_one_call"] = cs.cuda_ms(fn)
+    print(json.dumps(out), flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("what", choices=("teams", "warps", "times"))
+    ap.add_argument("--root", type=Path, default=ROOT,
+                    help="checkout whose gjkepa_tpu_torch `times` imports")
+    ap.add_argument("--tag", default="change")
+    a = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(a.root.resolve() if a.what == "times" else ROOT))
+    cs = _chip_smoke()
+    dev, card = torch.device("cuda", 0), card_name()
+    if a.what == "teams":
+        teams(cs, dev, card)
+    elif a.what == "warps":
+        warps(cs, dev, card)
+    else:
+        times(cs, dev, card, a.tag)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -13,7 +13,9 @@ own: the kernels are built with --fmad=false), normals dot > 1-1e-4 on
 intersecting and converged exact, distance and witnesses 1e-5, iteration
 counts on >= 99.5% of lanes, two-phase equal to one pass bit for bit.
 Large hulls (K12, K13): K1/K2's tolerances, and bit for bit on the tie
-fixture.
+fixture.  K1 at each team size and K13 over a tier ladder forced to
+overflow into its retries, at vertex counts with each remainder mod 4: bit
+for bit.
 """
 
 import numpy as np
@@ -289,3 +291,100 @@ def test_large_hull_path_launches_on_card(dev):
         assert int(r.hit.sum()) > 0
         assert all(bool(torch.isfinite(t).all()) for t in r
                    if t.is_floating_point())
+
+
+def _rows_equal(k, p, active=None):
+    """Bit-equal rows; GJK rows' simplex on the ``active`` lanes only."""
+    if active is not None:
+        k, p = ((*r[:4], r.simplex[active]) for r in (k, p))
+    return all(torch.equal(x, y) for x, y in zip(k, p))
+
+
+@pytest.mark.parametrize("team", fused_gjk.TEAMS)
+@pytest.mark.parametrize("case", [("boolean", 4096, 64), ("deep", 2048, 24),
+                                  ("boolean", 4096, 63), ("deep", 2048, 23)],
+                         ids=lambda c: f"{c[0]} {c[1]} x {c[2]}")
+def test_k1_teams_are_bit_equal_to_plain(dev, case, team):
+    """K1 at every team size, rows bit for bit against the plain version;
+    at 63 and 23 vertices (not a multiple of 4) K11 takes its scalar
+    scan."""
+    kind, b, n = case
+    rng = np.random.default_rng(8)
+    cfg = GJKEPAConfig.for_f32()
+    if kind == "boolean":
+        p1, p2 = (torch.from_numpy(_hulls(rng, b, n)).to(dev)
+                  for _ in range(2))
+        cfg = cfg.replace(epa_max_iters=0)
+    else:
+        p1 = torch.from_numpy(_hulls(rng, b, n, 0.0, 2.0)).to(dev)
+        p2 = torch.from_numpy(_hulls(rng, b, n, 0.2, 0.5)).to(dev)
+    n0 = fused_gjk.LAUNCHES
+    gk = fused_gjk._gjk_hulls_cuda(p1, p2, cfg, team)
+    gp = fused_gjk.gjk_hulls_plain(p1, p2, cfg)
+    assert fused_gjk.LAUNCHES == n0 + 1
+    assert int(gp.hit.sum()) > 0
+    assert _rows_equal(gk, gp, gp.status != 0)
+
+
+@pytest.mark.parametrize("n", [2600, 2601, 2602, 2603])
+def test_k13_overflow_ladder_is_bit_equal_to_plain(dev, n):
+    """K13 over a ladder whose first tiers overflow (F=8, K=2; F=16, K=4;
+    F=208, K=16), so the retries run over the same shared-memory store:
+    rows bit for bit against the plain cascade, at each vertex count mod 4
+    (K11 reads 2600 as float4 groups, the others by its scalar scan)."""
+    rng = np.random.default_rng(9)
+    p1, p2 = (torch.from_numpy(_hulls(rng, 512, n, 0.3)).to(dev)
+              for _ in range(2))
+    cfg = GJKEPAConfig.for_f32()
+    ladder = [(cfg.replace(epa_max_faces=f), k)
+              for f, k in ((8, 2), (16, 4), (208, 16))]
+    active = fst.streamed_broadphase(p1, p2, cfg.broadphase_tol)
+    g = fst.gjk_hulls_big_plain(p1, p2, active, cfg)
+    order, n_act = hit_first_order(g.hit)
+    args = (p1, p2, g.simplex, g.status, order, n_act, ladder)
+    ep = fst.epa_hulls_big_plain(*args)
+    n0 = fst.LAUNCHES["epa_hulls_big"]
+    ek = fst.epa_hulls_big(*args)
+    assert fst.LAUNCHES["epa_hulls_big"] == n0 + 1
+    assert int(n_act) > 100 and int((ep.iters > 3).sum()) > 100
+    assert _rows_equal(ek, ep)
+
+
+def test_k13_refuses_a_polytope_past_shared_memory(dev):
+    """A face capacity whose store does not fit in a block's shared memory
+    raises, naming the bytes; nothing falls back to global memory."""
+    from gjkepa_tpu_torch import _build
+    lib = _build.load()
+    rng = np.random.default_rng(10)
+    p1, p2 = (torch.from_numpy(_hulls(rng, 8, 2600, 0.1)).to(dev)
+              for _ in range(2))
+    cfg = GJKEPAConfig.for_f32()
+    f_big = 4096
+    need = lib.epa_hulls_big_smem_bytes(f_big)
+    assert need > lib.epa_hulls_big_smem_limit() > 48 * 1024
+    active = fst.streamed_broadphase(p1, p2, cfg.broadphase_tol)
+    g = fst.gjk_hulls_big_plain(p1, p2, active, cfg)
+    order, n_act = hit_first_order(g.hit)
+    ladder = [(cfg.replace(epa_max_faces=f_big), 16)]
+    n0 = fst.LAUNCHES["epa_hulls_big"]
+    with pytest.raises(RuntimeError, match=f"{need} bytes of shared memory"):
+        fst.epa_hulls_big(p1, p2, g.simplex, g.status, order, n_act, ladder)
+    assert fst.LAUNCHES["epa_hulls_big"] == n0
+
+
+def test_k13_takes_a_polytope_past_48_kb(dev):
+    """A face store above the default 48 KB of shared memory a block (F =
+    1024: 17 words a face) is opted into and runs bit for bit."""
+    from gjkepa_tpu_torch import _build
+    rng = np.random.default_rng(11)
+    p1, p2 = (torch.from_numpy(_hulls(rng, 64, 2600, 0.3)).to(dev)
+              for _ in range(2))
+    cfg = GJKEPAConfig.for_f32()
+    ladder = [(cfg.replace(epa_max_faces=1024), 16)]
+    assert _build.load().epa_hulls_big_smem_bytes(1024) > 48 * 1024
+    active = fst.streamed_broadphase(p1, p2, cfg.broadphase_tol)
+    g = fst.gjk_hulls_big_plain(p1, p2, active, cfg)
+    order, n_act = hit_first_order(g.hit)
+    args = (p1, p2, g.simplex, g.status, order, n_act, ladder)
+    assert int(n_act) > 10
+    assert _rows_equal(fst.epa_hulls_big(*args), fst.epa_hulls_big_plain(*args))

@@ -1,0 +1,130 @@
+"""The team and warp reductions of the port's kernels, modelled in torch.
+
+K1 (csrc/gjk_hulls.cu) scans a pair's hulls with a team of 4-32 threads,
+K12 with a warp and K13 with a block of warps, all reducing (dot, vertex)
+pairs under one total order (csrc/hull_stream.cuh); K13's EPA tier
+(csrc/epa_warp.cuh) splits its face scans across a warp with a
+(distance, face) reduction and ballot/prefix ranks.  The CUDA code runs
+only on the card; these tests hold its rules, as
+``fused_streamed.warp_first_max_plain``, ``warp_first_min_plain`` and
+``ballot_rank_plain`` model them, to the torch operations the plain EPA
+phase (``fused_epa.epa_phase``) and the plain support use: ``argmax``,
+``argmin``, the stable ``argsort`` and ``cumsum``.  All exact.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gjkepa_tpu_torch.ops import fused_gjk
+from gjkepa_tpu_torch.ops import fused_streamed as fst
+from gjkepa_tpu_torch.ops.fused_epa import BIG
+
+WIDTHS = (4, 8, 16, 32)
+
+
+def _tie_dots(case, width):
+    """(B, N) dots whose first maximum falls on a tie: in one thread's
+    columns (i and i + width), across threads (i and i + 1), on a grid of
+    few values, all equal, or with fewer columns than threads."""
+    rng = np.random.default_rng(width)
+    if case == "all_equal":
+        return np.full((4, 3 * width + 5), 0.25, np.float32)
+    if case == "short":                 # n < width: threads that own nothing
+        d = rng.integers(-3, 3, size=(64, width - 1)).astype(np.float32)
+        d[:, width // 2] = d[:, 1] = 5.0
+        return d
+    d = rng.integers(-20, 20, size=(64, 7 * width)).astype(np.float32)
+    if case == "same_thread":
+        d[:, [2 + 3 * width, 2, 2 + width]] = 30.0
+    elif case == "other_threads":
+        d[:, [width + 2, width + 1, 6 * width]] = 30.0
+    elif case == "grid":
+        d = rng.integers(-2, 3, size=(64, 5 * width + 3)).astype(np.float32)
+    return d
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("case", ["all_equal", "short", "same_thread",
+                                  "other_threads", "grid"])
+def test_team_first_max_is_the_first_maximum(case, width):
+    """K11's reduction at every team width K1 may take: torch.argmax."""
+    dots = torch.from_numpy(_tie_dots(case, width))
+    got = fst.warp_first_max_plain(dots, width)
+    assert torch.equal(got, torch.argmax(dots, dim=1))
+    want = {"same_thread": 2, "other_threads": width + 1, "short": 1}
+    if case in want:
+        assert bool((got == want[case]).all())
+
+
+def test_team_sizes_are_the_kernels():
+    """K1's team sizes divide the warp, and the rule takes the measured
+    crossovers (4 up to 64 vertices, 8 up to 256, 16 up to 512, then 32)
+    from the larger hull."""
+    assert all(32 % t == 0 for t in fused_gjk.TEAMS)
+    want = {1: 4, 24: 4, 64: 4, 65: 8, 128: 8, 256: 8, 257: 16, 512: 16,
+            513: 32, 2048: 32, 8192: 32}
+    for n, t in want.items():
+        assert fused_gjk.team_size(n, 1) == fused_gjk.team_size(1, n) == t
+
+
+def _face_states(f, seed):
+    """(B, F) face distances as the EPA phase sees them: alive faces with
+    ties on a coarse grid, degenerate planes (BIG), dead faces (BIG)."""
+    rng = np.random.default_rng(seed)
+    b = 256
+    d = rng.integers(0, 6, size=(b, f)).astype(np.float32) * 0.125
+    alive = rng.random((b, f)) < 0.7
+    alive[: b // 8] = False                         # every face dead
+    d[rng.random((b, f)) < 0.1] = BIG                 # degenerate planes
+    d[b // 8: b // 4] = BIG                           # every plane degenerate
+    return torch.from_numpy(np.where(alive, d, np.float32(BIG)))
+
+
+@pytest.mark.parametrize("f", [4, 8, 16, 31, 48, 88, 208])
+def test_warp_first_min_is_the_plain_argmin(f):
+    """epa_warp.cuh's min face: fused_epa.epa_phase's torch.argmin, the
+    first minimum, index 0 when every face is dead or degenerate."""
+    dvals = _face_states(f, f)
+    got = fst.warp_first_min_plain(dvals)
+    assert torch.equal(got, torch.argmin(dvals, dim=1))
+    assert bool((got[:64] == 0).all())
+
+
+@pytest.mark.parametrize("f,k", [(8, 2), (48, 8), (88, 8), (208, 16), (33, 4)])
+def test_ballot_compaction_is_the_stable_argsort(f, k):
+    """The visible faces' ballot ranks: the first K are epa_phase's
+    ``argsort((~visible).int8, stable=True)[:, :K]`` (valid below nvis),
+    and the count is ``visible.sum()``."""
+    rng = np.random.default_rng(f * 100 + k)
+    visible = torch.from_numpy(rng.random((256, f)) < rng.random((256, 1)))
+    rank, nvis = fst.ballot_rank_plain(visible)
+    assert torch.equal(nvis, visible.sum(dim=1))
+    src = torch.argsort((~visible).to(torch.int8), dim=1, stable=True)[:, :k]
+    for lane in range(visible.shape[0]):
+        faces = torch.nonzero(visible[lane])[:, 0]
+        assert torch.equal(rank[lane, faces], torch.arange(len(faces)))
+        n = min(k, len(faces))
+        assert torch.equal(faces[:n], src[lane, :n])
+    assert bool((rank[~visible] == -1).all())
+
+
+@pytest.mark.parametrize("f", [8, 48, 88, 208])
+def test_ballot_free_rank_is_the_cumsum(f):
+    """The free faces' ballot ranks (dead or visible): epa_phase's
+    ``rank_f = cumsum(free) - 1`` on every free face, and the horizon rows'
+    ballot order is its ``hord`` (stable argsort of the horizon)."""
+    rng = np.random.default_rng(f)
+    free = torch.from_numpy(rng.random((256, f)) < 0.4)
+    rank, n_free = fst.ballot_rank_plain(free)
+    rank_f = torch.cumsum(free.to(torch.int32), dim=1) - 1
+    assert torch.equal(rank[free], rank_f[free].long())
+    assert torch.equal(n_free, free.sum(dim=1))
+    for k in (2, 8, 16):                       # 3K edge rows, e-major
+        horizon = torch.from_numpy(rng.random((256, 3 * k)) < 0.5)
+        hrank, n_new = fst.ballot_rank_plain(horizon)
+        hord = torch.argsort((~horizon).to(torch.int8), dim=1, stable=True)
+        for lane in range(0, 256, 17):
+            rows = torch.nonzero(horizon[lane])[:, 0]
+            assert torch.equal(hord[lane, :int(n_new[lane])], rows)
+            assert torch.equal(hrank[lane, rows], torch.arange(len(rows)))
