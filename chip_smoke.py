@@ -4,13 +4,15 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
 
 The port has five paths.  The hull path is the fused hull-pair query,
 ``gjkepa_batch_fused``: K1, the GJK hull kernel, a team of threads a pair
-(``gjkepa_tpu_torch/csrc/gjk_hulls.cu``), then K2, the EPA cascade kernel
-(``csrc/epa_hulls.cu``), over the hit lanes, then the contact rows.  Hull
-pairs with n1 + n2 > 4096 vertices take the large-hull path instead: the
-broadphase on the tile-padded hulls, K12, GJK a warp a pair
-(``csrc/gjk_hulls_big.cu``), then K13, the EPA cascade a block of warps a
-hit with the polytope in shared memory (``csrc/epa_hulls_big.cu`` over
-``csrc/epa_warp.cuh``), both over the team support K11
+(``gjkepa_tpu_torch/csrc/gjk_hulls.cu``), then K2, the EPA cascade kernel,
+a warp a hit with the polytope in shared memory where it fits
+(``csrc/epa_hulls.cu`` over ``csrc/epa_warp.cuh``), over the hit lanes,
+then the contact rows.  Hull pairs with n1 + n2 > 4096 vertices take the
+large-hull path instead: the broadphase on the tile-padded hulls, K12, GJK
+a block of warps a pair with both hulls staged in shared memory where they
+fit (``csrc/gjk_hulls_big.cu``), then K13, the EPA cascade a block of
+warps a hit with the polytope in shared memory (``csrc/epa_hulls_big.cu``
+over ``csrc/epa_warp.cuh``), all over the team support K11
 (``csrc/hull_stream.cuh``).  The
 shape path is the analytic-shape query, ``fused_gjkepa_shapes`` and
 ``collide_shapes_batch_fused``: K5, the closed-form kernel
@@ -26,10 +28,14 @@ every kernel from the sources in the checkout (one nvcc per source, all at
 once) and runs, in phases:
 
   0. environment: card name and power limit, torch and CUDA versions, build,
-     and the registers and spills of K1, K12 and K13 (``-Xptxas -v``);
+     and the registers and spills of K1, K2, K12 and K13 (``-Xptxas -v``);
   1. K1 against its plain PyTorch version on the card (4096 x 64, 4096 x
      63 and 1024 x 2047 vertices), bit for bit;
-  2. K2 against its plain version (2048 deep pairs x 24 vertices);
+  2. K2 against its plain version, bit for bit: 2048 deep pairs x 24
+     vertices; a tier ladder forced to overflow (F=8, K=2; F=16, K=4;
+     F=208, K=16) with its tiers in shared memory (the size rule), the
+     last in device memory, and all in device memory; a face capacity
+     past a block's shared memory (F=4096), which takes the device store;
   3. known geometry: unit cubes at offsets 0.3, 0.7, 1.2, 2.5;
   4. the float64 reference oracle (tests/oracle_np.py) on 64 deep pairs;
   5. the main path at full size (16384 x 24 deep pairs with full contact,
@@ -62,11 +68,12 @@ once) and runs, in phases:
      kernels' launch counters set to 0 just before it and its exact
      launches checked just after, then timings of K8 (both phases), K9,
      K10, both paths and their plain versions;
- 14. K12 and K13 against their plain versions on 4096 x 2600 pairs, on
-     tie pairs (box corners copied one ulp apart at vertices i, i + 1 and
-     i + 32k, n1 + n2 = 4200) bit for bit and on 256 x 8192 pairs
-     (tests/test_fused_tpu.py:248-290), K13 bit for bit on all three; K13
-     over a tier ladder forced to overflow (F=8, K=2; F=16, K=4; F=208,
+ 14. K12 and K13 against their plain versions, bit for bit, on 4096 x 2600
+     pairs, on tie pairs (box corners copied one ulp apart at vertices i,
+     i + 1 and i + 32k, n1 + n2 = 4200), on 256 x 8192 pairs
+     (tests/test_fused_tpu.py:248-290) and on 8 x 10240 pairs, whose hulls
+     do not fit in shared memory (K12's device-memory scan); K13 over a
+     tier ladder forced to overflow (F=8, K=2; F=16, K=4; F=208,
      K=16) bit for bit at 512 x 2600 and 512 x 2601 (K11's scalar scan),
      K12/K13 at 512 x 2601; 2048-vertex sub-hulls through
      K1/K2 against the same padded to 8192 through K12/K13; K1/K2 against
@@ -221,7 +228,7 @@ def ptxas_report(log_text: str) -> list[str]:
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"([a-z_]+_kernel)(?:ILi(\d+)EE)?", m.group(1))
+            k = re.search(r"([a-z_]+_kernel)(?:IL[a-z](\d+)EE)?", m.group(1))
             name = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
                     if k else m.group(1))
         elif "spill stores" in line:
@@ -254,6 +261,14 @@ def entry(name, src, line, launches, err, ms, plain_ms, bound):
 
 def isum(t) -> int:
     return int(t.long().sum())
+
+
+def rows_equal(x, y, active=None) -> bool:
+    """Bit-equal rows; GJK rows' simplex on the ``active`` lanes only (the
+    plain version leaves probes in the others, the kernels zeros)."""
+    if active is not None:
+        x, y = ((*r[:4], r.simplex[active]) for r in (x, y))
+    return all(torch.equal(a, b) for a, b in zip(x, y))
 
 
 def gjk_ops(active, iters, probe_ops) -> float:
@@ -875,6 +890,7 @@ def big_phases(gt, dev, cfg, card) -> list[dict]:
     """Phases 14-15, the large-hull path (n1 + n2 > 4096) at 256 x 8192
     (tests/test_fused_tpu.py:248-290's pairs) and 4096 x 2600; returns K12
     and K13's entries of the ``kernels`` line."""
+    from gjkepa_tpu_torch import _build
     from gjkepa_tpu_torch.models import fixtures
     from gjkepa_tpu_torch.ops import contact_rows, fused_epa, fused_gjk
     from gjkepa_tpu_torch.ops import fused_streamed as fst
@@ -887,14 +903,6 @@ def big_phases(gt, dev, cfg, card) -> list[dict]:
         return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                      for a in arrays)
 
-    def rows_equal(x, y, active=None):
-        """Bit-equal rows; GJK rows' simplex on the ``active`` lanes only
-        (the plain version leaves probes in the others, the kernels
-        zeros)."""
-        if active is not None:
-            x, y = ((*r[:4], r.simplex[active]) for r in (x, y))
-        return all(torch.equal(a, b) for a, b in zip(x, y))
-
     def plain_big_path(p1, p2, c):
         """fused_hulls_streamed through the plain versions."""
         active = fst.streamed_broadphase(p1, p2, c.broadphase_tol)
@@ -902,26 +910,26 @@ def big_phases(gt, dev, cfg, card) -> list[dict]:
         return hulls_result(g, cascade_plan(c), lambda *a: (
             fst.epa_hulls_big_plain(p1, p2, g.simplex, g.status, *a)))
 
-    def compare_big(p1, p2, what, exact=False):
-        """K12 and K13 against their plain versions on the same inputs (K13
-        bit for bit, K12 too with ``exact``); returns their max abs
-        errors."""
+    lib = _build.load()
+
+    def compare_big(p1, p2, what):
+        """K12 and K13 against their plain versions on the same inputs, bit
+        for bit; returns their max abs errors."""
+        n1, n2 = p1.shape[1], p2.shape[1]
+        staged = lib.gjk_hulls_big_staged(n1, n2)
         active = fst.streamed_broadphase(p1, p2, cfg.broadphase_tol)
         gk = fst.gjk_hulls_big(p1, p2, active, cfg)
         gp = fst.gjk_hulls_big_plain(p1, p2, active, cfg)
         torch.cuda.synchronize()
-        check(torch.equal(gk.hit, gp.hit) and torch.equal(gk.status,
-                                                          gp.status),
-              f"{what}: K12 hit/status differ")
         n_on = isum(active)
         d12 = int((gk.iters != gp.iters).sum())
         e12 = max(float((gk.sep - gp.sep).abs().max()),
                   float((gk.simplex - gp.simplex)[active].abs().max()))
-        check(d12 <= 0.005 * n_on and e12 <= 1e-5,
-              f"{what}: K12 iters differ on {d12} of {n_on} lanes, sep/"
-              f"simplex by {e12}")
-        check(not exact or rows_equal(gk, gp, active),
-              f"{what}: K12 rows are not bit-equal to the plain version")
+        check(rows_equal(gk, gp, active),
+              f"{what}: K12 rows are not bit-equal to the plain version "
+              f"(hit/status equal: {torch.equal(gk.status, gp.status)}, "
+              f"iters differ on {d12} of {n_on} lanes, sep/simplex err "
+              f"{e12})")
         order, n_act = hit_first_order(gp.hit)
         args = (p1, p2, gp.simplex, gp.status, order, n_act, stages)
         ek, ep = fst.epa_hulls_big(*args), fst.epa_hulls_big_plain(*args)
@@ -933,10 +941,11 @@ def big_phases(gt, dev, cfg, card) -> list[dict]:
               f"{what}: K13 rows are not bit-equal to the plain version "
               f"(status equal: {torch.equal(ek.status, ep.status)}, depth/"
               f"normal err {e13}, iters differ on {d13} of {int(n_act)})")
-        log(f"{what} K12/K13 vs plain, {p1.shape[0]} x {p1.shape[1]} + "
-            f"{p2.shape[1]}: {n_on} active, {int(n_act)} hits; hit/status "
-            f"equal, K12 iters differ on {d12}, sep/simplex err {e12:.3g}"
-            + (" (bit for bit)" if exact else "") + "; K13 rows bit for bit")
+        log(f"{what} K12/K13 vs plain, {p1.shape[0]} x {n1} + {n2}: {n_on} "
+            f"active, {int(n_act)} hits; K12 "
+            + ("staged in shared memory" if staged else
+               "scanning device memory")
+            + ", rows bit for bit; K13 rows bit for bit")
         return e12, e13
 
     # -- phase 14: K12/K13 vs plain, ties, sub-hulls, K1/K2 = K12/K13 ---------
@@ -946,10 +955,14 @@ def big_phases(gt, dev, cfg, card) -> list[dict]:
     (s1, s2), (q1, q2) = (on_dev(*x) for x in fixtures.big_subhull_pairs())
     log(f"phase 14 inputs: 4096 x 2600 and 256 x 8192 pairs made and moved "
         f"in {time.perf_counter() - t0:.2f} s")
+    past = on_dev(*(fixtures.random_hulls(np.random.default_rng(14), 8,
+                                          10240, 0.2) for _ in range(2)))
+    check(not lib.gjk_hulls_big_staged(10240, 10240),
+          "phase 14: K12 stages 10240 + 10240 vertices")
     errs = [compare_big(h1, h2, "phase 14 4096 x 2600"),
-            compare_big(*on_dev(*fixtures.tie_pairs()), "phase 14 ties",
-                        exact=True),
-            compare_big(b1, b2, "phase 14 256 x 8192")]
+            compare_big(*on_dev(*fixtures.tie_pairs()), "phase 14 ties"),
+            compare_big(b1, b2, "phase 14 256 x 8192"),
+            compare_big(*past, "phase 14 past shared memory, 8 x 10240")]
     e12, e13 = (max(e[k] for e in errs) for k in (0, 1))
 
     # K13 over a ladder whose first tiers overflow, so that the retries run
@@ -971,7 +984,7 @@ def big_phases(gt, dev, cfg, card) -> list[dict]:
         log(f"phase 14 overflow ladder (F, K) = (8, 2), (16, 4), (208, 16): "
             f"512 x {l1.shape[1]}, {int(ln)} hits, mean epa_iters "
             f"{float(lp.iters[lg.hit].float().mean()):.3f}, K13 bit for bit")
-    odd_err = compare_big(*odd, "phase 14 512 x 2601", exact=True)
+    odd_err = compare_big(*odd, "phase 14 512 x 2601")
     e12, e13 = max(e12, odd_err[0]), max(e13, odd_err[1])
 
     rr = gt.fused_gjkepa_hulls(s1, s2, cfg=cfg)      # n1 + n2 = 4096: K1/K2
@@ -1152,7 +1165,7 @@ def big_phases(gt, dev, cfg, card) -> list[dict]:
             f"{epa_it:.3f} EPA iterations a hit = "
             f"{times[f'k13_{key}'] / epa_it:.5f} ms an iteration (max "
             f"{int(e.iters.max())}); K12 {times[f'k12_{key}']:.4f} ms over "
-            f"{probes:.3f} probes a pair = {per_probe:.5f} ms a warp probe; "
+            f"{probes:.3f} probes a pair = {per_probe:.5f} ms a block probe; "
             f"proxy K12 probe x K13 iterations = {per_probe * epa_it:.4f} ms "
             f"[{card}]")
     log(f"phase 15 bounds: 256 x 8192 K12 {k12_bound[0]:.4f} ms "
@@ -1198,7 +1211,8 @@ def main() -> int:
     libs = _build.build()
     log(f"phase 0 build: {', '.join(p.name for p in libs.values())} "
         f"built and loaded in {time.perf_counter() - t0:.2f} s")
-    for src in ("gjk_hulls.cu", "gjk_hulls_big.cu", "epa_hulls_big.cu"):
+    for src in ("gjk_hulls.cu", "epa_hulls.cu", "gjk_hulls_big.cu",
+                "epa_hulls_big.cu"):
         for line in ptxas_report(libs[src].with_suffix(".log").read_text()):
             log(f"phase 0 ptxas {src}: {line}")
 
@@ -1233,30 +1247,31 @@ def main() -> int:
             f"bit, {int(gk.hit.sum())} hits, {isum(ran)} lanes ran GJK")
         return err
 
-    def compare_k2(p1, p2, what):
-        """K2 against its plain version on the same K1 rows; returns the
-        max abs error over depth and normal."""
+    def compare_k2(p1, p2, what, tiers=stages, **variant):
+        """K2 against its plain version on the same K1 rows, bit for bit
+        (``variant``: the shared store's faces, else the wrapper's);
+        returns the max abs error over depth and normal."""
         g = fused_gjk.gjk_hulls(p1, p2, cfg)
         order, n_act = hit_first_order(g.hit)
-        ek = fused_epa.epa_cascade(p1, p2, g.simplex, g.status, order, n_act,
-                                   stages)
-        ep = fused_epa.epa_cascade_plain(p1, p2, g.simplex, g.status, order,
-                                         n_act, stages)
+        args = (p1, p2, g.simplex, g.status, order, n_act, tiers)
+        ek = (fused_epa._epa_cascade_cuda(*args, **variant) if variant
+              else fused_epa.epa_cascade(*args))
+        ep = fused_epa.epa_cascade_plain(*args)
         torch.cuda.synchronize()
-        check(torch.equal(ek.status, ep.status), f"{what}: K2 status differs")
-        depth_err = float((ek.depth - ep.depth).abs().max())
-        check(depth_err <= 1e-5, f"{what}: depth differs by {depth_err}")
-        dots = (ek.normal * ep.normal).sum(dim=1)[g.hit]
-        agree = float((dots > 1.0 - 1e-4).float().mean())
-        check(agree >= 0.98, f"{what}: normals agree on {agree:.4f} of hits")
+        err = max(float((ek.depth - ep.depth).abs().max()),
+                  float((ek.normal - ep.normal).abs().max()))
         ei_diff = int((ek.iters != ep.iters).sum())
-        check(ei_diff <= 0.01 * int(n_act),
-              f"{what}: epa_iters differ on {ei_diff} of {int(n_act)} hits")
-        log(f"{what} K2 vs plain, {p1.shape[0]} x {p1.shape[1]} deep: status "
-            f"equal, {int(g.hit.sum())} hits, depth max abs err "
-            f"{depth_err:.3g} (tol 1e-5), normals agree on {agree:.4f} of "
-            f"hits, epa_iters differ on {ei_diff} lanes")
-        return max(depth_err, float((ek.normal - ep.normal).abs().max()))
+        check(rows_equal(ek, ep),
+              f"{what}: K2 rows are not bit-equal to the plain version "
+              f"(status equal: {torch.equal(ek.status, ep.status)}, depth/"
+              f"normal err {err}, epa_iters differ on {ei_diff} of "
+              f"{int(n_act)} hits)")
+        log(f"{what} K2 vs plain, {p1.shape[0]} x {p1.shape[1]} deep, tiers "
+            f"{[c.epa_max_faces for c, _ in tiers]}"
+            + (f", {variant}" if variant else "") + f": {int(n_act)} hits, "
+            f"mean epa_iters {float(ep.iters[g.hit].float().mean()):.3f}, "
+            f"rows bit for bit")
+        return err
 
     # -- phase 1: K1 vs plain -------------------------------------------------
     bool_cfg = cfg.replace(epa_max_iters=0)
@@ -1273,7 +1288,28 @@ def main() -> int:
 
     # -- phase 2: K2 vs plain -------------------------------------------------
     rng = np.random.default_rng(0)
-    k2_err = compare_k2(*on_dev(*deep_pairs(rng, 2048, 24)), "phase 2")
+    deep = on_dev(*deep_pairs(rng, 2048, 24))
+    k2_err = compare_k2(*deep, "phase 2")
+    # K2's stores by the size rule over the kernel's own byte count
+    lib, limit = _build.load(), _build.smem_limit(dev)
+    near = fused_epa.k2_near_faces(stages, lib.epa_hulls_smem_bytes, limit)
+    log(f"phase 2 K2 stores: the tiers {[c.epa_max_faces for c, _ in stages]}"
+        f" in shared memory up to {near} faces "
+        f"({lib.epa_hulls_smem_bytes(near)} B a block of {limit}), device "
+        f"store {fused_epa.k2_far_faces(stages, near)} faces")
+    # a ladder whose first tiers overflow, its tiers in shared memory (the
+    # rule), the last in device memory, all in device memory; then a face
+    # capacity past shared memory, which takes the device store
+    ladder = [(cfg.replace(epa_max_faces=f), k)
+              for f, k in ((8, 2), (16, 4), (208, 16))]
+    for near in (None, 16, 0):
+        k2_err = max(k2_err, compare_k2(
+            *deep, "phase 2 overflow ladder", ladder, near_faces=near))
+    check(lib.epa_hulls_smem_bytes(4096) > limit,
+          "phase 2: a 4096-face store fits in shared memory")
+    k2_err = max(k2_err, compare_k2(
+        *(t[:512].contiguous() for t in deep), "phase 2 past shared memory",
+        [(cfg.replace(epa_max_faces=4096), 16)]))
 
     # -- phase 3: known geometry through the main path -------------------------
     corners = np.array([[x, y, z] for x in (-.5, .5) for y in (-.5, .5)

@@ -47,10 +47,12 @@ ENTRY_POINTS = {
     "gjk_hulls_launch": ("gjk_hulls.cu", [_vp] * 8 + [_ci] * 4
                          + [_cf] * 4 + [_ci, _vp]),
     "epa_hulls_launch": ("epa_hulls.cu", [_vp] * 10 + [_ci] * 4
-                         + [_ip, _ip, _ci, _cf, _cf, _ci, _vp]),
+                         + [_ip, _ip] + [_ci] * 2 + [_cf, _cf, _ci, _vp]),
+    "epa_hulls_smem_bytes": ("epa_hulls.cu", [_ci]),
     "epa_scratch_words_per_face": ("epa_hulls.cu", []),
     "gjk_hulls_big_launch": ("gjk_hulls_big.cu", [_vp] * 9 + [_ci] * 3
                              + [_cf] * 4 + [_ci, _vp]),
+    "gjk_hulls_big_staged": ("gjk_hulls_big.cu", [_ci, _ci]),
     "epa_hulls_big_launch": ("epa_hulls_big.cu", [_vp] * 9 + [_ci] * 4
                              + [_ip, _ip, _ci, _cf, _cf, _ci, _vp]),
     "epa_hulls_big_smem_bytes": ("epa_hulls_big.cu", [_ci]),
@@ -155,6 +157,17 @@ def on_card(t: torch.Tensor, kernel: str) -> bool:
     if t.device.type != "cuda":
         raise ValueError(f"no {kernel} kernel for device {t.device}")
     return True
+
+
+@functools.cache
+def smem_limit(dev: torch.device) -> int:
+    """The most dynamic shared memory a block may opt into on ``dev``, in
+    bytes (232,448 on an H100)."""
+    with torch.cuda.device(dev):
+        limit = load().epa_hulls_big_smem_limit()
+    if limit < 0:
+        raise RuntimeError(f"cannot read the shared memory limit of {dev}")
+    return limit
 
 
 def launch(name: str, dev: torch.device, counts: dict, *args,

@@ -2,12 +2,12 @@
 //
 // Ports _epa_phase_fast (gjkepa_tpu/ops/fused.py:456-749) and _epa_cascade
 // (:837-873).  Plain PyTorch version: epa_phase and run_cascade in
-// gjkepa_tpu_torch/ops/fused_epa.py.  K2 (epa_hulls.cu) instantiates it with
-// the hull support, K7 (epa_shapes.cu) with the analytic-shape support, K10
-// (epa_hull_shape.cu) with the hull-vs-shape support.  K13
-// (epa_hulls_big.cu) runs its own tier, epa_warp.cuh's epa_tier_warp: the
-// same arithmetic (plane_of, write_face) with the polytope in shared memory
-// and each face scan split across a warp.
+// gjkepa_tpu_torch/ops/fused_epa.py.  K7 (epa_shapes.cu) instantiates it
+// with the analytic-shape support, K10 (epa_hull_shape.cu) with the
+// hull-vs-shape support.  K2 (epa_hulls.cu) and K13 (epa_hulls_big.cu) run
+// epa_warp.cuh's epa_tier_warp instead: the same arithmetic (plane_of,
+// write_face) with each face scan split across a warp, the polytope in
+// shared memory where it fits.
 //
 // A lane runs the tiers (F, K) in sequence from the GJK simplex, each later
 // tier only if the previous one stopped for capacity.  Polytope state, per
@@ -50,11 +50,7 @@ struct EpaParams {
   int max_iters;  // epa_max_iters
 };
 
-// One lane's view of the [field][face][lane] scratch buffer.  write_face
-// calls before_store() ahead of each group of stores, the place for the
-// barrier of a face store that several threads write; each store of the
-// port is written only by its faces' owner (a lane's thread here, a face's
-// thread in epa_warp.cuh SmemFaces), so it is empty in each.
+// One lane's view of the [field][face][lane] scratch buffer.
 struct Faces {
   float* base;
   size_t field_stride;  // f_max * B
@@ -62,7 +58,6 @@ struct Faces {
   __device__ __forceinline__ float& at(int field, int f) const {
     return base[field * field_stride + (size_t)f * B];
   }
-  __device__ __forceinline__ void before_store() const {}
 };
 
 struct Plane {
@@ -100,7 +95,6 @@ template <class FaceSet>
 __device__ __forceinline__ void write_face(const FaceSet& fs, int f, P3 a, P3 b, P3 c, int i0,
                                            int i1, int i2, P3 interior, float epz) {
   Plane p = plane_of(a, b, c, interior, epz);
-  fs.before_store();
   fs.at(AX, f) = a.x;
   fs.at(AY, f) = a.y;
   fs.at(AZ, f) = a.z;
@@ -138,7 +132,6 @@ __device__ TierOut epa_tier(const Support& support, const P3* s, P3 interior, in
     write_face(fs, f, s[seed[f][0]], s[seed[f][1]], s[seed[f][2]], seed[f][0], seed[f][1],
                seed[f][2], interior, epz);
   }
-  fs.before_store();
   for (int f = 4; f < F; ++f) fs.at(ALIVE, f) = kDead;
 
   TierOut out;
@@ -194,7 +187,6 @@ __device__ TierOut epa_tier(const Support& support, const P3* s, P3 interior, in
       bool beyond = (fs.at(NX, f) * w.x + fs.at(NY, f) * w.y + fs.at(NZ, f) * w.z) > dd + epz;
       bool vis = ((beyond || star) && dd < kBig * 0.5f) || star;
       if (!vis) continue;
-      fs.before_store();
       fs.at(ALIVE, f) = kVisible;
       if (nvis < K) {
         for (int j = 0; j < 9; ++j) scor[nvis][j] = fs.at(AX + j, f);
@@ -246,7 +238,6 @@ __device__ TierOut epa_tier(const Support& support, const P3* s, P3 interior, in
         write_face(fs, f, pa, pb, w, sid[k][a], sid[k][b], nv, interior, epz);
         ++r;
       } else {
-        fs.before_store();
         fs.at(ALIVE, f) = kDead;  // visible and not reused
       }
     }

@@ -21,20 +21,18 @@
 // The probe is split across the block.  Each EPA iteration is one support
 // probe, 12 * (n1 + n2) bytes of hull (196 KB at 8192 + 8192), and at one
 // warp a pair the probes took most of the time: 256 pairs are 256 warps on
-// 132 SMs, each waiting on its own loads.  So warp 0 publishes its
-// direction in shared memory and meets warps 1..W-1 at a block barrier;
-// all W * 32 threads scan the vertices (hull_stream.cuh's strided scan,
-// float4 groups), each warp reduces its part with K11's shuffles, and the
-// W warp results meet in shared memory behind a second barrier, folded in
-// warp order under the same (larger value, then smaller index) order, so
-// every thread ends with the first maximum.  The face work stays with warp
+// 132 SMs, each waiting on its own loads.  So all W * 32 threads scan the
+// vertices for each probe (hull_stream.cuh's BlockHullSupport: warp 0's
+// direction through shared memory, a block barrier, the strided scan in
+// float4 groups, K11's shuffles in each warp, the W warp results folded in
+// warp order behind a second barrier).  The face work stays with warp
 // 0 (warps 1..W-1 wait at the barrier for the next direction or the stop
 // word): it is a few shared-memory passes an iteration, and one warp keeps
 // its ballots and shuffles free of block barriers.  The barrier is the
 // named barrier 1 (barrier.sync, not .aligned), which warps may reach from
 // different code.  W is K13_WARPS = 8, the fastest of 1, 2, 4 and 8 on an
-// H100 at both measured sizes (PERF.md); scripts/torch_block_sweep.py
-// rebuilds this file with -DK13_WARPS=W to time the others.
+// H100 at both measured sizes (PERF.md); `scripts/torch_kernel_sweep.py
+// warps` rebuilds this file with -DK13_WARPS=W to time the others.
 //
 // What bounds it: the probes' bytes at the card's memory rate (the L2 holds
 // 256 pairs of 8192 + 8192 vertices, 50 MB, only in part), then warp 0's
@@ -50,100 +48,19 @@ namespace {
 #define K13_WARPS 8
 #endif
 constexpr int kWarps = K13_WARPS;  // W, the warps a block
-static_assert(kWarps >= 1 && kWarps <= 32, "1 to 32 warps a block");
 
-// The probe's exchange between the warps of a block, in shared memory.
-struct BlockProbe {
-  float dir[3];               // warp 0's direction
-  int go;                     // 1: probe along dir, 0: stop
-  float val[2][kWarps];       // each warp's first maximum, hull 1 and hull 2
-  int idx[2][kWarps];
-};
+using Probe = BlockProbe<kWarps>;
+using Support = BlockHullSupport<kWarps>;
 
 // K13's shared memory: the probe exchange, the warp scratch, then the faces.
-constexpr size_t kProbeWords = sizeof(BlockProbe) / sizeof(float);
+constexpr size_t kProbeWords = sizeof(Probe) / sizeof(float);
 constexpr size_t kScratchWords = sizeof(WarpScratch) / sizeof(float);
-static_assert(sizeof(BlockProbe) % sizeof(float) == 0 && sizeof(WarpScratch) % sizeof(float) == 0,
+static_assert(sizeof(Probe) % sizeof(float) == 0 && sizeof(WarpScratch) % sizeof(float) == 0,
               "word-sized shared memory regions");
 
 inline size_t smem_bytes(int f_max) {
   return (kProbeWords + kScratchWords + (size_t)kFields * f_max) * sizeof(float);
 }
-
-__device__ __forceinline__ void block_barrier() {
-  asm volatile("barrier.sync 1, %0;" ::"r"(kWarps * kWarp) : "memory");
-}
-
-// The Minkowski support of one pair's two hulls for a block of W warps.
-// Warp 0 calls it from the EPA core; warps 1..W-1 serve() it.
-struct BlockHullSupport {
-  const float* v1;
-  int n1;
-  const float* v2;
-  int n2;
-  BlockProbe* probe;
-
-  // One probe along d by every thread of the block.
-  __device__ __forceinline__ P3 scan(P3 d) const {
-    float b1, b2;
-    int i1, i2;
-    strided_first_max<false, kWarps * kWarp>(v1, n1, d, threadIdx.x, &b1, &i1);
-    strided_first_max<true, kWarps * kWarp>(v2, n2, d, threadIdx.x, &b2, &i2);
-    team_reduce_first_max<kWarp>(kFullMask, &b1, &i1);
-    team_reduce_first_max<kWarp>(kFullMask, &b2, &i2);
-    if (kWarps > 1) {
-      const int warp = threadIdx.x / kWarp;
-      if ((threadIdx.x & (kWarp - 1)) == 0) {
-        probe->val[0][warp] = b1;
-        probe->idx[0][warp] = i1;
-        probe->val[1][warp] = b2;
-        probe->idx[1][warp] = i2;
-      }
-      block_barrier();
-      b1 = probe->val[0][0];
-      i1 = probe->idx[0][0];
-      b2 = probe->val[1][0];
-      i2 = probe->idx[1][0];
-#pragma unroll
-      for (int u = 1; u < kWarps; ++u) {
-        keep_first_max(probe->val[0][u], probe->idx[0][u], &b1, &i1);
-        keep_first_max(probe->val[1][u], probe->idx[1][u], &b2, &i2);
-      }
-    }
-    return sub(vertex(v1, i1), vertex(v2, i2));
-  }
-
-  // Warp 0: publish d, then probe with the block.
-  __device__ __forceinline__ P3 operator()(P3 d) const {
-    if (kWarps > 1) {
-      if (threadIdx.x == 0) {
-        probe->dir[0] = d.x;
-        probe->dir[1] = d.y;
-        probe->dir[2] = d.z;
-        probe->go = 1;
-      }
-      block_barrier();
-    }
-    return scan(d);
-  }
-
-  // Warps 1..W-1: probe along warp 0's directions until it stops.
-  __device__ void serve() const {
-    for (;;) {
-      block_barrier();
-      if (!probe->go) return;
-      scan(mk(probe->dir[0], probe->dir[1], probe->dir[2]));
-    }
-  }
-
-  // Warp 0, after its ladder: release the other warps.
-  __device__ __forceinline__ void stop() const {
-    if (kWarps > 1) {
-      if (threadIdx.x == 0) probe->go = 0;
-      block_barrier();
-    }
-  }
-};
 
 __global__ void __launch_bounds__(kWarps * kWarp)
 epa_hulls_big_kernel(const float* __restrict__ p1, const float* __restrict__ p2,
@@ -156,22 +73,20 @@ epa_hulls_big_kernel(const float* __restrict__ p1, const float* __restrict__ p2,
   const int i = blockIdx.x;
   if (i >= *n_act) return;  // the whole block
   const int pair = order[i];
-  const BlockHullSupport support = {p1 + (size_t)pair * n1 * 3, n1, p2 + (size_t)pair * n2 * 3,
-                                    n2, reinterpret_cast<BlockProbe*>(smem)};
+  const Support support = {p1 + (size_t)pair * n1 * 3, n1, p2 + (size_t)pair * n2 * 3, n2,
+                           reinterpret_cast<Probe*>(smem)};
   if (threadIdx.x >= kWarp) {
     support.serve();
     return;
   }
   WarpScratch& ws = *reinterpret_cast<WarpScratch*>(smem + kProbeWords);
-  SmemFaces fs;
-  fs.base = smem + kProbeWords + kScratchWords;
-  fs.f_max = f_max;
+  const PairFaces fs = {smem + kProbeWords + kScratchWords, f_max};
   P3 s[4];
   for (int j = 0; j < 4; ++j) {
     const float* q = simplex + (size_t)pair * 12 + 3 * j;
     s[j] = mk(q[0], q[1], q[2]);
   }
-  TierOut r = epa_cascade_warp(support, s, tiers, fs, ws, prm);
+  TierOut r = epa_cascade_warp(support, s, tiers, fs, fs, ws, prm);
   support.stop();
   if (threadIdx.x != 0) return;
   if (r.status == kHitEpaCapacity) r.status = kHitEpaDegenerate;
@@ -190,17 +105,10 @@ epa_hulls_big_kernel(const float* __restrict__ p1, const float* __restrict__ p2,
 extern "C" int epa_hulls_big_smem_bytes(int f_max) { return (int)gjkepa::smem_bytes(f_max); }
 
 // The most shared memory a block may take on the current device (opt-in).
-extern "C" int epa_hulls_big_smem_limit() {
-  int dev = 0, limit = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
-          cudaSuccess) {
-    return -1;
-  }
-  return limit;
-}
+extern "C" int epa_hulls_big_smem_limit() { return gjkepa::smem_optin_limit(); }
 
-// C interface, bound with ctypes: K2's arguments without the scratch.
+// C interface, bound with ctypes: K2's arguments without its block size
+// and face stores.
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
 // a tier ladder the kernel does not hold or a face store past the device's
 // shared memory a block (epa_hulls_big_smem_bytes against
@@ -217,13 +125,8 @@ extern "C" int epa_hulls_big_launch(const void* p1, const void* p2, const void* 
   const int rc = make_tiers(n_tiers, tier_faces, tier_kvis, f_max, epa_max_iters, &tiers);
   if (rc != 0) return rc;
   const size_t smem = smem_bytes(f_max);
-  const int limit = epa_hulls_big_smem_limit();
-  if (limit < 0 || smem > (size_t)limit) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        epa_hulls_big_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const int err = allow_smem(epa_hulls_big_kernel, smem);
+  if (err != 0) return err;
   const EpaParams prm = make_epa_params(eps_coincide, eps_zero, epa_max_iters);
   epa_hulls_big_kernel<<<B, kWarps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(p1), static_cast<const float*>(p2),

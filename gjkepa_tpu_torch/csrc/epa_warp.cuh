@@ -1,5 +1,5 @@
-// The EPA capacity cascade for one pair, run by one warp over a polytope in
-// shared memory, templated on its support map.
+// The EPA capacity cascade for one pair, run by one warp, templated on its
+// support map, over one or two face stores.
 //
 // Ports _epa_phase_fast (gjkepa_tpu/ops/fused.py:456-749) and _epa_cascade
 // (:837-873), as epa_core.cuh's epa_tier does for one thread.  Plain
@@ -7,11 +7,15 @@
 // gjkepa_tpu_torch/ops/fused_epa.py, whose per-face tensor operations are
 // what the warp computes 32 faces at a time; the reductions' rules in torch
 // are warp_first_min_plain and ballot_rank_plain in
-// gjkepa_tpu_torch/ops/fused_streamed.py.  K13 (epa_hulls_big.cu) runs it.
+// gjkepa_tpu_torch/ops/fused_streamed.py.  K2 (epa_hulls.cu) and K13
+// (epa_hulls_big.cu) run it.
 //
-// The face store (SmemFaces) is one pair's polytope, [field][face] with
+// A face store (PairFaces) is one pair's polytope, [field][face] with
 // f_max faces a field, 17 words a face (epa_core.cuh Field): 14,144 B at
-// the default ladder's F = 208.  Thread t of the warp owns faces t, t + 32,
+// the default ladder's F = 208, in shared memory or, for a face capacity
+// whose store does not fit there, in device memory.  The tiers restart from
+// the GJK simplex, so a later tier may keep its faces in another store
+// without changing any result.  Thread t of the warp owns faces t, t + 32,
 // ...: it alone writes them, and the others read them only after a
 // __syncwarp().  Each EPA iteration:
 //
@@ -48,13 +52,13 @@
 
 namespace gjkepa {
 
-// One pair's polytope in shared memory, [field][face].  Each face is stored
-// by the thread that owns it, so a store needs no barrier of its own.
-struct SmemFaces {
+// One pair's polytope, [field][face], in shared or device memory.  Each
+// face is stored by the thread that owns it, so a store needs no barrier of
+// its own.
+struct PairFaces {
   float* base;
   int f_max;
   __device__ __forceinline__ float& at(int field, int f) const { return base[field * f_max + f]; }
-  __device__ __forceinline__ void before_store() const {}
 };
 
 // The warp's per-iteration scratch in shared memory.
@@ -71,11 +75,11 @@ __device__ __forceinline__ unsigned lanemask_lt() {
 }
 
 // One tier of compact-visible EPA (_epa_phase_fast) for one pair, run by a
-// whole warp.
+// whole warp over one face store.
 template <class Support>
-__device__ TierOut epa_tier_warp(const Support& support, const P3* s, P3 interior, int F,
-                                 int K, const SmemFaces& fs, WarpScratch& ws,
-                                 const EpaParams& prm) {
+__device__ __forceinline__ TierOut epa_tier_warp(const Support& support, const P3* s,
+                                                 P3 interior, int F, int K, const PairFaces& fs,
+                                                 WarpScratch& ws, const EpaParams& prm) {
   const float eps = prm.eps, epz = prm.epz;
   const int lane = threadIdx.x & (kWarp - 1);
   const int chunks = (F + kWarp - 1) / kWarp;
@@ -244,15 +248,22 @@ __device__ TierOut epa_tier_warp(const Support& support, const P3* s, P3 interio
 }
 
 // The tier ladder for one pair, run by a whole warp: each later tier only
-// if the previous one stopped for capacity, over the same face store.
+// if the previous one stopped for capacity.  A tier of at most near.f_max
+// faces keeps them in `near`, a larger one in `far` (K13 passes its one
+// store as both).  Each store has its own inlined tier, so that one in
+// shared memory is read as such.
 template <class Support>
 __device__ __forceinline__ TierOut epa_cascade_warp(const Support& support, const P3* s,
-                                                    const Tiers& tiers, const SmemFaces& fs,
-                                                    WarpScratch& ws, const EpaParams& prm) {
+                                                    const Tiers& tiers, const PairFaces& near,
+                                                    const PairFaces& far, WarpScratch& ws,
+                                                    const EpaParams& prm) {
   const P3 interior = mean4(s);
-  TierOut r = epa_tier_warp(support, s, interior, tiers.faces[0], tiers.kvis[0], fs, ws, prm);
-  for (int t = 1; t < tiers.n && r.status == kHitEpaCapacity; ++t) {
-    r = epa_tier_warp(support, s, interior, tiers.faces[t], tiers.kvis[t], fs, ws, prm);
+  TierOut r;
+  r.status = kHitEpaCapacity;
+  for (int t = 0; t < tiers.n && r.status == kHitEpaCapacity; ++t) {
+    const int F = tiers.faces[t], K = tiers.kvis[t];
+    r = F <= near.f_max ? epa_tier_warp(support, s, interior, F, K, near, ws, prm)
+                        : epa_tier_warp(support, s, interior, F, K, far, ws, prm);
   }
   return r;
 }

@@ -1,4 +1,5 @@
-// K12: GJK over large hull pairs, one warp per pair.
+// K12: GJK over large hull pairs, a block of W warps per pair, both hulls
+// staged once into shared memory for all of its probes.
 //
 // Replaces the TPU kernel _gjk_kernel_hulls_big (gjkepa_tpu/ops/fused.py:
 // 1073, with _gjk_guard :925 and _gjk_phase :262-453) over the streamed
@@ -13,36 +14,123 @@
 // kernel reads the unpadded hulls: trailing repeats of vertex 0 never change
 // a first-max support.
 //
-// The 32 threads of a warp run the GJK phase of gjk_core.cuh on the same
-// pair, each with the same inputs, so their control flow is the same and
-// each support probe finds all 32 at its shuffles; thread 0 writes hit,
-// status, iterations, the separation lower bound and the 4x3 simplex.  A
-// warp whose pair index is past B returns whole.
+// Block b takes pair b.  A pair the broadphase rejects makes no probe:
+// thread 0 writes its miss rows.  Otherwise the block copies both hulls into
+// dynamic shared memory once (the staged kernel): where a hull reads as
+// float4 groups (n % 4 == 0, 16-B aligned: every pair of a (B, N, 3) batch
+// then is) by one bulk copy of the Tensor Memory Accelerator completing on
+// an mbarrier, else by the block's threads word by word.  Warp 0 then runs
+// the GJK phase of gjk_core.cuh and warps 1..W-1 serve its probes
+// (hull_stream.cuh's BlockHullSupport, as in K13): every probe reads the
+// staged hulls, split across the W * 32 threads, and thread 0 writes hit,
+// status, iterations, the separation lower bound and the 4x3 simplex.  The
+// GJK arithmetic between probes runs once, in warp 0, not in every warp:
+// the other warps wait at the barrier and leave the SM's instruction slots to the
+// other resident blocks.  The launcher takes the staged kernel while both
+// hulls fit in a block's shared memory (n1 + n2 up to about 19,300
+// vertices on an H100, gjk_hulls_big_staged); past that the same kernel
+// template scans the hulls in device memory on every probe, a choice by
+// size, never a refusal.  W is K12_WARPS = 4, fixed at compile time: of 2,
+// 4, 8 and 16 the fastest at 4096 x 2600 and within 5% of the fastest (8)
+// at 256 x 8192 on an H100 (PERF.md); `scripts/torch_kernel_sweep.py k12`
+// rebuilds this file with -DK12_WARPS=W, and with -DK12_STAGE=0 (scan at
+// every size), to time the others.
 //
-// What bounds it: the support probes, each a read of both hulls, 12 *
-// (n1 + n2) bytes (98 KB at n1 = n2 = 4096), about 6 + iterations probes a
-// pair; the GJK arithmetic between probes is a few hundred operations.
-// Small blocks (kWarpsPerBlock warps) spread 256 pairs over most of the
-// SMs.
+// What bounds it: reading both hulls, 12 * (n1 + n2) bytes a pair, once
+// from device memory; then about 6 + iterations probes from shared memory
+// and the GJK arithmetic between them, one after another within a pair.
 #include "gjk_core.cuh"
 #include "hull_stream.cuh"
 
 namespace gjkepa {
 namespace {
 
-constexpr int kWarpsPerBlock = 2;
+#ifndef K12_WARPS
+#define K12_WARPS 4
+#endif
+#ifndef K12_STAGE
+#define K12_STAGE 1
+#endif
+constexpr int kWarps = K12_WARPS;  // W, the warps a block
 
-__global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
-gjk_hulls_big_kernel(const float* __restrict__ p1, const float* __restrict__ p2,
-                     const bool* __restrict__ active, InitDirs dirs, bool* __restrict__ hit_out,
-                     int* __restrict__ status_out, int* __restrict__ iters_out,
-                     float* __restrict__ sep_out, float* __restrict__ simplex_out, int B, int n1,
-                     int n2, GjkParams prm) {
-  const int b = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
-  if (b >= B) return;  // the whole warp
-  const WarpHullSupport support = {p1 + (size_t)b * n1 * 3, n1, p2 + (size_t)b * n2 * 3, n2};
-  const GjkOut g = gjk_phase(support, active[b], dirs, prm);
-  if ((threadIdx.x & (kWarp - 1)) != 0) return;
+using Probe = BlockProbe<kWarps>;
+using Support = BlockHullSupport<kWarps>;
+
+// K12's shared memory: the mbarrier (8 B, padded to 16), the probe
+// exchange, then each staged hull padded to 16 B.
+constexpr int kBarWords = 4;
+constexpr int kHeadWords = kBarWords + (int)(sizeof(Probe) / sizeof(float));
+static_assert(sizeof(Probe) % 16 == 0, "16-B aligned hulls");
+
+__host__ __device__ inline int hull_words(int n) { return (3 * n + 3) & ~3; }
+
+inline size_t smem_bytes(int n1, int n2, bool staged) {
+  return (kHeadWords + (staged ? (size_t)hull_words(n1) + hull_words(n2) : 0)) * sizeof(float);
+}
+
+// Whether the launcher stages both hulls: while its block fits in the
+// current device's shared memory.
+inline bool stages(int n1, int n2) {
+  const int limit = smem_optin_limit();
+  return K12_STAGE && limit >= 0 && smem_bytes(n1, n2, true) <= (size_t)limit;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// One bulk copy of `bytes` (a multiple of 16, both ends 16-B aligned) from
+// device to shared memory, completing on the mbarrier at `bar`.
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src, unsigned bytes,
+                                          unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Copy both hulls of a pair into shared memory, by the whole block.
+__device__ __forceinline__ void stage_hulls(const float* v1, int n1, float* s1, const float* v2,
+                                            int n2, float* s2, unsigned long long* bar_ptr) {
+  const bool bulk1 = hull_in_groups(v1, n1), bulk2 = hull_in_groups(v2, n2);
+  const unsigned bar = smem_addr(bar_ptr);
+  if (bulk1 || bulk2) {
+    if (threadIdx.x == 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();  // the initialised barrier before any wait on it
+    if (threadIdx.x == 0) {
+      const unsigned bytes = (bulk1 ? 12u * n1 : 0u) + (bulk2 ? 12u * n2 : 0u);
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+                   "r"(bytes)
+                   : "memory");
+      if (bulk1) bulk_copy(s1, v1, 12u * n1, bar);
+      if (bulk2) bulk_copy(s2, v2, 12u * n2, bar);
+    }
+  }
+  if (!bulk1) {
+    for (int i = threadIdx.x; i < 3 * n1; i += blockDim.x) s1[i] = v1[i];
+  }
+  if (!bulk2) {
+    for (int i = threadIdx.x; i < 3 * n2; i += blockDim.x) s2[i] = v2[i];
+  }
+  if (bulk1 || bulk2) {  // phase 0 completes when every byte has landed
+    unsigned done = 0;
+    while (!done) {
+      asm volatile(
+          "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+          " selp.u32 %0, 1, 0, p;\n}"
+          : "=r"(done)
+          : "r"(bar)
+          : "memory");
+    }
+  }
+  __syncthreads();  // the threads' own copies
+}
+
+__device__ __forceinline__ void write_rows(int b, const GjkOut& g, bool* hit_out, int* status_out,
+                                           int* iters_out, float* sep_out, float* simplex_out) {
   hit_out[b] = g.status == kHit;
   status_out[b] = g.status;
   iters_out[b] = g.iters;
@@ -55,8 +143,47 @@ gjk_hulls_big_kernel(const float* __restrict__ p1, const float* __restrict__ p2,
   }
 }
 
+template <bool kStaged>
+__global__ void __launch_bounds__(kWarps * kWarp, 1)
+gjk_hulls_big_kernel(const float* __restrict__ p1, const float* __restrict__ p2,
+                     const bool* __restrict__ active, InitDirs dirs, bool* __restrict__ hit_out,
+                     int* __restrict__ status_out, int* __restrict__ iters_out,
+                     float* __restrict__ sep_out, float* __restrict__ simplex_out, int n1, int n2,
+                     GjkParams prm) {
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.x;
+  Support support = {p1 + (size_t)b * n1 * 3, n1, p2 + (size_t)b * n2 * 3, n2,
+                     reinterpret_cast<Probe*>(smem + kBarWords)};
+  if (!active[b]) {  // no probe: the broadphase-miss rows
+    if (threadIdx.x == 0) {
+      write_rows(b, gjk_phase(support, false, dirs, prm), hit_out, status_out, iters_out,
+                 sep_out, simplex_out);
+    }
+    return;
+  }
+  if (kStaged) {
+    float* s1 = smem + kHeadWords;
+    float* s2 = s1 + hull_words(n1);
+    stage_hulls(support.v1, n1, s1, support.v2, n2, s2,
+                reinterpret_cast<unsigned long long*>(smem));
+    support.v1 = s1;
+    support.v2 = s2;
+  }
+  if (threadIdx.x >= kWarp) {
+    support.serve();
+    return;
+  }
+  const GjkOut g = gjk_phase(support, true, dirs, prm);
+  support.stop();
+  if (threadIdx.x == 0) write_rows(b, g, hit_out, status_out, iters_out, sep_out, simplex_out);
+}
+
 }  // namespace
 }  // namespace gjkepa
+
+// Whether K12 stages the hulls of n1 + n2 vertices in shared memory on the
+// current device (else it scans them in device memory).
+extern "C" int gjk_hulls_big_staged(int n1, int n2) { return gjkepa::stages(n1, n2); }
 
 // C interface, bound with ctypes.  Returns cudaGetLastError() after the
 // launch; the launch is asynchronous on `stream`.  broadphase_tol is not
@@ -71,11 +198,15 @@ extern "C" int gjk_hulls_big_launch(const void* p1, const void* p2, const void* 
   const InitDirs dirs = make_init_dirs(static_cast<const float*>(init_dirs_host));
   const GjkParams prm =
       make_gjk_params(eps_coincide, eps_zero, eps_sq, broadphase_tol, gjk_max_iters);
-  const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  gjk_hulls_big_kernel<<<blocks, kWarpsPerBlock * kWarp, 0, static_cast<cudaStream_t>(stream)>>>(
+  const bool staged = stages(n1, n2);
+  const size_t smem = smem_bytes(n1, n2, staged);
+  auto kernel = staged ? gjk_hulls_big_kernel<true> : gjk_hulls_big_kernel<false>;
+  const int err = allow_smem(kernel, smem);
+  if (err != 0) return err;
+  kernel<<<B, kWarps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(p1), static_cast<const float*>(p2),
       static_cast<const bool*>(active), dirs, static_cast<bool*>(hit), static_cast<int*>(status),
-      static_cast<int*>(iters), static_cast<float*>(sep), static_cast<float*>(simplex), B, n1, n2,
+      static_cast<int*>(iters), static_cast<float*>(sep), static_cast<float*>(simplex), n1, n2,
       prm);
   return (int)cudaGetLastError();
 }

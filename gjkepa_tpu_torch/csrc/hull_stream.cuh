@@ -18,9 +18,9 @@
 // each, kGroupUnroll groups loaded before they are folded, so a team's
 // loads cover 48 * T neighbouring bytes; else it reads vertices t, t + T,
 // ..., kUnroll at a time.  K1 (gjk_hulls.cu) runs teams of 4-32 threads by
-// the hull size, K12 (gjk_hulls_big.cu) a warp (T = 32), K13
-// (epa_hulls_big.cu) W warps of one block whose warp results meet in
-// shared memory (BlockHullSupport).
+// the hull size, K2 (epa_hulls.cu) a warp (T = 32), K12 (gjk_hulls_big.cu)
+// and K13 (epa_hulls_big.cu) W warps of one block whose warp results meet
+// in shared memory (BlockHullSupport).
 //
 // The tie rule.  Each thread keeps the first (strict >) maximum of its own
 // vertices in index order, which is the smallest index among its maxima;
@@ -60,8 +60,11 @@ __device__ __forceinline__ float vertex_dot(const float* __restrict__ q, P3 d) {
 template <int T>
 __device__ __forceinline__ unsigned team_mask() {
   static_assert(T >= 1 && T <= kWarp && (kWarp % T) == 0, "T divides 32");
-  if (T == kWarp) return kFullMask;
-  return ((1u << T) - 1u) << ((threadIdx.x & (kWarp - 1)) & ~(T - 1));
+  if constexpr (T == kWarp) {
+    return kFullMask;
+  } else {
+    return ((1u << T) - 1u) << ((threadIdx.x & (kWarp - 1)) & ~(T - 1));
+  }
 }
 
 // Whether a row-major (N, 3) hull can be read as float4 groups of 4
@@ -218,7 +221,125 @@ struct TeamHullSupport {
   }
 };
 
-using WarpHullSupport = TeamHullSupport<kWarp>;
+// The probe's exchange between the W warps of a block, in shared memory.
+template <int W>
+struct BlockProbe {
+  float dir[3];          // warp 0's direction
+  int go;                // 1: probe along dir, 0: stop
+  float val[2][W];       // each warp's first maximum, hull 1 and hull 2
+  int idx[2][W];
+};
+
+// The named barrier 1 over the W warps of a block (barrier.sync, not
+// .aligned: warps may reach it from different code).
+template <int W>
+__device__ __forceinline__ void block_barrier() {
+  asm volatile("barrier.sync 1, %0;" ::"r"(W * kWarp) : "memory");
+}
+
+// The Minkowski support of one pair's two hulls for a block of W warps
+// (K12, K13).  Warp 0 runs the GJK or EPA core and calls it; warps 1..W-1
+// serve() it.  Each probe: warp 0 publishes its direction and meets the
+// others at the block barrier; all W * 32 threads scan the vertices
+// (strided_first_max), each warp reduces its part with the team shuffles,
+// and the W warp results meet in shared memory behind a second barrier,
+// folded in warp order under the same (larger value, then smaller index)
+// order, so that every thread ends with the first maximum.  The hulls may
+// lie in device or in shared memory.
+template <int W>
+struct BlockHullSupport {
+  static_assert(W >= 1 && W <= 32, "1 to 32 warps a block");
+  const float* v1;
+  int n1;
+  const float* v2;
+  int n2;
+  BlockProbe<W>* probe;
+
+  // One probe along d by every thread of the block.
+  __device__ __forceinline__ P3 scan(P3 d) const {
+    float b1, b2;
+    int i1, i2;
+    strided_first_max<false, W * kWarp>(v1, n1, d, threadIdx.x, &b1, &i1);
+    strided_first_max<true, W * kWarp>(v2, n2, d, threadIdx.x, &b2, &i2);
+    team_reduce_first_max<kWarp>(kFullMask, &b1, &i1);
+    team_reduce_first_max<kWarp>(kFullMask, &b2, &i2);
+    if (W > 1) {
+      const int warp = threadIdx.x / kWarp;
+      if ((threadIdx.x & (kWarp - 1)) == 0) {
+        probe->val[0][warp] = b1;
+        probe->idx[0][warp] = i1;
+        probe->val[1][warp] = b2;
+        probe->idx[1][warp] = i2;
+      }
+      block_barrier<W>();
+      b1 = probe->val[0][0];
+      i1 = probe->idx[0][0];
+      b2 = probe->val[1][0];
+      i2 = probe->idx[1][0];
+#pragma unroll
+      for (int u = 1; u < W; ++u) {
+        keep_first_max(probe->val[0][u], probe->idx[0][u], &b1, &i1);
+        keep_first_max(probe->val[1][u], probe->idx[1][u], &b2, &i2);
+      }
+    }
+    return sub(vertex(v1, i1), vertex(v2, i2));
+  }
+
+  // Warp 0: publish d, then probe with the block.
+  __device__ __forceinline__ P3 operator()(P3 d) const {
+    if (W > 1) {
+      if (threadIdx.x == 0) {
+        probe->dir[0] = d.x;
+        probe->dir[1] = d.y;
+        probe->dir[2] = d.z;
+        probe->go = 1;
+      }
+      block_barrier<W>();
+    }
+    return scan(d);
+  }
+
+  // Warps 1..W-1: probe along warp 0's directions until it stops.
+  __device__ void serve() const {
+    for (;;) {
+      block_barrier<W>();
+      if (!probe->go) return;
+      scan(mk(probe->dir[0], probe->dir[1], probe->dir[2]));
+    }
+  }
+
+  // Warp 0, after its core: release the other warps.
+  __device__ __forceinline__ void stop() const {
+    if (W > 1) {
+      if (threadIdx.x == 0) probe->go = 0;
+      block_barrier<W>();
+    }
+  }
+};
+
+// The most dynamic shared memory a block may opt into on the current
+// device, or -1.
+inline int smem_optin_limit() {
+  int dev = 0, limit = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+          cudaSuccess) {
+    return -1;
+  }
+  return limit;
+}
+
+// Launch `kernel` with `bytes` of dynamic shared memory: 0, or
+// cudaErrorInvalidValue past the device's limit, or the error of opting in
+// above the default 48 KB.
+template <class Kernel>
+inline int allow_smem(Kernel kernel, size_t bytes) {
+  const int limit = smem_optin_limit();
+  if (limit < 0 || bytes > (size_t)limit) return (int)cudaErrorInvalidValue;
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)bytes);
+}
 
 // The bounding sphere of one row-major (N, 3) hull for a team of T: the
 // centroid summed in vertex order by every thread (lane_geom.cuh

@@ -163,24 +163,6 @@ __device__ __forceinline__ P3 vertex(const float* __restrict__ v, int i) {
   return mk(v[3 * i], v[3 * i + 1], v[3 * i + 2]);
 }
 
-// Support of the Minkowski difference of two row-major (N, 3) hulls: the
-// first maximum of v.d on side 1 minus the first maximum of -(v.d) on
-// side 2.
-__device__ __forceinline__ P3 hull_support(const float* __restrict__ v1, int n1,
-                                           const float* __restrict__ v2, int n2, P3 d) {
-  return sub(vertex(v1, first_max_vertex<false>(v1, n1, d)),
-             vertex(v2, first_max_vertex<true>(v2, n2, d)));
-}
-
-// hull_support as the support functor of gjk_core.cuh / epa_core.cuh.
-struct HullSupport {
-  const float* v1;
-  int n1;
-  const float* v2;
-  int n2;
-  __device__ __forceinline__ P3 operator()(P3 d) const { return hull_support(v1, n1, v2, n2, d); }
-};
-
 // Centroid (sum / n, vertex order) and largest centroid-vertex distance of
 // one row-major (N, 3) hull: the bounding sphere of the broadphase.
 __device__ __forceinline__ void bounding_sphere(const float* __restrict__ v, int n, P3* c,

@@ -10,6 +10,12 @@ Both versions take the hit-first lane ``order`` and the device scalar
 other lane passes its GJK status through with zero depth, normal and
 iteration count.
 
+The kernel runs a warp per hit, each with its polytope in shared memory
+where it fits: :func:`k2_near_faces` picks the largest tier capacity whose
+store fits in a block's shared memory, and a larger tier keeps its faces
+in a store in device memory, allocated only when some tier needs it
+(:func:`k2_far_faces`).
+
 :func:`epa_cascade` takes the plain version only for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises.
 """
@@ -28,7 +34,8 @@ from .fused_gjk import check_hulls, make_hull_support
 from .lane_geom import P3, fsqrt, pdot, pmean4, pwhere, pzero_like
 
 __all__ = ["EPARows", "epa_cascade", "epa_cascade_plain", "epa_phase",
-           "run_cascade", "check_stages", "check_tensors", "LAUNCHES"]
+           "run_cascade", "check_stages", "check_tensors", "k2_near_faces",
+           "k2_far_faces", "LAUNCHES"]
 
 # Kernel launches made by epa_cascade (CUDA tensors only).
 LAUNCHES = 0
@@ -37,6 +44,22 @@ BIG = 3.4e38            # "no plane" distance (float32)
 _MAXID = 256            # vertex ids < 4 + epa_max_iters <= 103 < 256
 K_MAX = 16              # largest visible-set bound the kernel holds
 MAX_TIERS = 4
+
+
+def k2_near_faces(stages, smem_bytes, limit: int) -> int:
+    """The face capacity of K2's shared-memory store: the largest tier's
+    whose block, ``smem_bytes(faces)`` bytes (``epa_hulls_smem_bytes`` on
+    the card), fits in ``limit`` bytes of shared memory (0 when none does).
+    Every tier up to it keeps its faces in shared memory."""
+    return max((c.epa_max_faces for c, _ in stages
+                if smem_bytes(c.epa_max_faces) <= limit), default=0)
+
+
+def k2_far_faces(stages, near_faces: int) -> int:
+    """The face capacity of K2's store in device memory: the largest tier's
+    above ``near_faces`` (0 when every tier fits in shared memory)."""
+    return max((c.epa_max_faces for c, _ in stages
+                if c.epa_max_faces > near_faces), default=0)
 
 
 class EPARows(NamedTuple):
@@ -324,19 +347,29 @@ def epa_cascade_plain(p1, p2, simplex, gjk_status, order, n_act,
     return out
 
 
-def _epa_cascade_cuda(p1, p2, simplex, gjk_status, order, n_act,
-                      stages) -> EPARows:
+def _epa_cascade_cuda(p1, p2, simplex, gjk_status, order, n_act, stages,
+                      near_faces: int | None = None) -> EPARows:
+    """K2 with a shared-memory store of ``near_faces`` faces a warp
+    (:func:`k2_near_faces` when None) and, if a tier needs one, a device
+    store a hit."""
     global LAUNCHES
     lib = _build.load()
     b, n1, n2 = p1.shape[0], p1.shape[1], p2.shape[1]
     dev = p1.device
     cfg = stages[0][0]
-    f_max = max(c.epa_max_faces for c, _ in stages)
+    if near_faces is None:
+        near_faces = k2_near_faces(stages, lib.epa_hulls_smem_bytes,
+                                   _build.smem_limit(dev))
+    far_faces = k2_far_faces(stages, near_faces)
     tier_f = (ctypes.c_int * MAX_TIERS)(*[c.epa_max_faces for c, _ in stages])
     tier_k = (ctypes.c_int * MAX_TIERS)(*[k for _, k in stages])
     out = _passthrough(gjk_status, b, dev)
-    # per-lane polytope state, [field][face][lane] (see csrc/epa_hulls.cu)
-    scratch = torch.empty((lib.epa_scratch_words_per_face(), f_max, b),
+    far = None
+    if far_faces:
+        # one store a hit, [rank][field][face]: sized by the hit count, the
+        # one host read of this path, taken only where a tier needs it
+        far = torch.empty((max(int(n_act), 1),
+                           lib.epa_scratch_words_per_face(), far_faces),
                           dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -344,9 +377,9 @@ def _epa_cascade_cuda(p1, p2, simplex, gjk_status, order, n_act,
         rc = lib.epa_hulls_launch(
             ptr(p1), ptr(p2), ptr(simplex), ptr(order), ptr(n_act),
             ptr(out.depth), ptr(out.normal), ptr(out.iters), ptr(out.status),
-            ptr(scratch), b, n1, n2, len(stages),
-            tier_f, tier_k, f_max, cfg.eps_coincide, cfg.eps_zero,
-            cfg.epa_max_iters, ctypes.c_void_p(stream))
+            None if far is None else ptr(far), b, n1, n2, len(stages),
+            tier_f, tier_k, near_faces, far_faces, cfg.eps_coincide,
+            cfg.eps_zero, cfg.epa_max_iters, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"epa_hulls kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

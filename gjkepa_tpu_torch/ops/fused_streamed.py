@@ -20,10 +20,12 @@ change a first-max support (:1443-1446).
 
 On the TPU the support streams vertex slabs through VMEM and folds them
 with strict ``>``; on the card a team of threads scans a pair's vertices
-(a warp in K12, W warps of a block in K13, 4-32 threads in K1) and a
-shuffle reduction keeps the first maximum (:func:`warp_first_max_plain`
-is that reduction in torch).  K13 keeps each pair's polytope in shared
-memory and splits its face scans across a warp
+(W warps of a block in K12 and K13, 4-32 threads in K1) and a shuffle
+reduction keeps the first maximum (:func:`warp_first_max_plain` is that
+reduction in torch, :func:`block_first_max_plain` its fold over a block's
+warps).  K12 copies both hulls of a pair into shared memory once and
+probes them there while they fit (its launcher's choice).  K13 keeps each
+pair's polytope in shared memory and splits its face scans across a warp
 (``csrc/epa_warp.cuh``): :func:`warp_first_min_plain` and
 :func:`ballot_rank_plain` are its reductions in torch.
 """
@@ -45,7 +47,8 @@ from .fused_shapes import empty_gjk_rows, gjk_args
 
 __all__ = ["STREAM_THRESHOLD", "TILE", "streams", "pad_tile",
            "streamed_broadphase", "gjk_hulls_big", "gjk_hulls_big_plain",
-           "epa_hulls_big", "epa_hulls_big_plain", "warp_first_max_plain", "warp_first_min_plain",
+           "epa_hulls_big", "epa_hulls_big_plain", "warp_first_max_plain",
+           "block_first_max_plain", "warp_first_min_plain",
            "ballot_rank_plain", "fused_hulls_streamed", "LAUNCHES"]
 
 # n1 + n2 above which the JAX package streams: _AUTO_BLOCK_BUDGET //
@@ -114,6 +117,41 @@ def warp_first_max_plain(dots: torch.Tensor, width: int = WARP
     return bidx[:, 0]
 
 
+def block_first_max_plain(dots: torch.Tensor, warps: int) -> torch.Tensor:
+    """The first maximum a block of ``warps`` warps finds over (B, N) dots
+    (``csrc/hull_stream.cuh`` BlockHullSupport): thread t of the block owns
+    columns t, t + 32 * warps, ...; each warp reduces its 32 threads as
+    :func:`warp_first_max_plain` does, and the warp results are folded in
+    warp order, keeping the larger value and, on an equal value, the
+    smaller index.  Returns the (B,) int64 index (held to
+    ``torch.argmax``)."""
+    b, n = dots.shape
+    width = WARP * warps
+    cols = -(-n // width) * width
+    vals = torch.full((b, cols), -torch.inf, dtype=dots.dtype,
+                      device=dots.device)
+    vals[:, :n] = dots
+    # warp u's threads own the columns of lanes 32u..32u+31 of each row of
+    # the (B, -1, width) view: as a 32-wide warp, those columns alone
+    per_warp = vals.view(b, -1, warps, WARP).transpose(1, 2)
+    best = idx = None
+    for u in range(warps):
+        cols_u = per_warp[:, u].reshape(b, -1)           # (B, k * 32)
+        local = warp_first_max_plain(cols_u, WARP)       # index in cols_u
+        row, lane = local // WARP, local % WARP
+        g = row * width + u * WARP + lane                # the column it is
+        v = torch.gather(vals, 1, g[:, None])[:, 0]
+        g = torch.where(torch.isneginf(v) & (g >= n),
+                        torch.iinfo(torch.int32).max, g)
+        if best is None:
+            best, idx = v, g
+        else:
+            take = (v > best) | ((v == best) & (g < idx))
+            best = torch.where(take, v, best)
+            idx = torch.where(take, g, idx)
+    return idx
+
+
 def warp_first_min_plain(vals: torch.Tensor, width: int = WARP
                          ) -> torch.Tensor:
     """The min-face reduction of ``csrc/epa_warp.cuh`` over (B, F) face
@@ -166,7 +204,8 @@ def gjk_hulls_big_plain(p1, p2, active, cfg: GJKEPAConfig) -> GJKRows:
 
 
 def gjk_hulls_big(p1, p2, active, cfg: GJKEPAConfig) -> GJKRows:
-    """K12 over (B, N, 3) float32 hull pairs, a warp a pair."""
+    """K12 over (B, N, 3) float32 hull pairs, a block of warps a pair, with
+    both hulls staged in shared memory where they fit."""
     _check_gjk(p1, p2, active)
     if not _build.on_card(p1, "K12"):
         return gjk_hulls_big_plain(p1, p2, active, cfg)

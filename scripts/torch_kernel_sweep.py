@@ -5,6 +5,8 @@ Usage, from the root of a checkout:
 
     python3 scripts/torch_kernel_sweep.py teams
     python3 scripts/torch_kernel_sweep.py warps
+    python3 scripts/torch_kernel_sweep.py k2
+    python3 scripts/torch_kernel_sweep.py k12
     python3 scripts/torch_kernel_sweep.py times [--root DIR] [--tag NAME]
 
 ``teams``: K1 (``csrc/gjk_hulls.cu``) runs a team of T threads a pair, T
@@ -20,15 +22,32 @@ to overflow at 512 x 2601, bit for bit against the plain version, and
 prints each one's time, registers and the least-squares fit t(W) = face +
 probe / W.
 
-``times``: device times of K1 (c4, c2), K2 (c4), K7 (c3) and K10 (c3b),
-chip_smoke.py's inputs, from the package under DIR (default: this
-checkout), so that a parent and a change can be timed in turn on one
-card.  Prints one JSON line tagged NAME.
+``k2``: K2 (``csrc/epa_hulls.cu``) runs a warp a hit, 1 warp a block, each
+tier's polytope in shared memory up to a face capacity and in device
+memory above it.  This rebuilds that source with ``-DK2_PAIRS=P`` for P =
+1, 2, 4 and 8 warps a block and runs each build with the default ladder's
+tiers in shared memory up to 48, 88 or 208 faces (or none), at c4 and at
+2048 x 24, and a forced-overflow ladder, each bit for bit against the
+plain version, and prints each one's device time.
+
+``k12``: K12 (``csrc/gjk_hulls_big.cu``) runs a block of W warps a pair.
+This rebuilds that source with ``-DK12_WARPS=W`` for W = 2, 4, 8 and 16,
+each as shipped (the hulls staged in shared memory where they fit) and
+with ``-DK12_STAGE=0`` (scanned in device memory at every size), runs each
+build on 4096 x 2600, 256 x 8192, 512 x 2601 and 8 x 10240 pairs (past
+shared memory: both scan), bit for bit against the plain version, and
+prints the times of the first two and each one's time a probe.
+
+``times``: device times of K1 (c4, c2), K2 (c4), K7 (c3), K10 (c3b), K12
+and K13 (4096 x 2600, 256 x 8192), chip_smoke.py's inputs, and the walls
+of the hull paths at c4, c2, 4096 x 2600 and 256 x 8192, from the package
+under DIR (default: this checkout), so that a parent and a change can be
+timed in turn on one card.  Prints one JSON line tagged NAME.
 
 Device times are chip_smoke.py's ``device_ms``: CUDA events around 10
 back-to-back calls queued behind a sleep kernel, so that the host's
 enqueue time does not show.  ``times`` also prints chip_smoke.py's
-``cuda_ms``, one call between two events.
+``cuda_ms``, one call between two events, and takes the path walls so.
 """
 
 from __future__ import annotations
@@ -128,44 +147,67 @@ def teams(cs, dev, card) -> None:
     print(json.dumps({"k1_teams": table, "card": card}), flush=True)
 
 
-# -- warps ---------------------------------------------------------------------
+# -- rebuilt variants ------------------------------------------------------------
 
-WARPS = (1, 2, 4, 8)
-
-
-def build_warps(out_dir: Path) -> dict[int, Path]:
-    """epa_hulls_big.cu built with -DK13_WARPS=W for each W, in parallel."""
+def build_variants(source: str, builds: dict, out_dir: Path) -> dict:
+    """``source`` built once for each label of ``builds``, with its macros
+    (``{"NAME": value}``) defined, all in parallel."""
     from gjkepa_tpu_torch import _build
     out_dir.mkdir(parents=True, exist_ok=True)
-    src = _build.CSRC / "epa_hulls_big.cu"
+    stem = Path(source).stem
     libs, jobs = {}, []
-    for w in WARPS:
-        libs[w] = out_dir / f"libepa_hulls_big_W{w}.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f"-DK13_WARPS={w}", "-o",
-               str(libs[w]), str(src)]
-        jobs.append((w, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                         stderr=subprocess.STDOUT, text=True)))
-    for w, proc in jobs:
+    for label, macros in builds.items():
+        tag = "_".join(f"{k}{v}" for k, v in macros.items())
+        libs[label] = out_dir / f"lib{stem}_{tag}.so"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS,
+               *(f"-D{k}={v}" for k, v in macros.items()), "-o",
+               str(libs[label]), str(_build.CSRC / source)]
+        jobs.append((label, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT,
+                                             text=True)))
+    for label, proc in jobs:
         log_text, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"K13 at W={w}: nvcc failed:\n{log_text}")
-        libs[w].with_suffix(".log").write_text(log_text)
+            raise RuntimeError(f"{source} at {builds[label]}: nvcc failed:\n"
+                               f"{log_text}")
+        libs[label].with_suffix(".log").write_text(log_text)
     return libs
 
 
-def bound_to(lib_path: Path) -> types.SimpleNamespace:
-    """The port's entry points with epa_hulls_big.cu's taken from another
-    build of it."""
+def bound_to(lib_path: Path, source: str) -> types.SimpleNamespace:
+    """The port's entry points with ``source``'s taken from another build
+    of it."""
     import ctypes
     from gjkepa_tpu_torch import _build
     ns = types.SimpleNamespace(**vars(_build.load()))
     lib = ctypes.CDLL(str(lib_path))
-    for name, (source, argtypes) in _build.ENTRY_POINTS.items():
-        if source == "epa_hulls_big.cu":
+    for name, (src, argtypes) in _build.ENTRY_POINTS.items():
+        if src == source:
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
             setattr(ns, name, fn)
     return ns
+
+
+def variants(cs, source, builds):
+    """Each rebuilt variant's entry points (label -> namespace), after its
+    ptxas report."""
+    from gjkepa_tpu_torch import _build
+    libs = build_variants(source, builds, _build.BUILD_DIR / "sweep")
+    for label, path in libs.items():
+        for line in cs.ptxas_report(path.with_suffix(".log").read_text()):
+            print(f"{source} {builds[label]} ptxas: {line}", flush=True)
+    return {label: bound_to(p, source) for label, p in libs.items()}
+
+
+def on_card(dev, *arrays):
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in arrays)
+
+
+# -- warps ---------------------------------------------------------------------
+
+WARPS = (1, 2, 4, 8)
 
 
 def warps(cs, dev, card) -> None:
@@ -177,21 +219,15 @@ def warps(cs, dev, card) -> None:
     stages = cascade_plan(cfg)
     ladder = [(cfg.replace(epa_max_faces=f), k)
               for f, k in ((8, 2), (16, 4), (208, 16))]
-    libs = build_warps(_build.BUILD_DIR / "sweep")
-    for w, path in libs.items():
-        for line in cs.ptxas_report(path.with_suffix(".log").read_text()):
-            print(f"K13 W={w} ptxas: {line}", flush=True)
-    variants = {w: bound_to(p) for w, p in libs.items()}
-
-    def on_dev(*arrays):
-        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                     for a in arrays)
-
-    cases = (("4096 x 2600", on_dev(*fixtures.big_c2_pairs()), stages, True),
-             ("256 x 8192", on_dev(*fixtures.big_pairs_8192()), stages, True),
-             ("ladder 512 x 2601", on_dev(
-                 *(fixtures.random_hulls(np.random.default_rng(12), 512, 2601)
-                   for _ in range(2))), ladder, False))
+    builds = variants(cs, "epa_hulls_big.cu",
+                      {w: {"K13_WARPS": w} for w in WARPS})
+    cases = (("4096 x 2600", on_card(dev, *fixtures.big_c2_pairs()), stages,
+              True),
+             ("256 x 8192", on_card(dev, *fixtures.big_pairs_8192()), stages,
+              True),
+             ("ladder 512 x 2601", on_card(dev, *(
+                 fixtures.random_hulls(np.random.default_rng(12), 512, 2601)
+                 for _ in range(2))), ladder, False))
     table = []
     for what, (p1, p2), st, timed in cases:
         active = fst.streamed_broadphase(p1, p2, cfg.broadphase_tol)
@@ -201,7 +237,7 @@ def warps(cs, dev, card) -> None:
         want = fst.epa_hulls_big_plain(*args)
         row = {"case": what, "hits": int(n_act),
                "mean_epa_iters": float(want.iters[g.hit].float().mean())}
-        for w, ns in variants.items():
+        for w, ns in builds.items():
             with mock.patch.object(_build, "load", lambda ns=ns: ns):
                 got = fst.epa_hulls_big(*args)
                 torch.cuda.synchronize()
@@ -225,6 +261,120 @@ def warps(cs, dev, card) -> None:
     print(json.dumps({"k13_warps": table, "card": card}), flush=True)
 
 
+# -- k2 ------------------------------------------------------------------------
+
+K2_PAIRS = (1, 2, 4, 8)
+
+
+def k2(cs, dev, card) -> None:
+    from gjkepa_tpu_torch import GJKEPAConfig, _build
+    from gjkepa_tpu_torch.ops import fused_epa, fused_gjk
+    from gjkepa_tpu_torch.ops.fused import cascade_plan, hit_first_order
+    cfg = GJKEPAConfig.for_f32()
+    stages = cascade_plan(cfg)
+    ladder = [(cfg.replace(epa_max_faces=f), k)
+              for f, k in ((8, 2), (16, 4), (208, 16))]
+    builds = variants(cs, "epa_hulls.cu",
+                      {p: {"K2_PAIRS": p} for p in K2_PAIRS})
+    # shared-memory store up to F faces; the default ladder's tiers above
+    # it in device memory (0: every tier there)
+    splits = {"all": 208, "tiers 1-2": 88, "tier 1": 48, "none": 0}
+    cases = (("c4 16384 x 24", cs.deep_pairs(np.random.default_rng(0),
+                                             16384, 24), stages, splits),
+             ("2048 x 24", cs.deep_pairs(np.random.default_rng(0), 2048, 24),
+              stages, splits),
+             ("ladder 2048 x 23", cs.deep_pairs(np.random.default_rng(12),
+                                                2048, 23), ladder,
+              {"all": 208, "tiers 1-2": 16, "none": 0}))
+    table = []
+    for what, pair, st, split in cases:
+        p1, p2 = on_card(dev, *pair)
+        g = fused_gjk.gjk_hulls(p1, p2, cfg)
+        order, n_act = hit_first_order(g.hit)
+        args = (p1, p2, g.simplex, g.status, order, n_act, st)
+        want = fused_epa.epa_cascade_plain(*args)
+        row = {"case": what, "hits": int(n_act),
+               "mean_epa_iters": float(want.iters[g.hit].float().mean()),
+               "max_epa_iters": int(want.iters.max()),
+               "rule_near_faces": fused_epa.k2_near_faces(
+                   st, _build.load().epa_hulls_smem_bytes,
+                   _build.smem_limit(dev))}
+        for pairs, ns in builds.items():
+            with mock.patch.object(_build, "load", lambda ns=ns: ns):
+                for name, near in split.items():
+                    def fn(near=near):
+                        return fused_epa._epa_cascade_cuda(*args,
+                                                           near_faces=near)
+                    got = fn()
+                    torch.cuda.synchronize()
+                    if not rows_equal(got, want):
+                        raise AssertionError(
+                            f"K2 at P={pairs}, shared store up to {near} "
+                            f"faces, differs from plain at {what}")
+                    row[f"P{pairs} {name}"] = cs.device_ms(fn)
+        table.append(row)
+        print(f"K2 {what}: {row['hits']} hits, mean epa_iters "
+              f"{row['mean_epa_iters']:.3f} (max {row['max_epa_iters']}); "
+              f"every block size and store split bit-equal to plain; "
+              + ", ".join(f"{k} {v:.4f}" for k, v in row.items()
+                          if k.startswith("P")) + f" ms [{card}]", flush=True)
+        del p1, p2, g, want, args
+        torch.cuda.empty_cache()
+    print(json.dumps({"k2_blocks": table, "card": card}), flush=True)
+
+
+# -- k12 -----------------------------------------------------------------------
+
+K12_WARPS = (2, 4, 8, 16)
+
+
+def k12(cs, dev, card) -> None:
+    from gjkepa_tpu_torch import GJKEPAConfig, _build
+    from gjkepa_tpu_torch.models import fixtures
+    from gjkepa_tpu_torch.ops import fused_streamed as fst
+    cfg = GJKEPAConfig.for_f32()
+    builds = variants(cs, "gjk_hulls_big.cu", {
+        (w, how): {"K12_WARPS": w, "K12_STAGE": int(how == "staged")}
+        for w in K12_WARPS for how in ("staged", "scan")})
+    rng = np.random.default_rng(14)
+    cases = (("4096 x 2600", fixtures.big_c2_pairs(), True),
+             ("256 x 8192", fixtures.big_pairs_8192(), True),
+             ("512 x 2601", [fixtures.random_hulls(
+                 np.random.default_rng(12), 512, 2601) for _ in range(2)],
+              False),
+             ("8 x 10240", [fixtures.random_hulls(rng, 8, 10240, 0.2)
+                            for _ in range(2)], False))
+    table = []
+    for what, pair, timed in cases:
+        p1, p2 = on_card(dev, *pair)
+        active = fst.streamed_broadphase(p1, p2, cfg.broadphase_tol)
+        want = fst.gjk_hulls_big_plain(p1, p2, active, cfg)
+        on = int(active.sum())
+        probes = (6 * on + int(want.iters.sum())) / max(on, 1)
+        row = {"case": what, "active": on, "probes_a_pair": probes}
+        for (w, how), ns in builds.items():
+            with mock.patch.object(_build, "load", lambda ns=ns: ns):
+                def fn():
+                    return fst.gjk_hulls_big(p1, p2, active, cfg)
+                got = fn()
+                torch.cuda.synchronize()
+                if not rows_equal(got, want, active):
+                    raise AssertionError(f"K12 at W={w} ({how}) differs "
+                                         f"from plain at {what}")
+                if timed:
+                    row[f"W{w} {how}"] = cs.device_ms(fn)
+        table.append(row)
+        print(f"K12 {what}: {on} active, {probes:.3f} probes a pair; every W, "
+              "staged and scanned, bit-equal to plain"
+              + ("; " + ", ".join(
+                  f"{k} {v:.4f} ms ({v / probes * 1e3:.3f} us a probe)"
+                  for k, v in row.items() if k.startswith("W"))
+                 if timed else "") + f" [{card}]", flush=True)
+        del p1, p2, active, want
+        torch.cuda.empty_cache()
+    print(json.dumps({"k12_warps": table, "card": card}), flush=True)
+
+
 # -- times ---------------------------------------------------------------------
 
 def times(cs, dev, card, tag) -> None:
@@ -233,6 +383,7 @@ def times(cs, dev, card, tag) -> None:
     from gjkepa_tpu_torch.ops import fused_epa, fused_gjk
     from gjkepa_tpu_torch.ops import fused_hull_shapes as fh
     from gjkepa_tpu_torch.ops import fused_shapes as fs
+    from gjkepa_tpu_torch.ops import fused_streamed as fst
     from gjkepa_tpu_torch.ops.fused import cascade_plan, hit_first_order
     cfg = gt.GJKEPAConfig.for_f32()
     bool_cfg = cfg.replace(epa_max_iters=0)
@@ -271,17 +422,42 @@ def times(cs, dev, card, tag) -> None:
         "k7_c3": lambda: fs.epa_shapes(*k7),
         "k10_c3b": lambda: fh.epa_hull_shape(*k10),
     }
+    walls = {
+        "path_c4": lambda: gt.gjkepa_batch_fused(m1, m2, cfg=cfg),
+        "query_c4": lambda: gt.fused_gjkepa_hulls(m1, m2, cfg=cfg),
+        "path_c2": lambda: gt.fused_gjkepa_hulls(b1, b2, cfg=bool_cfg),
+    }
+    for key, pair in (("2600", fixtures.big_c2_pairs()),        # phase 15
+                      ("8192", fixtures.big_pairs_8192())):
+        p1, p2 = on_dev(*pair)
+        a = fst.streamed_broadphase(p1, p2, cfg.broadphase_tol)
+        g = fst.gjk_hulls_big(p1, p2, a, cfg)
+        o, n = hit_first_order(g.hit)
+        fns[f"k12_{key}"] = (lambda p1=p1, p2=p2, a=a:
+                             fst.gjk_hulls_big(p1, p2, a, cfg))
+        fns[f"k13_{key}"] = (lambda p1=p1, p2=p2, g=g, o=o, n=n:
+                             fst.epa_hulls_big(p1, p2, g.simplex, g.status, o,
+                                               n, stages))
+        walls[f"query_{key}"] = (lambda p1=p1, p2=p2:
+                                 gt.fused_gjkepa_hulls(p1, p2, cfg=cfg))
+        walls[f"query_{key}_boolean"] = (
+            lambda p1=p1, p2=p2: gt.fused_gjkepa_hulls(p1, p2, cfg=bool_cfg))
+        if key == "8192":
+            walls["path_8192"] = (lambda p1=p1, p2=p2:
+                                  gt.gjkepa_batch_fused(p1, p2, cfg=cfg))
     out = {"tag": tag, "root": str(Path(gt.__file__).parents[1]),
            "card": card}
     for key, fn in fns.items():
         out[key] = cs.device_ms(fn)
         out[key + "_one_call"] = cs.cuda_ms(fn)
+    for key, fn in walls.items():
+        out[key] = cs.cuda_ms(fn)
     print(json.dumps(out), flush=True)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("what", choices=("teams", "warps", "times"))
+    ap.add_argument("what", choices=("teams", "warps", "k2", "k12", "times"))
     ap.add_argument("--root", type=Path, default=ROOT,
                     help="checkout whose gjkepa_tpu_torch `times` imports")
     ap.add_argument("--tag", default="change")
@@ -292,12 +468,8 @@ def main() -> int:
     sys.path.insert(0, str(a.root.resolve() if a.what == "times" else ROOT))
     cs = _chip_smoke()
     dev, card = torch.device("cuda", 0), card_name()
-    if a.what == "teams":
-        teams(cs, dev, card)
-    elif a.what == "warps":
-        warps(cs, dev, card)
-    else:
-        times(cs, dev, card, a.tag)
+    {"teams": teams, "warps": warps, "k2": k2, "k12": k12}.get(
+        a.what, lambda *x: times(*x, a.tag))(cs, dev, card)
     return 0
 
 

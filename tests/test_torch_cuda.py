@@ -12,10 +12,11 @@ own: the kernels are built with --fmad=false), normals dot > 1-1e-4 on
 >= 98% of hit lanes; closed-form depth and normal 1e-6.  Distance (K8):
 intersecting and converged exact, distance and witnesses 1e-5, iteration
 counts on >= 99.5% of lanes, two-phase equal to one pass bit for bit.
-Large hulls (K12, K13): K1/K2's tolerances, and bit for bit on the tie
-fixture.  K1 at each team size and K13 over a tier ladder forced to
-overflow into its retries, at vertex counts with each remainder mod 4: bit
-for bit.
+K2, K12 and K13 (the warp kernels over K11's support): rows bit for bit
+against their plain versions on every input, the tie fixture, both of
+K2's face stores and both of K12's hull sources included.  K1 at each
+team size and K2 and K13 over a tier ladder forced to overflow into their
+retries, at vertex counts with each remainder mod 4: bit for bit.
 """
 
 import numpy as np
@@ -52,6 +53,13 @@ def _hulls(rng, b, n, spread=0.8, scale=1.0):
     return v.astype(np.float32)
 
 
+def _rows_equal(k, p, active=None):
+    """Bit-equal rows; GJK rows' simplex on the ``active`` lanes only."""
+    if active is not None:
+        k, p = ((*r[:4], r.simplex[active]) for r in (k, p))
+    return all(torch.equal(x, y) for x, y in zip(k, p))
+
+
 def test_k1_matches_plain_on_card(dev):
     rng = np.random.default_rng(1)
     p1, p2 = (torch.from_numpy(_hulls(rng, 2048, 32)).to(dev) for _ in range(2))
@@ -78,11 +86,8 @@ def test_k2_matches_plain_on_card(dev):
     ep = fused_epa.epa_cascade_plain(p1, p2, g.simplex, g.status, order, n_act,
                                      st)
     assert fused_epa.LAUNCHES == n0 + 1
-    assert torch.equal(ek.status, ep.status)
-    assert float((ek.depth - ep.depth).abs().max()) <= 1e-5
-    dots = (ek.normal * ep.normal).sum(1)[g.hit]
-    assert float((dots > 1.0 - 1e-4).float().mean()) >= 0.98
-    assert float((ek.iters == ep.iters).float().mean()) >= 0.99
+    assert int(n_act) > 500
+    assert _rows_equal(ek, ep)
 
 
 def test_main_path_stays_on_the_card(dev):
@@ -231,30 +236,18 @@ def test_mixed_path_sort_hits_agree_on_card(dev):
     assert all(t.device == p1.device for t in r1)
 
 
-def _big_rows_match(p1, p2, cfg, exact):
-    """K12 and K13 against their plain versions (bit for bit with
-    ``exact``, else within this file's tolerances)."""
+def _big_rows_match(p1, p2, cfg):
+    """K12 and K13 rows bit for bit against their plain versions."""
     active = fst.streamed_broadphase(p1, p2, cfg.broadphase_tol)
     gk = fst.gjk_hulls_big(p1, p2, active, cfg)
     gp = fst.gjk_hulls_big_plain(p1, p2, active, cfg)
-    assert torch.equal(gk.hit, gp.hit) and torch.equal(gk.status, gp.status)
-    assert float((gk.iters == gp.iters).float().mean()) >= 0.995
-    assert float((gk.sep - gp.sep).abs().max()) <= 1e-5
     # the simplex of the lanes that ran GJK (the plain version leaves
     # probes in the others, the kernel zeros)
-    assert float((gk.simplex - gp.simplex)[active].abs().max()) <= 1e-5
+    assert _rows_equal(gk, gp, active)
     order, n_act = hit_first_order(gp.hit)
     args = (p1, p2, gp.simplex, gp.status, order, n_act, cascade_plan(cfg))
-    ek, ep = fst.epa_hulls_big(*args), fst.epa_hulls_big_plain(*args)
-    assert torch.equal(ek.status, ep.status)
-    assert float((ek.depth - ep.depth).abs().max()) <= 1e-5
-    dots = (ek.normal * ep.normal).sum(1)[gp.hit]
-    assert float((dots > 1.0 - 1e-4).float().mean()) >= 0.98
-    assert int((ek.iters != ep.iters).sum()) <= 0.01 * int(n_act)
-    if exact:
-        for x, y in zip((*gk[:4], gk.simplex[active], *ek),
-                        (*gp[:4], gp.simplex[active], *ep)):
-            assert torch.equal(x, y)
+    assert _rows_equal(fst.epa_hulls_big(*args), fst.epa_hulls_big_plain(*args))
+    return gp
 
 
 def test_k12_k13_match_plain_on_card(dev):
@@ -262,7 +255,7 @@ def test_k12_k13_match_plain_on_card(dev):
     p1, p2 = (torch.from_numpy(_hulls(rng, 512, 2600)).to(dev)
               for _ in range(2))
     n0 = dict(fst.LAUNCHES)
-    _big_rows_match(p1, p2, GJKEPAConfig.for_f32(), exact=False)
+    _big_rows_match(p1, p2, GJKEPAConfig.for_f32())
     assert {k: fst.LAUNCHES[k] - n0[k] for k in n0} == {
         "gjk_hulls_big": 1, "epa_hulls_big": 1}
 
@@ -272,7 +265,7 @@ def test_k12_k13_keep_the_first_maximum_on_ties(dev):
     in one thread's scan and across threads: bit for bit."""
     p1, p2 = (torch.from_numpy(x).to(dev)
               for x in fixtures.tie_pairs(512, 2100, 2100))
-    _big_rows_match(p1, p2, GJKEPAConfig.for_f32(), exact=True)
+    _big_rows_match(p1, p2, GJKEPAConfig.for_f32())
 
 
 def test_large_hull_path_launches_on_card(dev):
@@ -291,13 +284,6 @@ def test_large_hull_path_launches_on_card(dev):
         assert int(r.hit.sum()) > 0
         assert all(bool(torch.isfinite(t).all()) for t in r
                    if t.is_floating_point())
-
-
-def _rows_equal(k, p, active=None):
-    """Bit-equal rows; GJK rows' simplex on the ``active`` lanes only."""
-    if active is not None:
-        k, p = ((*r[:4], r.simplex[active]) for r in (k, p))
-    return all(torch.equal(x, y) for x, y in zip(k, p))
 
 
 @pytest.mark.parametrize("team", fused_gjk.TEAMS)
@@ -388,3 +374,109 @@ def test_k13_takes_a_polytope_past_48_kb(dev):
     args = (p1, p2, g.simplex, g.status, order, n_act, ladder)
     assert int(n_act) > 10
     assert _rows_equal(fst.epa_hulls_big(*args), fst.epa_hulls_big_plain(*args))
+
+
+def test_kernel_byte_counts_are_the_rules(dev):
+    """On the card, K2's size rule over the kernel's own byte count keeps
+    the whole default ladder in shared memory and sends a 4,096-face store
+    to device memory, and K12's launcher stages 2,600 + 2,600 and 8,192 +
+    8,192 vertices but not 10,240 + 10,240."""
+    from gjkepa_tpu_torch import _build
+    lib = _build.load()
+    limit = _build.smem_limit(dev)
+    assert limit == lib.epa_hulls_big_smem_limit() > 48 * 1024
+    stages = cascade_plan(GJKEPAConfig.for_f32())
+    assert fused_epa.k2_near_faces(stages, lib.epa_hulls_smem_bytes,
+                                   limit) == 208
+    assert lib.epa_hulls_smem_bytes(208) <= limit < lib.epa_hulls_smem_bytes(4096)
+    with torch.cuda.device(dev):
+        assert lib.gjk_hulls_big_staged(2600, 2600)
+        assert lib.gjk_hulls_big_staged(8192, 8192)
+        assert not lib.gjk_hulls_big_staged(10240, 10240)
+
+
+def _deep(rng, b, n):
+    p1 = torch.from_numpy(_hulls(rng, b, n, 0.0, 2.0))
+    p2 = torch.from_numpy(_hulls(rng, b, n, 0.2, 0.5))
+    return p1, p2
+
+
+@pytest.mark.parametrize("near", [None, 16, 0],
+                         ids=["rule", "near16", "device"])
+@pytest.mark.parametrize("n", [24, 23])
+def test_k2_overflow_ladder_is_bit_equal_to_plain(dev, n, near):
+    """K2 over a ladder whose first tiers overflow (F=8, K=2; F=16, K=4;
+    F=208, K=16), with the tiers in shared memory (the rule: all three),
+    the first two there and the last in device memory, or all in device
+    memory: rows bit for bit against the plain cascade; at 23 vertices K11
+    takes its scalar scan."""
+    rng = np.random.default_rng(12)
+    p1, p2 = (t.to(dev) for t in _deep(rng, 2048, n))
+    cfg = GJKEPAConfig.for_f32()
+    ladder = [(cfg.replace(epa_max_faces=f), k)
+              for f, k in ((8, 2), (16, 4), (208, 16))]
+    g = fused_gjk.gjk_hulls_plain(p1, p2, cfg)
+    order, n_act = hit_first_order(g.hit)
+    args = (p1, p2, g.simplex, g.status, order, n_act, ladder)
+    ep = fused_epa.epa_cascade_plain(*args)
+    n0 = fused_epa.LAUNCHES
+    ek = fused_epa._epa_cascade_cuda(*args, near_faces=near)
+    assert fused_epa.LAUNCHES == n0 + 1
+    assert int(n_act) > 1000 and int((ep.iters > 3).sum()) > 500
+    assert _rows_equal(ek, ep)
+
+
+def test_k2_takes_a_polytope_past_shared_memory(dev):
+    """A face capacity whose store does not fit in a block's shared memory
+    (F = 4096) runs in K2's device store, bit for bit: no refusal."""
+    from gjkepa_tpu_torch import _build
+    rng = np.random.default_rng(13)
+    p1, p2 = (t.to(dev) for t in _deep(rng, 512, 24))
+    cfg = GJKEPAConfig.for_f32()
+    ladder = [(cfg.replace(epa_max_faces=4096), 16)]
+    assert _build.load().epa_hulls_smem_bytes(4096) > _build.smem_limit(dev)
+    g = fused_gjk.gjk_hulls(p1, p2, cfg)
+    order, n_act = hit_first_order(g.hit)
+    args = (p1, p2, g.simplex, g.status, order, n_act, ladder)
+    n0 = fused_epa.LAUNCHES
+    ek = fused_epa.epa_cascade(*args)
+    assert fused_epa.LAUNCHES == n0 + 1
+    assert int(n_act) > 300
+    assert _rows_equal(ek, fused_epa.epa_cascade_plain(*args))
+
+
+def test_k12_scans_hulls_past_shared_memory(dev):
+    """Pairs whose hulls do not fit in a block's shared memory (10,240 +
+    10,240 vertices) take K12's device-memory scan, bit for bit, and so
+    do K13's rows after it."""
+    from gjkepa_tpu_torch import _build
+    rng = np.random.default_rng(14)
+    p1, p2 = (torch.from_numpy(_hulls(rng, 8, 10240, 0.2)).to(dev)
+              for _ in range(2))
+    with torch.cuda.device(dev):
+        assert not _build.load().gjk_hulls_big_staged(10240, 10240)
+    gp = _big_rows_match(p1, p2, GJKEPAConfig.for_f32())
+    assert int(gp.hit.sum()) > 0
+
+
+@pytest.mark.parametrize("b,n,staged", [(512, 2600, True), (512, 2601, True),
+                                        (8, 10240, False)])
+def test_k12_staged_and_scanned_hulls_agree(dev, b, n, staged):
+    """K12 with the hulls staged in shared memory (bulk copy at 2600
+    vertices, the threads' copy at 2601) and scanned in device memory
+    (10,240 + 10,240, past shared memory), as its launcher chooses: the
+    same rows, bit for bit, as the plain version."""
+    from gjkepa_tpu_torch import _build
+    with torch.cuda.device(dev):
+        assert bool(_build.load().gjk_hulls_big_staged(n, n)) == staged
+    rng = np.random.default_rng(15)
+    p1, p2 = (torch.from_numpy(_hulls(rng, b, n, 0.3)).to(dev)
+              for _ in range(2))
+    cfg = GJKEPAConfig.for_f32()
+    active = fst.streamed_broadphase(p1, p2, cfg.broadphase_tol)
+    gp = fst.gjk_hulls_big_plain(p1, p2, active, cfg)
+    assert int(gp.hit.sum()) > (50 if b > 8 else 0)
+    n0 = fst.LAUNCHES["gjk_hulls_big"]
+    gk = fst.gjk_hulls_big(p1, p2, active, cfg)
+    assert fst.LAUNCHES["gjk_hulls_big"] == n0 + 1
+    assert _rows_equal(gk, gp, active)

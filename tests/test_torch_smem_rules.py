@@ -1,0 +1,85 @@
+"""K2's face stores by size, in plain Python, at their byte boundaries.
+
+K2 (csrc/epa_hulls.cu) keeps a tier's polytope in shared memory where its
+store fits, and in device memory otherwise (``fused_epa.k2_near_faces``,
+``k2_far_faces``).  The rule takes the kernel's byte count as a function
+(``epa_hulls_smem_bytes`` on the card) and the limit as an argument, so it
+is held here without a card, against stand-ins of that count: a block of
+P warps, each 1,152 B of scratch and 68 B a face.  K12's staged-or-scanned
+choice is its C launcher's (``gjk_hulls_big_staged``), held on the card.
+"""
+
+import pytest
+
+from gjkepa_tpu_torch import GJKEPAConfig
+from gjkepa_tpu_torch.ops import fused_epa
+from gjkepa_tpu_torch.ops.fused import cascade_plan
+
+H100_LIMIT = 232_448     # an H100 block's opt-in shared memory
+
+
+def k2_bytes(pairs):
+    """A stand-in of K2's block bytes, built with P = ``pairs`` warps."""
+    return lambda faces: pairs * (1152 + 68 * faces)
+
+
+def _stores(stages, smem_bytes, limit):
+    near = fused_epa.k2_near_faces(stages, smem_bytes, limit)
+    far = fused_epa.k2_far_faces(stages, near)
+    return near, far, ["shared" if c.epa_max_faces <= near else "device"
+                       for c, _ in stages]
+
+
+def _ladder(*faces):
+    cfg = GJKEPAConfig.for_f32()
+    return [(cfg.replace(epa_max_faces=f), 16) for f in faces]
+
+
+@pytest.mark.parametrize("pairs", [1, 2, 4, 8])
+def test_k2_default_ladder_at_the_byte_boundary(pairs):
+    """The default ladder (F = 48, 88, 208) keeps every tier in shared
+    memory at an H100's limit; one byte below a tier's need sends that
+    tier, and only it and the larger ones, to device memory."""
+    stages = cascade_plan(GJKEPAConfig.for_f32())
+    assert [c.epa_max_faces for c, _ in stages] == [48, 88, 208]
+    nbytes = k2_bytes(pairs)
+    assert _stores(stages, nbytes, H100_LIMIT) == (208, 0, ["shared"] * 3)
+    need = {f: nbytes(f) for f in (48, 88, 208)}
+    assert _stores(stages, nbytes, need[208]) == (208, 0, ["shared"] * 3)
+    assert _stores(stages, nbytes, need[208] - 1) == (
+        88, 208, ["shared", "shared", "device"])
+    assert _stores(stages, nbytes, need[88]) == (
+        88, 208, ["shared", "shared", "device"])
+    assert _stores(stages, nbytes, need[88] - 1) == (
+        48, 208, ["shared", "device", "device"])
+    assert _stores(stages, nbytes, need[48] - 1) == (
+        0, 208, ["device"] * 3)
+
+
+def test_k2_runs_a_store_past_shared_memory_in_device_memory():
+    """A face capacity past a block's shared memory (F = 4096: 279,680 B a
+    warp) is no refusal: it takes the device store, and a ladder mixing it
+    with small tiers keeps those in shared memory."""
+    nbytes = k2_bytes(1)
+    assert nbytes(4096) == 279_680 > H100_LIMIT
+    assert _stores(_ladder(4096), nbytes, H100_LIMIT) == (0, 4096, ["device"])
+    assert _stores(_ladder(8, 16, 4096), nbytes, H100_LIMIT) == (
+        16, 4096, ["shared", "shared", "device"])
+
+
+@pytest.mark.parametrize("limit", [0, 20_000, 60_000])
+@pytest.mark.parametrize("faces", [(48, 88, 208), (8, 16, 208), (208,),
+                                   (208, 48, 88), (88, 88, 4096),
+                                   (4, 600, 700, 4096)],
+                         ids=lambda f: "-".join(map(str, f)))
+def test_k2_a_tier_is_shared_exactly_when_its_store_fits(faces, limit):
+    """Whatever the ladder's order, a tier keeps its faces in shared memory
+    exactly when its own store fits in the limit, and the device store
+    holds the largest of the others (none when every tier fits)."""
+    stages = _ladder(*faces)
+    nbytes = k2_bytes(2)
+    near, far, where = _stores(stages, nbytes, limit)
+    assert where == ["shared" if nbytes(f) <= limit else "device"
+                     for f in faces]
+    assert far == max((f for f in faces if nbytes(f) > limit), default=0)
+    assert near == max((f for f in faces if nbytes(f) <= limit), default=0)

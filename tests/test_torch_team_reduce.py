@@ -128,3 +128,31 @@ def test_ballot_free_rank_is_the_cumsum(f):
             rows = torch.nonzero(horizon[lane])[:, 0]
             assert torch.equal(hord[lane, :int(n_new[lane])], rows)
             assert torch.equal(hrank[lane, rows], torch.arange(len(rows)))
+
+
+BLOCK_WARPS = (1, 2, 4, 8, 16)
+
+
+@pytest.mark.parametrize("warps", BLOCK_WARPS)
+@pytest.mark.parametrize("case", ["all_equal", "short", "same_thread",
+                                  "other_threads", "grid", "other_warps"])
+def test_block_first_max_is_the_first_maximum(case, warps):
+    """K12's and K13's block-wide reduction (csrc/hull_stream.cuh
+    BlockHullSupport): each warp's first maximum, folded in warp order,
+    is torch.argmax, with ties within one thread, across the threads of a
+    warp and across warps."""
+    width = 32 * warps
+    if case == "other_warps":   # equal maxima in warps 2, 1, 0 of a later row
+        rng = np.random.default_rng(warps)
+        d = rng.integers(-20, 20, size=(64, 3 * width + 7)).astype(np.float32)
+        cols = [width + 32 * min(u, warps - 1) + lane
+                for u, lane in ((2, 5), (1, 3), (0, 7))] + [3 * width + 1]
+        d[:, cols] = 30.0
+        want = min(cols)
+    else:
+        d, want = _tie_dots(case, width), None
+    dots = torch.from_numpy(d)
+    got = fst.block_first_max_plain(dots, warps)
+    assert torch.equal(got, torch.argmax(dots, dim=1))
+    if want is not None:
+        assert bool((got == want).all())
