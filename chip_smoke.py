@@ -17,10 +17,12 @@ over ``csrc/epa_warp.cuh``), all over the team support K11
 shape path is the analytic-shape query, ``fused_gjkepa_shapes`` and
 ``collide_shapes_batch_fused``: K5, the closed-form kernel
 (``csrc/cf_shapes.cu``), K6a over the GJK lanes or K6b over all lanes
-(``csrc/gjk_shapes.cu``), then K7, the capped EPA cascade with the polish
-(``csrc/epa_shapes.cu``).  The distance path, ``fused_gjk_distance_hulls``,
-launches K8, distance GJK with witnesses (``csrc/distance_hulls.cu``), over
-every pair at a low cap and again over the unconverged pairs.  The mixed
+(``csrc/gjk_shapes.cu``), then K7, the capped EPA cascade with the polish,
+a warp a hit with the polytope in shared memory (``csrc/epa_shapes.cu``
+over ``csrc/epa_warp.cuh``).  The distance path,
+``fused_gjk_distance_hulls``, launches K8, distance GJK with witnesses, a
+team of threads a pair (``csrc/distance_hulls.cu``), over every pair at a
+low cap and again over the unconverged pairs.  The mixed
 path, ``fused_gjkepa_hull_shapes``, runs K9, GJK of a hull against an
 analytic shape (``csrc/gjk_hull_shape.cu``), then K10, the capped EPA
 cascade with the polish (``csrc/epa_hull_shape.cu``).  The script builds
@@ -28,7 +30,8 @@ every kernel from the sources in the checkout (one nvcc per source, all at
 once) and runs, in phases:
 
   0. environment: card name and power limit, torch and CUDA versions, build,
-     and the registers and spills of K1, K2, K12 and K13 (``-Xptxas -v``);
+     and the registers and spills of K1, K2, K7, K8, K10, K12 and K13
+     (``-Xptxas -v``);
   1. K1 against its plain PyTorch version on the card (4096 x 64, 4096 x
      63 and 1024 x 2047 vertices), bit for bit;
   2. K2 against its plain version, bit for bit: 2048 deep pairs x 24
@@ -47,7 +50,8 @@ once) and runs, in phases:
      team);
   7. K5, K6a, K6b and K7 against their plain versions on bench.py's c3
      pairs (65,536, seed 0), the 16 rotated kind combinations (16,384) and
-     a dense all-cylinder batch (16,384, nearly all lanes in GJK);
+     a dense all-cylinder batch (16,384, nearly all lanes in GJK); K7's
+     rows bit for bit, also at epa_max_iters 1 and 64 on c3;
   8. known shape geometry: spheres at 1.5 (depth 0.5 exactly), sphere-box
      and box-box closed-form depths;
   9. the shape path at full size (c3, 65,536 pairs): natural and shuffled
@@ -57,17 +61,20 @@ once) and runs, in phases:
      against the plain path;
  10. timings of each shape kernel against its plain version, and of the
      shape path, at c3;
- 11. K8 against its plain version (4096 x 12 at spread 2.0 and bench.py's
-     c2, 65,536 x 64), two-phase equal to one pass bit for bit, and known
-     distances (cube gap, tetrahedron apex, crossing segments);
+ 11. K8 against its plain version, rows bit for bit (4096 x 12 at spread
+     2.0 and bench.py's c2, 65,536 x 64): phase 1, phase 2 into phase 1's
+     rows and one pass, at c2 at every team size; two-phase equal to one
+     pass bit for bit; known distances (cube gap, tetrahedron apex,
+     crossing segments);
  12. K9 and K10 against their plain versions on bench.py's c3b (16,384 x
      24 hulls against the four shape kinds), the mixed path against the
      plain path, sort_hits True = False, hull-vs-sphere depths against a
      float64 convex projection (scipy) and the separation contract;
  13. the distance and mixed paths at full size, each call with its
      kernels' launch counters set to 0 just before it and its exact
-     launches checked just after, then timings of K8 (both phases), K9,
-     K10, both paths and their plain versions;
+     launches checked just after, then timings of K8 (phase 1, phase 2 and
+     one pass, with the team sizes used), K9, K10, both paths and their
+     plain versions;
  14. K12 and K13 against their plain versions, bit for bit, on 4096 x 2600
      pairs, on tie pairs (box corners copied one ulp apart at vertices i,
      i + 1 and i + 32k, n1 + n2 = 4200), on 256 x 8192 pairs
@@ -368,25 +375,18 @@ def compare_shape_kernels(sa, sb, retired, cfg, what):
             n_act, fs.shape_stages(cfg))
     ek, ep = fs.epa_shapes(*args), fs.epa_shapes_plain(*args)
     torch.cuda.synchronize()
-    check(torch.equal(ek.status, ep.status), f"{what}: K7 status differs")
-    depth_err = maxerr((ek.depth, ep.depth))
-    check(depth_err <= 1e-5, f"{what}: K7 depth differs by {depth_err}")
-    dots = (ek.normal * ep.normal).sum(dim=1)[epa]
-    agree = float((dots > 1.0 - 1e-4).float().mean()) if dots.numel() else 1.0
-    check(agree >= 0.98, f"{what}: K7 normals agree on {agree:.4f} of hits")
-    # counted over the K7 lanes: every other lane passes 0 through
-    ei_diff = int((ek.iters != ep.iters).sum())
-    check(ei_diff <= 0.01 * int(n_act),
-          f"{what}: epa_iters differ on {ei_diff} of {int(n_act)} K7 lanes")
+    e7 = maxerr((ek.depth, ep.depth), (ek.normal, ep.normal))
+    check(rows_equal(ek, ep),
+          f"{what}: K7 rows are not bit-equal to the plain version (status "
+          f"equal: {torch.equal(ek.status, ep.status)}, depth/normal err "
+          f"{e7}, epa_iters differ on {int((ek.iters != ep.iters).sum())} "
+          f"of {int(n_act)} K7 lanes)")
     log(f"{what} shape kernels vs plain, {n} pairs: K5 exact discrete, err "
         f"{e5:.3g}; K6a {int(cp.act.sum())} GJK lanes, iters differ on "
         f"{d6a}, err {e6a:.3g}; K6b iters differ on {d6b}, err "
-        f"{max(e6b, ecf):.3g}; K7 {int(n_act)} lanes, depth err "
-        f"{depth_err:.3g} (tol 1e-5), normals agree on {agree:.4f}, "
-        f"epa_iters differ on {ei_diff}")
+        f"{max(e6b, ecf):.3g}; K7 {int(n_act)} lanes, rows bit for bit")
     return {"cf_shapes": e5, "gjk_sub_shapes": e6a,
-            "gjk_shapes": max(e6b, ecf),
-            "epa_shapes": max(depth_err, maxerr((ek.normal, ep.normal)))}
+            "gjk_shapes": max(e6b, ecf), "epa_shapes": e7}
 
 
 def shape_phases(gt, dev, cfg, card, n3=C3) -> list[dict]:
@@ -406,6 +406,11 @@ def shape_phases(gt, dev, cfg, card, n3=C3) -> list[dict]:
     for what, pairs in (("phase 7 c3", c3_np), ("phase 7 mixed16", mixed16),
                         ("phase 7 dense cylinders", dense)):
         errs = compare_shape_kernels(*shape_inputs(pairs, dev)[2:], cfg, what)
+        shape_err = {k: max(v, errs[k]) for k, v in shape_err.items()}
+    for iters in (1, 64):       # the shape ladder caps EPA at 16 iterations
+        errs = compare_shape_kernels(
+            *shape_inputs(c3_np, dev)[2:], cfg.replace(epa_max_iters=iters),
+            f"phase 7 c3 epa_max_iters={iters}")
         shape_err = {k: max(v, errs[k]) for k, v in shape_err.items()}
 
     # -- phase 8: known shape geometry ---------------------------------------
@@ -586,34 +591,56 @@ def known_distance_pairs():
     return p1, p2, np.array([1.0, 0.0, 1.0, 0.3], np.float32)
 
 
-def compare_k8(gt, p1, p2, cfg, what):
-    """K8 against its plain version at the full cap, and the two-phase
-    dispatch against one pass; returns the max abs error."""
+def compare_k8(gt, p1, p2, cfg, what, teams=(None,)):
+    """K8 against its plain version, rows bit for bit: phase 1 (cap 10),
+    phase 2 (cap 64 over phase 1's unconverged pairs, into phase 1's rows)
+    and one pass (cap 64), at each of ``teams`` (None: the wrapper's
+    team); and the two-phase dispatch against one pass.  Returns the max
+    abs error."""
     from gjkepa_tpu_torch.ops import fused_distance as fd
-    k = fd.distance_hulls(p1, p2, cfg, 64)
+    from gjkepa_tpu_torch.ops.fused import hit_first_order
+    low = fd.distance_hulls_plain(p1, p2, cfg, 10)
+    order, n_act = hit_first_order(~low.converged)
     p = fd.distance_hulls_plain(p1, p2, cfg, 64)
-    torch.cuda.synchronize()
-    check(torch.equal(k.intersecting, p.intersecting)
-          and torch.equal(k.converged, p.converged),
-          f"{what}: K8 intersecting/converged differ")
-    it_diff = int((k.iters != p.iters).sum())
-    check(it_diff <= 0.005 * len(k.iters),
-          f"{what}: K8 iters differ on {it_diff} lanes")
-    err = max(float((x - y).abs().max()) for x, y in (
-        (k.distance, p.distance), (k.point_a, p.point_a),
-        (k.point_b, p.point_b)))
-    check(err <= 1e-5, f"{what}: K8 distance/witnesses differ by {err}")
+    restart = fd.DistanceRows(*(t.clone() for t in low))
+    fd.distance_hulls_plain(p1, p2, cfg, 64, order, n_act, out=restart)
+    check(rows_equal(restart, p), f"{what}: K8's plain restart differs from "
+                                  "its one pass")
+    err = 0.0
+    for team in teams:
+        runs = (("phase 1", fd._distance_hulls_cuda(p1, p2, cfg, 10,
+                                                    team=team), low),
+                ("phase 2", fd._distance_hulls_cuda(
+                    p1, p2, cfg, 64, order, n_act, team=team,
+                    out=fd.DistanceRows(*(t.clone() for t in low))), p),
+                ("one pass", fd._distance_hulls_cuda(p1, p2, cfg, 64,
+                                                     team=team), p))
+        torch.cuda.synchronize()
+        for name, k, want in runs:
+            e = max(float((x - y).abs().max()) for x, y in (
+                (k.distance, want.distance), (k.point_a, want.point_a),
+                (k.point_b, want.point_b)))
+            err = max(err, e)
+            check(rows_equal(k, want),
+                  f"{what}: K8 {name} (team {team or 'of the wrapper'}) is not "
+                  f"bit-equal to the plain version (distance/witness err {e}, "
+                  f"iters differ on {int((k.iters != want.iters).sum())} "
+                  "lanes)")
     two = gt.fused_gjk_distance_hulls(p1, p2, cfg=cfg)
     one = gt.fused_gjk_distance_hulls(p1, p2, cfg=cfg, two_phase=False)
     for name, x, y in zip(one._fields, two, one):
         check(torch.equal(x, y), f"{what}: two-phase {name} differs from one "
                                  "pass")
-    log(f"{what} K8 vs plain, {p1.shape[0]} x {p1.shape[1]}: intersecting "
-        f"and converged equal, {int(p.intersecting.sum())} intersecting, "
+    n1, n2 = p1.shape[1], p2.shape[1]
+    log(f"{what} K8 vs plain, {p1.shape[0]} x {n1}: phase 1, phase 2 "
+        f"({int(n_act)} pairs restarted) and one pass rows bit for bit at "
+        f"teams {[t or fd.team_size(n1, n2, False) for t in teams]} (the "
+        f"wrapper's: {fd.team_size(n1, n2, False)} over every pair, "
+        f"{fd.team_size(n1, n2, True)} restarting); "
+        f"{int(p.intersecting.sum())} intersecting, "
         f"{int((~p.converged).sum())} at the cap, mean iters "
-        f"{float(p.iters.float().mean()):.3f}, iters differ on {it_diff} "
-        f"lanes, max abs err {err:.3g} (tol 1e-5); two-phase = one pass bit "
-        "for bit")
+        f"{float(p.iters.float().mean()):.3f}; two-phase = one pass bit for "
+        "bit")
     return err
 
 
@@ -694,6 +721,7 @@ def distance_and_mixed_phases(gt, dev, cfg, card, n2=65536, cut=1):
     entries of the ``kernels`` line."""
     from gjkepa_tpu_torch.models import fixtures
     from gjkepa_tpu_torch.ops import fused_distance as fd
+    from gjkepa_tpu_torch.ops import fused_gjk
     from gjkepa_tpu_torch.ops import fused_hull_shapes as fh
     from gjkepa_tpu_torch.ops import fused_shapes as fs
     from gjkepa_tpu_torch.ops.fused import hit_first_order
@@ -708,7 +736,8 @@ def distance_and_mixed_phases(gt, dev, cfg, card, n2=65536, cut=1):
                                     random_hulls(rng, 4096, 12, 2.0)),
                         cfg, "phase 11 spread 2.0")
     d1, d2 = on_dev(*fixtures.c2_hulls(n=n2))
-    k8_err = max(k8_err, compare_k8(gt, d1, d2, cfg, "phase 11 c2"))
+    k8_err = max(k8_err, compare_k8(gt, d1, d2, cfg, "phase 11 c2",
+                                    (None,) + fused_gjk.TEAMS))
     k1, k2, want = known_distance_pairs()
     kr = gt.fused_gjk_distance_hulls(*on_dev(k1, k2), cfg=cfg)
     got = kr.distance.cpu().numpy()
@@ -848,6 +877,13 @@ def distance_and_mixed_phases(gt, dev, cfg, card, n2=65536, cut=1):
         b = n3b if "c3b" in key else n2
         log(f"phase 13 time {key}: {ms:.4f} ms = {b / ms * 1e3:,.0f} pairs/s "
             f"[{card}]")
+    nd1, nd2 = d1.shape[1], d2.shape[1]
+    log(f"phase 13 K8 at c2: phase 1 {times['k8_phase1_c2']:.4f} ms at a "
+        f"team of {fd.team_size(nd1, nd2, False)}, phase 2 "
+        f"{times['k8_phase2_c2']:.4f} ms over {int(n8)} restarted pairs at a "
+        f"team of {fd.team_size(nd1, nd2, True)}, one pass "
+        f"{times['k8_one_pass_c2']:.4f} ms at a team of "
+        f"{fd.team_size(nd1, nd2, False)} (K7 at c3: phase 10) [{card}]")
     log(f"phase 13 end to end: c2 {n2} x 64 fused_gjk_distance_hulls "
         f"{n2 / times['path_dist_c2'] * 1e3:,.0f} q/s two-phase, "
         f"{n2 / times['path_dist_c2_one_pass'] * 1e3:,.0f} q/s one pass "
@@ -1211,7 +1247,8 @@ def main() -> int:
     libs = _build.build()
     log(f"phase 0 build: {', '.join(p.name for p in libs.values())} "
         f"built and loaded in {time.perf_counter() - t0:.2f} s")
-    for src in ("gjk_hulls.cu", "epa_hulls.cu", "gjk_hulls_big.cu",
+    for src in ("gjk_hulls.cu", "epa_hulls.cu", "epa_shapes.cu",
+                "distance_hulls.cu", "epa_hull_shape.cu", "gjk_hulls_big.cu",
                 "epa_hulls_big.cu"):
         for line in ptxas_report(libs[src].with_suffix(".log").read_text()):
             log(f"phase 0 ptxas {src}: {line}")

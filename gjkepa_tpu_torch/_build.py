@@ -62,10 +62,11 @@ ENTRY_POINTS = {
                               + [_cf] * 4 + [_ci, _vp]),
     "gjk_shapes_launch": ("gjk_shapes.cu", [_vp] * 12 + [_ci] + [_cf] * 4
                           + [_ci, _vp]),
-    "epa_shapes_launch": ("epa_shapes.cu", [_vp] * 10 + [_ci, _ci, _ip, _ip,
-                                                         _ci, _cf, _cf, _ci,
-                                                         _vp]),
-    "distance_hulls_launch": ("distance_hulls.cu", [_vp] * 10 + [_ci] * 3
+    "epa_shapes_launch": ("epa_shapes.cu", [_vp] * 9 + [_ci, _ci, _ip, _ip,
+                                                        _ci, _cf, _cf, _ci,
+                                                        _vp]),
+    "epa_shapes_smem_bytes": ("epa_shapes.cu", [_ci]),
+    "distance_hulls_launch": ("distance_hulls.cu", [_vp] * 10 + [_ci] * 4
                               + [_cf, _ci, _vp]),
     "gjk_hull_shape_launch": ("gjk_hull_shape.cu", [_vp] * 10 + [_ci] * 2
                               + [_cf] * 4 + [_ci, _vp]),
@@ -168,6 +169,19 @@ def smem_limit(dev: torch.device) -> int:
     if limit < 0:
         raise RuntimeError(f"cannot read the shared memory limit of {dev}")
     return limit
+
+
+def smem_refusal(smem_bytes, faces: int, dev: torch.device):
+    """An ``explain`` for :func:`launch` by a kernel whose block keeps a
+    polytope of ``faces`` faces in shared memory (``smem_bytes(faces)``
+    bytes a block): names the bytes when they are past ``dev``'s limit."""
+    def explain(rc):
+        need, limit = smem_bytes(faces), smem_limit(dev)
+        if need > limit:
+            return (f"the polytope of {faces} faces needs {need} bytes of "
+                    f"shared memory a block, the device allows {limit}")
+        return None
+    return explain
 
 
 def launch(name: str, dev: torch.device, counts: dict, *args,

@@ -2,12 +2,11 @@
 //
 // Ports _epa_phase_fast (gjkepa_tpu/ops/fused.py:456-749) and _epa_cascade
 // (:837-873).  Plain PyTorch version: epa_phase and run_cascade in
-// gjkepa_tpu_torch/ops/fused_epa.py.  K7 (epa_shapes.cu) instantiates it
-// with the analytic-shape support, K10 (epa_hull_shape.cu) with the
-// hull-vs-shape support.  K2 (epa_hulls.cu) and K13 (epa_hulls_big.cu) run
-// epa_warp.cuh's epa_tier_warp instead: the same arithmetic (plane_of,
-// write_face) with each face scan split across a warp, the polytope in
-// shared memory where it fits.
+// gjkepa_tpu_torch/ops/fused_epa.py.  K10 (epa_hull_shape.cu) instantiates
+// it with the hull-vs-shape support.  K2 (epa_hulls.cu), K7 (epa_shapes.cu)
+// and K13 (epa_hulls_big.cu) run epa_warp.cuh's epa_tier_warp instead: the
+// same arithmetic (plane_of, write_face) with each face scan split across a
+// warp, the polytope in shared memory where it fits.
 //
 // A lane runs the tiers (F, K) in sequence from the GJK simplex, each later
 // tier only if the previous one stopped for capacity.  Polytope state, per

@@ -16,8 +16,8 @@
 // order[i].  Every other pair keeps the row the wrapper wrote: zero depth,
 // normal and iterations with its GJK status.
 //
-// What bounds it: as K7, the polytope state in global scratch (17 words a
-// face, lane-minor) scanned every iteration and the 49 polish probes a lane,
+// What bounds it: the polytope state in global scratch (17 words a face,
+// lane-minor) scanned every iteration and the 49 polish probes a lane,
 // each probe here a scan of the hull; few lanes (the hits) leave most of the
 // card idle, so each lane's chain of dependent loads sets the time.
 #include "epa_core.cuh"

@@ -100,7 +100,7 @@ epa_hulls_kernel(const float* __restrict__ p1, const float* __restrict__ p2,
 }  // namespace gjkepa
 
 // Words a face of the EPA face stores: K2's device store is (n_act,
-// words, far_faces) float32, K7's and K10's scratch (words, f_max, B).
+// words, far_faces) float32, K10's scratch (words, f_max, B).
 extern "C" int epa_scratch_words_per_face() { return gjkepa::kFields; }
 
 // Bytes of shared memory a K2 block takes with a face store of `near_faces`

@@ -8,7 +8,9 @@
 // what the warp computes 32 faces at a time; the reductions' rules in torch
 // are warp_first_min_plain and ballot_rank_plain in
 // gjkepa_tpu_torch/ops/fused_streamed.py.  K2 (epa_hulls.cu) and K13
-// (epa_hulls_big.cu) run it.
+// (epa_hulls_big.cu) run it over hull supports, K7 (epa_shapes.cu) over
+// the analytic shape support, which every thread evaluates to the same
+// point.
 //
 // A face store (PairFaces) is one pair's polytope, [field][face] with
 // f_max faces a field, 17 words a face (epa_core.cuh Field): 14,144 B at

@@ -17,10 +17,10 @@
 // t of the team reads 4-vertex groups t, t + T, ... as three float4 words
 // each, kGroupUnroll groups loaded before they are folded, so a team's
 // loads cover 48 * T neighbouring bytes; else it reads vertices t, t + T,
-// ..., kUnroll at a time.  K1 (gjk_hulls.cu) runs teams of 4-32 threads by
-// the hull size, K2 (epa_hulls.cu) a warp (T = 32), K12 (gjk_hulls_big.cu)
-// and K13 (epa_hulls_big.cu) W warps of one block whose warp results meet
-// in shared memory (BlockHullSupport).
+// ..., kUnroll at a time.  K1 (gjk_hulls.cu) and K8 (distance_hulls.cu)
+// run teams of 4-32 threads, K2 (epa_hulls.cu) a warp (T = 32), K12
+// (gjk_hulls_big.cu) and K13 (epa_hulls_big.cu) W warps of one block whose
+// warp results meet in shared memory (BlockHullSupport).
 //
 // The tie rule.  Each thread keeps the first (strict >) maximum of its own
 // vertices in index order, which is the smallest index among its maxima;
@@ -195,15 +195,29 @@ __device__ __forceinline__ void team_reduce_first_max(unsigned mask, float* best
   }
 }
 
-// Index of the first vertex of a row-major (N, 3) hull maximising <v, d>
-// (or -<v, d> when kNeg), the same in every thread of the calling team.
-template <bool kNeg, int T>
-__device__ __forceinline__ int team_first_max_vertex(const float* __restrict__ v, int n, P3 d) {
-  float best;
-  int idx;
-  strided_first_max<kNeg, T>(v, n, d, threadIdx.x & (T - 1), &best, &idx);
-  team_reduce_first_max<T>(team_mask<T>(), &best, &idx);
-  return idx;
+// The indices of the first vertex of hull v1 maximising <v, d> and of
+// hull v2 maximising -<v, d> (row-major (N, 3) hulls), the same in every
+// thread of the calling team: each thread scans its part of both hulls,
+// then one xor-shuffle reduction folds the two (value, index) pairs side
+// by side.
+template <int T>
+__device__ __forceinline__ void team_first_max_ab(const float* __restrict__ v1, int n1,
+                                                  const float* __restrict__ v2, int n2, P3 d,
+                                                  int* i1, int* i2) {
+  const int t = threadIdx.x & (T - 1);
+  float b1, b2;
+  strided_first_max<false, T>(v1, n1, d, t, &b1, i1);
+  strided_first_max<true, T>(v2, n2, d, t, &b2, i2);
+  const unsigned mask = team_mask<T>();
+#pragma unroll
+  for (int off = T / 2; off > 0; off >>= 1) {
+    const float o1 = __shfl_xor_sync(mask, b1, off, T);
+    const int j1 = __shfl_xor_sync(mask, *i1, off, T);
+    const float o2 = __shfl_xor_sync(mask, b2, off, T);
+    const int j2 = __shfl_xor_sync(mask, *i2, off, T);
+    keep_first_max(o1, j1, &b1, i1);
+    keep_first_max(o2, j2, &b2, i2);
+  }
 }
 
 // The Minkowski support of two row-major (N, 3) hulls as a functor of
@@ -216,8 +230,9 @@ struct TeamHullSupport {
   const float* v2;
   int n2;
   __device__ __forceinline__ P3 operator()(P3 d) const {
-    return sub(vertex(v1, team_first_max_vertex<false, T>(v1, n1, d)),
-               vertex(v2, team_first_max_vertex<true, T>(v2, n2, d)));
+    int i1, i2;
+    team_first_max_ab<T>(v1, n1, v2, n2, d, &i1, &i2);
+    return sub(vertex(v1, i1), vertex(v2, i2));
   }
 };
 
@@ -339,6 +354,23 @@ inline int allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)bytes);
+}
+
+// The blocks of a grid that strides over a count known only on the device:
+// as many as the device holds at once, at most `need`.  Returns 0 or the
+// CUDA error of asking the device.
+template <class Kernel>
+inline int resident_grid(Kernel kernel, int threads, size_t smem, long long need, int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  }
+  if (err != cudaSuccess) return (int)err;
+  const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  *blocks = (int)(need < resident ? need : resident);
+  return 0;
 }
 
 // The bounding sphere of one row-major (N, 3) hull for a team of T: the

@@ -7,9 +7,10 @@ Ports from ``gjkepa_tpu/ops/fused.py`` the kernel ``_distance_kernel_hulls``
 ``csrc/distance_hulls.cu``; :func:`distance_hulls_plain` is its plain
 PyTorch version and keeps its operation order: the 15 candidates in the
 same order, folded one at a time with the first strict minimum winning,
-``BIG = 3.4e38`` for invalid ones, ``eps_rel = 1e-6``.  The wrapper takes
-the plain version only for tensors on the CPU; for CUDA tensors it launches
-the kernel or raises.
+``BIG = 3.4e38`` for invalid ones, ``eps_rel = 1e-6``.  The kernel runs a
+team of T threads a pair over K11's team support (:func:`team_size`).  The
+wrapper takes the plain version only for tensors on the CPU; for CUDA
+tensors it launches the kernel or raises.
 
 The dispatch, ``two_phase=True``: K8 runs every pair at the low cap
 ``phase1_iters``; ``hit_first_order`` of the unconverged lanes puts them
@@ -34,17 +35,30 @@ from ..config import GJKEPAConfig
 from .distance import SUBSETS, DistanceResult
 from .fused import hit_first_order, mask_to_padding
 from .fused_epa import check_tensors
-from .fused_gjk import check_hulls, make_hull_support_ab
+from .fused_gjk import TEAMS, check_hulls, make_hull_support_ab
+from .fused_gjk import team_size as k1_team_size
 from .lane_geom import P3, fsqrt, pcoincide, pcross, pdot, pscale, pwhere
 
 __all__ = ["DistanceRows", "distance_hulls", "distance_hulls_plain",
-           "fused_gjk_distance_hulls", "LAUNCHES"]
+           "fused_gjk_distance_hulls", "team_size", "team_closest_plain",
+           "RESTART_TEAM", "DEAL", "LAUNCHES"]
 
 # Kernel launches made by distance_hulls (CUDA tensors only).
 LAUNCHES = {"distance_hulls": 0}
 
 BIG = 3.4e38            # distance of an invalid candidate (float32)
 EPS_REL = 1e-6          # relative duality gap, and |v|^2 of intersection
+
+# K8's team for a restart of the unconverged pairs (an ``order`` given:
+# phase 2): the fastest of fused_gjk.TEAMS for phase 2 at c2 on an H100
+# (scripts/torch_kernel_sweep.py k8; PERF.md).  A launch over every pair
+# (phase 1, one pass) takes K1's rule by hull size.
+RESTART_TEAM = 32
+
+# How K8 deals the 15 candidates out over a team (csrc/distance_hulls.cu
+# deal()): thread t of a team of T takes slots t, t + T, ..., slot s
+# holding candidate DEAL[s], so that runs of 4 slots hold one kind.
+DEAL = (0, 1, 2, 3, 4, 5, 6, 7, 10, 11, 12, 13, 8, 9, 14)
 
 
 class DistanceRows(NamedTuple):
@@ -108,6 +122,48 @@ def _candidates(w, n):
     inside = ((u >= 0) & (l0 >= 0) & (l1 >= 0) & (l2 >= 0)
               & (torch.abs(det) > 0))
     yield torch.where((n >= 4) & inside, zero, BIG), [u, l0, l1, l2]
+
+
+def team_closest_plain(d2: torch.Tensor, width: int) -> torch.Tensor:
+    """K8's candidate reduction (``csrc/distance_hulls.cu`` team_closest)
+    over (L, 15) candidate distances in torch: thread t of a ``width``
+    team folds the candidates of slots t, t + width, ... (:data:`DEAL`),
+    then log2(width) xor-shuffle steps, all under one total order on (key,
+    d2): the class (0 candidate 0 with a NaN d2, 1 a number, 2 a later NaN,
+    3 no candidate), in class 1 the smaller d2, then the smaller index.
+    Returns the (L,) int64 index every thread ends with (held to the
+    in-order fold with strict <, the plain version's)."""
+    n, dev = d2.shape[0], d2.device
+    k = torch.arange(15, device=dev)
+    cls = torch.where(torch.isnan(d2), torch.where(k == 0, 0, 2), 1)
+    slots = -(-15 // width) * width
+    keys = torch.full((n, slots), 3 * 16 + 15, dtype=torch.int64, device=dev)
+    vals = torch.zeros((n, slots), dtype=d2.dtype, device=dev)
+    deal = torch.tensor(DEAL, device=dev)
+    keys[:, :15] = (cls * 16 + k)[:, deal]
+    vals[:, :15] = d2[:, deal]
+
+    def before(ka, da, kb, db):
+        ca, cb = ka >> 4, kb >> 4
+        by_d2 = (ca == 1) & (da != db)
+        return (ca < cb) | ((ca == cb) & torch.where(by_d2, da < db, ka < kb))
+
+    # thread t owns slot t + width * m: row m of the (n, -1, width) view
+    keys, vals = keys.view(n, -1, width), vals.view(n, -1, width)
+    best_k, best_d = keys[:, 0], vals[:, 0]
+    for m in range(1, keys.shape[1]):
+        take = before(keys[:, m], vals[:, m], best_k, best_d)
+        best_k = torch.where(take, keys[:, m], best_k)
+        best_d = torch.where(take, vals[:, m], best_d)
+    lane = torch.arange(width, device=dev)
+    off = width // 2
+    while off:
+        ok, od = best_k[:, lane ^ off], best_d[:, lane ^ off]
+        take = before(ok, od, best_k, best_d)
+        best_k = torch.where(take, ok, best_k)
+        best_d = torch.where(take, od, best_d)
+        off //= 2
+    return best_k[:, 0] & 15
 
 
 def _distance_lanes(p1, p2, eps: float, max_iters: int):
@@ -235,6 +291,37 @@ def distance_hulls_plain(p1, p2, cfg: GJKEPAConfig, max_iters: int,
     return out
 
 
+def team_size(n1: int, n2: int, restart: bool) -> int:
+    """Threads of K8 that share one pair: :data:`RESTART_TEAM` for a
+    restart of the unconverged pairs, K1's rule by hull size for a launch
+    over every pair."""
+    return RESTART_TEAM if restart else k1_team_size(n1, n2)
+
+
+def _distance_hulls_cuda(p1, p2, cfg: GJKEPAConfig, max_iters: int,
+                         order=None, n_act=None,
+                         out: DistanceRows | None = None,
+                         team: int | None = None) -> DistanceRows:
+    """K8 on the card; ``team`` (threads a pair, one of TEAMS) defaults to
+    :func:`team_size`."""
+    b, n1, n2 = p1.shape[0], p1.shape[1], p2.shape[1]
+    if team is None:
+        team = team_size(n1, n2, restart=order is not None)
+    if team not in TEAMS:
+        raise ValueError(f"K8 team of {team} threads, expected one of {TEAMS}")
+    if out is None:
+        out = _empty_rows(b, p1.device)
+    _check_out(p1, out)
+    ptr = _build.ptr
+    null = ctypes.c_void_p(None)
+    _build.launch("distance_hulls", p1.device, LAUNCHES, ptr(p1), ptr(p2),
+                  null if order is None else ptr(order),
+                  null if n_act is None else ptr(n_act),
+                  *(ptr(t) for t in out), b, n1, n2, team, cfg.eps_coincide,
+                  max_iters)
+    return out
+
+
 def distance_hulls(p1, p2, cfg: GJKEPAConfig, max_iters: int, order=None,
                    n_act=None, out: DistanceRows | None = None
                    ) -> DistanceRows:
@@ -250,17 +337,7 @@ def distance_hulls(p1, p2, cfg: GJKEPAConfig, max_iters: int, order=None,
     if not _build.on_card(p1, "K8"):
         return distance_hulls_plain(p1, p2, cfg, max_iters, order, n_act,
                                     out)
-    if out is None:
-        out = _empty_rows(p1.shape[0], p1.device)
-    _check_out(p1, out)
-    ptr = _build.ptr
-    null = ctypes.c_void_p(None)
-    _build.launch("distance_hulls", p1.device, LAUNCHES, ptr(p1), ptr(p2),
-                  null if order is None else ptr(order),
-                  null if n_act is None else ptr(n_act),
-                  *(ptr(t) for t in out), p1.shape[0], p1.shape[1],
-                  p2.shape[1], cfg.eps_coincide, max_iters)
-    return out
+    return _distance_hulls_cuda(p1, p2, cfg, max_iters, order, n_act, out)
 
 
 def fused_gjk_distance_hulls(p1: torch.Tensor, p2: torch.Tensor,

@@ -346,7 +346,10 @@ def epa_shapes_plain(sa, sb, simplex, status, depth, normal, order, n_act,
 
 def epa_shapes(sa, sb, simplex, status, depth, normal, order, n_act,
                stages) -> EPARows:
-    """K7 over pairs ``order[:n_act]`` (``n_act`` a device scalar)."""
+    """K7 over pairs ``order[:n_act]`` (``n_act`` a device scalar), a warp
+    a hit with its polytope in shared memory.  Raises, naming the bytes,
+    for a face capacity whose store does not fit in a block's shared
+    memory (the shape ladder's 48 faces take 4,416 B a warp)."""
     _check_epa(sa, sb, simplex, status, depth, normal, order, n_act)
     check_stages(stages)
     if not _build.on_card(sa, "K7"):
@@ -359,14 +362,13 @@ def epa_shapes(sa, sb, simplex, status, depth, normal, order, n_act,
     tier_f = (ctypes.c_int * MAX_TIERS)(*[c.epa_max_faces for c, _ in stages])
     tier_k = (ctypes.c_int * MAX_TIERS)(*[k for _, k in stages])
     out = _passthrough(status, depth, normal)
-    # per-lane polytope state, [field][face][lane] (see csrc/epa_core.cuh)
-    scratch = torch.empty((lib.epa_scratch_words_per_face(), f_max, b),
-                          dtype=torch.float32, device=dev)
     ptr = _build.ptr
     _build.launch("epa_shapes", dev, LAUNCHES, ptr(sa), ptr(sb), ptr(simplex),
-                  ptr(order), ptr(n_act), *(ptr(t) for t in out), ptr(scratch),
-                  b, len(stages), tier_f, tier_k, f_max, cfg.eps_coincide,
-                  cfg.eps_zero, cfg.epa_max_iters)
+                  ptr(order), ptr(n_act), *(ptr(t) for t in out), b,
+                  len(stages), tier_f, tier_k, f_max, cfg.eps_coincide,
+                  cfg.eps_zero, cfg.epa_max_iters,
+                  explain=_build.smem_refusal(lib.epa_shapes_smem_bytes,
+                                              f_max, dev))
     return out
 
 

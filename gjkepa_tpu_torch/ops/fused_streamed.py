@@ -243,21 +243,13 @@ def epa_hulls_big(p1, p2, simplex, gjk_status, order, n_act,
     tier_k = (ctypes.c_int * MAX_TIERS)(*[k for _, k in stages])
     out = _passthrough(gjk_status, b, dev)
     lib = _build.load()
-
-    def explain(rc):
-        need = lib.epa_hulls_big_smem_bytes(f_max)
-        limit = lib.epa_hulls_big_smem_limit()
-        if need > limit:
-            return (f"the polytope of {f_max} faces needs {need} bytes of "
-                    f"shared memory a block, the device allows {limit}")
-        return None
-
     ptr = _build.ptr
     _build.launch("epa_hulls_big", dev, LAUNCHES, ptr(p1), ptr(p2),
                   ptr(simplex), ptr(order), ptr(n_act), *(ptr(t) for t in out),
                   b, n1, n2, len(stages), tier_f, tier_k, f_max,
                   cfg.eps_coincide, cfg.eps_zero, cfg.epa_max_iters,
-                  explain=explain)
+                  explain=_build.smem_refusal(lib.epa_hulls_big_smem_bytes,
+                                              f_max, dev))
     return out
 
 

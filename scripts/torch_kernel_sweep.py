@@ -7,6 +7,8 @@ Usage, from the root of a checkout:
     python3 scripts/torch_kernel_sweep.py warps
     python3 scripts/torch_kernel_sweep.py k2
     python3 scripts/torch_kernel_sweep.py k12
+    python3 scripts/torch_kernel_sweep.py k8
+    python3 scripts/torch_kernel_sweep.py k7
     python3 scripts/torch_kernel_sweep.py times [--root DIR] [--tag NAME]
 
 ``teams``: K1 (``csrc/gjk_hulls.cu``) runs a team of T threads a pair, T
@@ -38,11 +40,28 @@ build on 4096 x 2600, 256 x 8192, 512 x 2601 and 8 x 10240 pairs (past
 shared memory: both scan), bit for bit against the plain version, and
 prints the times of the first two and each one's time a probe.
 
-``times``: device times of K1 (c4, c2), K2 (c4), K7 (c3), K10 (c3b), K12
-and K13 (4096 x 2600, 256 x 8192), chip_smoke.py's inputs, and the walls
-of the hull paths at c4, c2, 4096 x 2600 and 256 x 8192, from the package
-under DIR (default: this checkout), so that a parent and a change can be
-timed in turn on one card.  Prints one JSON line tagged NAME.
+``k8``: K8 (``csrc/distance_hulls.cu``) runs a team of T threads a pair.
+This rebuilds that source with ``-DK8_MIN_BLOCKS=B`` for B = 1, 4, 6 and 8
+(the blocks an SM ptxas sizes its registers for) and runs every T of
+``fused_gjk.TEAMS`` of each build at c2 (65,536 x 64) for phase 1 (every
+pair at cap 10), phase 2 (the pairs phase 1 left unconverged, at cap 64,
+into phase 1's rows) and one pass (every pair at cap 64), each bit for bit
+against the plain version, and prints each one's device time and the
+wrapper's team for each.
+
+``k7``: K7 (``csrc/epa_shapes.cu``) runs a warp a hit, 1 warp a block.
+This rebuilds that source with ``-DK7_WARPS=W`` for W = 1, 2 and 4 and
+runs each build at c3 (chip_smoke.py's inputs) and on a dense
+all-cylinder batch (16,384 pairs, most of them hits), bit for bit
+against the plain version, and prints each one's device time.
+
+``times``: device times of K1 (c4, c2), K2 (c4), K7 (c3), K8 (c2: phase
+1, phase 2 and one pass), K10 (c3b), K12 and K13 (4096 x 2600, 256 x
+8192), chip_smoke.py's inputs, and the walls of the hull paths at c4, c2,
+4096 x 2600 and 256 x 8192, of the distance path at c2 (two-phase and one
+pass) and of the shape path at c3, from the package under DIR (default:
+this checkout), so that a parent and a change can be timed in turn on one
+card.  Prints one JSON line tagged NAME.
 
 Device times are chip_smoke.py's ``device_ms``: CUDA events around 10
 back-to-back calls queued behind a sleep kernel, so that the host's
@@ -375,11 +394,121 @@ def k12(cs, dev, card) -> None:
     print(json.dumps({"k12_warps": table, "card": card}), flush=True)
 
 
+# -- k8 ------------------------------------------------------------------------
+
+K8_MIN_BLOCKS = (1, 4, 6, 8)
+
+
+def k8(cs, dev, card) -> None:
+    from gjkepa_tpu_torch import GJKEPAConfig, _build
+    from gjkepa_tpu_torch.models import fixtures
+    from gjkepa_tpu_torch.ops import fused_distance as fd
+    from gjkepa_tpu_torch.ops import fused_gjk
+    from gjkepa_tpu_torch.ops.fused import hit_first_order
+    cfg = GJKEPAConfig.for_f32()
+    builds = variants(cs, "distance_hulls.cu", {m: {"K8_MIN_BLOCKS": m}
+                                                for m in K8_MIN_BLOCKS})
+    p1, p2 = on_card(dev, *fixtures.c2_hulls())
+    n1, n2 = p1.shape[1], p2.shape[1]
+    low = fd.distance_hulls_plain(p1, p2, cfg, 10)
+    order, n_act = hit_first_order(~low.converged)
+    full = fd.distance_hulls_plain(p1, p2, cfg, 64)
+    restart = fd.distance_hulls_plain(p1, p2, cfg, 64, order, n_act,
+                                      out=fd.DistanceRows(*(t.clone()
+                                                            for t in low)))
+    if not rows_equal(restart, full):
+        raise AssertionError("K8's plain restart differs from one pass")
+    scratch = fd.DistanceRows(*(t.clone() for t in low))
+    phases = {  # name: (the launch at a team of t, its plain rows)
+        "phase1": (lambda t: fd._distance_hulls_cuda(p1, p2, cfg, 10,
+                                                     team=t), low),
+        "phase2": (lambda t: fd._distance_hulls_cuda(
+            p1, p2, cfg, 64, order, n_act, out=scratch, team=t), restart),
+        "one_pass": (lambda t: fd._distance_hulls_cuda(p1, p2, cfg, 64,
+                                                       team=t), full),
+    }
+    row = {"pairs": p1.shape[0], "vertices": n1, "restarted": int(n_act),
+           "mean_iters": float(full.iters.float().mean()),
+           "max_iters": int(full.iters.max()),
+           "rule": {"phase1": fd.team_size(n1, n2, restart=False),
+                    "phase2": fd.team_size(n1, n2, restart=True),
+                    "one_pass": fd.team_size(n1, n2, restart=False)}}
+    for m, ns in builds.items():
+        with mock.patch.object(_build, "load", lambda ns=ns: ns):
+            for name, (fn, want) in phases.items():
+                for t in fused_gjk.TEAMS:
+                    for x, y in zip(scratch, low):
+                        x.copy_(y)
+                    got = fn(t)
+                    torch.cuda.synchronize()
+                    if not rows_equal(got, want):
+                        raise AssertionError(
+                            f"K8 {name} at a team of {t}, min blocks {m}, "
+                            "differs from plain")
+                    row[f"{name} T{t} B{m}"] = cs.device_ms(lambda: fn(t))
+                print(f"K8 c2 {name}, min blocks {m}: every team bit-equal "
+                      "to plain; " + ", ".join(
+                          f"T={t} {row[f'{name} T{t} B{m}']:.4f}"
+                          for t in fused_gjk.TEAMS)
+                      + f" ms; rule T={row['rule'][name]} [{card}]",
+                      flush=True)
+    print(f"K8 c2: {row['restarted']} pairs restarted, mean iters "
+          f"{row['mean_iters']:.3f}, max {row['max_iters']} [{card}]",
+          flush=True)
+    print(json.dumps({"k8_teams": row, "card": card}), flush=True)
+
+
+# -- k7 ------------------------------------------------------------------------
+
+K7_WARPS = (1, 2, 4)
+
+
+def k7(cs, dev, card) -> None:
+    from gjkepa_tpu_torch import GJKEPAConfig, _build
+    from gjkepa_tpu_torch.models import fixtures
+    from gjkepa_tpu_torch.ops import fused_shapes as fs
+    from gjkepa_tpu_torch.ops.fused import hit_first_order
+    cfg = GJKEPAConfig.for_f32()
+    builds = variants(cs, "epa_shapes.cu", {w: {"K7_WARPS": w}
+                                            for w in K7_WARPS})
+    rng = np.random.default_rng(3)
+    cases = (("c3", fixtures.c3_pairs(0, cs.C3)),
+             ("dense cylinders 16384", (
+                 fixtures.kind_batch(3, 16384, rng, spread=0.2),
+                 fixtures.kind_batch(3, 16384, rng, spread=0.2))))
+    table = []
+    for what, pairs in cases:
+        _, _, sa, sb, retired = cs.shape_inputs(pairs, dev)
+        g = fs.gjk_shapes(sa, sb, retired, cfg)
+        order, n_act = hit_first_order(g.hit & ~g.final)
+        args = (sa, sb, g.simplex, g.status, g.cf_depth, g.cf_normal, order,
+                n_act, fs.shape_stages(cfg))
+        want = fs.epa_shapes_plain(*args)
+        lanes = want.iters > 0
+        row = {"case": what, "hits": int(n_act),
+               "mean_epa_iters": float(want.iters[lanes].float().mean())}
+        for w, ns in builds.items():
+            with mock.patch.object(_build, "load", lambda ns=ns: ns):
+                got = fs.epa_shapes(*args)
+                torch.cuda.synchronize()
+                if not rows_equal(got, want):
+                    raise AssertionError(f"K7 at W={w} differs from plain at "
+                                         f"{what}")
+                row[f"W{w}"] = cs.device_ms(lambda: fs.epa_shapes(*args))
+        table.append(row)
+        print(f"K7 {what}: {row['hits']} hits, mean epa_iters "
+              f"{row['mean_epa_iters']:.3f}; every W bit-equal to plain; "
+              + ", ".join(f"W={w} {row[f'W{w}']:.4f}" for w in K7_WARPS)
+              + f" ms [{card}]", flush=True)
+    print(json.dumps({"k7_warps": table, "card": card}), flush=True)
+
+
 # -- times ---------------------------------------------------------------------
 
 def times(cs, dev, card, tag) -> None:
     import gjkepa_tpu_torch as gt
     from gjkepa_tpu_torch.models import fixtures
+    from gjkepa_tpu_torch.ops import fused_distance as fd
     from gjkepa_tpu_torch.ops import fused_epa, fused_gjk
     from gjkepa_tpu_torch.ops import fused_hull_shapes as fh
     from gjkepa_tpu_torch.ops import fused_shapes as fs
@@ -414,18 +543,31 @@ def times(cs, dev, card, tag) -> None:
     g9 = fh.gjk_hull_shape_plain(h3, sb, env.retired, o9, cfg)
     o10, n10 = hit_first_order(g9.hit)
     k10 = (h3, sb, g9.simplex, g9.status, o10, n10, fs.shape_stages(cfg))
+    d1, d2 = on_dev(*fixtures.c2_hulls())            # chip_smoke.py phase 13
+    low = fd.distance_hulls(d1, d2, cfg, 10)
+    o8, n8 = hit_first_order(~low.converged)
+    rows8 = fd.DistanceRows(*(t.clone() for t in low))
+    a3, b3 = cs.shape_inputs(fixtures.c3_pairs(0, cs.C3), dev)[:2]
     fns = {
         "k1_c4": lambda: fused_gjk.gjk_hulls(m1, m2, cfg),
         "k1_c2": lambda: fused_gjk.gjk_hulls(b1, b2, bool_cfg),
         "k2_c4": lambda: fused_epa.epa_cascade(m1, m2, g4.simplex, g4.status,
                                                o4, n4, stages),
         "k7_c3": lambda: fs.epa_shapes(*k7),
+        "k8_phase1_c2": lambda: fd.distance_hulls(d1, d2, cfg, 10),
+        "k8_phase2_c2": lambda: fd.distance_hulls(d1, d2, cfg, 64, o8, n8,
+                                                  out=rows8),
+        "k8_one_pass_c2": lambda: fd.distance_hulls(d1, d2, cfg, 64),
         "k10_c3b": lambda: fh.epa_hull_shape(*k10),
     }
     walls = {
         "path_c4": lambda: gt.gjkepa_batch_fused(m1, m2, cfg=cfg),
         "query_c4": lambda: gt.fused_gjkepa_hulls(m1, m2, cfg=cfg),
         "path_c2": lambda: gt.fused_gjkepa_hulls(b1, b2, cfg=bool_cfg),
+        "path_dist_c2": lambda: gt.fused_gjk_distance_hulls(d1, d2, cfg=cfg),
+        "path_dist_c2_one_pass": lambda: gt.fused_gjk_distance_hulls(
+            d1, d2, cfg=cfg, two_phase=False),
+        "path_c3": lambda: gt.fused_gjkepa_shapes(a3, b3, cfg=cfg),
     }
     for key, pair in (("2600", fixtures.big_c2_pairs()),        # phase 15
                       ("8192", fixtures.big_pairs_8192())):
@@ -457,7 +599,8 @@ def times(cs, dev, card, tag) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("what", choices=("teams", "warps", "k2", "k12", "times"))
+    ap.add_argument("what", choices=("teams", "warps", "k2", "k12", "k8", "k7",
+                                     "times"))
     ap.add_argument("--root", type=Path, default=ROOT,
                     help="checkout whose gjkepa_tpu_torch `times` imports")
     ap.add_argument("--tag", default="change")
@@ -468,7 +611,8 @@ def main() -> int:
     sys.path.insert(0, str(a.root.resolve() if a.what == "times" else ROOT))
     cs = _chip_smoke()
     dev, card = torch.device("cuda", 0), card_name()
-    {"teams": teams, "warps": warps, "k2": k2, "k12": k12}.get(
+    {"teams": teams, "warps": warps, "k2": k2, "k12": k12, "k8": k8,
+     "k7": k7}.get(
         a.what, lambda *x: times(*x, a.tag))(cs, dev, card)
     return 0
 

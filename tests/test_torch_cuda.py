@@ -9,14 +9,15 @@ the card has no JAX, so run this file without the JAX conftest:
 Tolerances: hit and status exact, separation and depth 1e-5, iteration
 counts on >= 99.5% / 99% of lanes (both versions round every op on their
 own: the kernels are built with --fmad=false), normals dot > 1-1e-4 on
->= 98% of hit lanes; closed-form depth and normal 1e-6.  Distance (K8):
-intersecting and converged exact, distance and witnesses 1e-5, iteration
-counts on >= 99.5% of lanes, two-phase equal to one pass bit for bit.
-K2, K12 and K13 (the warp kernels over K11's support): rows bit for bit
-against their plain versions on every input, the tie fixture, both of
-K2's face stores and both of K12's hull sources included.  K1 at each
-team size and K2 and K13 over a tier ladder forced to overflow into their
-retries, at vertex counts with each remainder mod 4: bit for bit.
+>= 98% of hit lanes; closed-form depth and normal 1e-6.  K7 (a warp a
+hit over epa_warp.cuh) and K8 (a team of threads a pair over K11's
+support): rows bit for bit against their plain versions, K8 at every team
+size and two-phase equal to one pass bit for bit; K10's rows bit for bit
+at c3b.  K2, K12 and K13 (the warp kernels over K11's support): rows bit
+for bit against their plain versions on every input, the tie fixture,
+both of K2's face stores and both of K12's hull sources included.  K1 at
+each team size and K2 and K13 over a tier ladder forced to overflow into
+their retries, at vertex counts with each remainder mod 4: bit for bit.
 """
 
 import numpy as np
@@ -159,11 +160,8 @@ def test_shape_kernels_match_plain_on_card(dev, name):
     args = (sa, sb, hp.simplex, hp.status, hp.cf_depth, hp.cf_normal, order,
             n_act, st)
     ek, ep = fs.epa_shapes(*args), fs.epa_shapes_plain(*args)
-    assert torch.equal(ek.status, ep.status)
-    assert float((ek.depth - ep.depth).abs().max()) <= 1e-5
-    dots = (ek.normal * ep.normal).sum(1)[epa]
-    assert float((dots > 1.0 - 1e-4).float().mean()) >= 0.98
-    assert int((ek.iters != ep.iters).sum()) <= 0.01 * int(epa.sum())
+    assert int(n_act) > 0
+    assert _rows_equal(ek, ep)
     assert {k: fs.LAUNCHES[k] - n0[k] for k in n0} == {
         "cf_shapes": 1, "gjk_sub_shapes": 1, "gjk_shapes": 1, "epa_shapes": 1}
 
@@ -187,12 +185,7 @@ def test_k8_matches_plain_on_card(dev):
     k = fd.distance_hulls(p1, p2, cfg, 64)
     p = fd.distance_hulls_plain(p1, p2, cfg, 64)
     assert fd.LAUNCHES["distance_hulls"] == n0 + 1
-    assert torch.equal(k.intersecting, p.intersecting)
-    assert torch.equal(k.converged, p.converged)
-    assert float((k.iters == p.iters).float().mean()) >= 0.995
-    for x, y in ((k.distance, p.distance), (k.point_a, p.point_a),
-                 (k.point_b, p.point_b)):
-        assert float((x - y).abs().max()) <= 1e-5
+    assert _rows_equal(k, p)
     two = fused_gjk_distance_hulls(p1, p2, cfg=cfg)
     one = fused_gjk_distance_hulls(p1, p2, cfg=cfg, two_phase=False)
     assert fd.LAUNCHES["distance_hulls"] == n0 + 4
@@ -480,3 +473,132 @@ def test_k12_staged_and_scanned_hulls_agree(dev, b, n, staged):
     gk = fst.gjk_hulls_big(p1, p2, active, cfg)
     assert fst.LAUNCHES["gjk_hulls_big"] == n0 + 1
     assert _rows_equal(gk, gp, active)
+
+
+def _k8_pairs(case):
+    """K8's inputs: a slice of bench.py's c2, hulls of 63 vertices (K11's
+    scalar scan), and ragged hulls from random masks."""
+    rng = np.random.default_rng(16)
+    if case == "c2":
+        return [torch.from_numpy(x) for x in fixtures.c2_hulls(n=8192)]
+    if case == "n63":
+        return [torch.from_numpy(_hulls(rng, 4096, 63, spread=2.0))
+                for _ in range(2)]
+    from gjkepa_tpu_torch.ops.fused import mask_to_padding
+    out = []
+    for _ in range(2):
+        p = torch.from_numpy(_hulls(rng, 4096, 24, spread=2.0))
+        mask = torch.from_numpy(rng.random((4096, 24)) < 0.7)
+        mask[:, rng.integers(0, 24)] = True
+        out.append(mask_to_padding(p, mask).contiguous())
+    return out
+
+
+@pytest.mark.parametrize("team", fused_gjk.TEAMS)
+@pytest.mark.parametrize("case", ["c2", "n63", "masked"])
+def test_k8_teams_are_bit_equal_to_plain(dev, case, team):
+    """K8 at every team size over every pair, at the low cap and the full
+    one, rows bit for bit against the plain version."""
+    p1, p2 = (t.to(dev) for t in _k8_pairs(case))
+    cfg = GJKEPAConfig.for_f32()
+    for cap in (10, 64):
+        want = fd.distance_hulls_plain(p1, p2, cfg, cap)
+        n0 = fd.LAUNCHES["distance_hulls"]
+        got = fd._distance_hulls_cuda(p1, p2, cfg, cap, team=team)
+        assert fd.LAUNCHES["distance_hulls"] == n0 + 1
+        assert _rows_equal(got, want)
+    assert int((want.iters > 10).sum()) > 0
+
+
+@pytest.mark.parametrize("team", fused_gjk.TEAMS)
+def test_k8_restart_writes_only_its_rows(dev, team):
+    """K8 over an order and a device count (phase 2's launch) at every team
+    size: the rows of order[:n_act] bit for bit as the plain version writes
+    them, every other row as it was."""
+    p1, p2 = (t.to(dev) for t in _k8_pairs("c2"))
+    cfg = GJKEPAConfig.for_f32()
+    rng = np.random.default_rng(17)
+    pick = torch.from_numpy(rng.random(p1.shape[0]) < 0.05).to(dev)
+    order, n_act = hit_first_order(pick)
+    start = fd.distance_hulls_plain(p1, p2, cfg, 3)
+    want = fd.distance_hulls_plain(p1, p2, cfg, 64, order, n_act,
+                                   out=fd.DistanceRows(*(t.clone()
+                                                         for t in start)))
+    got = fd._distance_hulls_cuda(p1, p2, cfg, 64, order, n_act,
+                                  out=fd.DistanceRows(*(t.clone()
+                                                        for t in start)),
+                                  team=team)
+    assert _rows_equal(got, want)
+    assert _rows_equal([x[~pick] for x in got], [x[~pick] for x in start])
+    assert int(n_act) > 100
+
+
+def test_k8_team_rule_on_card(dev):
+    """The wrapper's teams: K1's rule over every pair, RESTART_TEAM for a
+    restart; two-phase equals one pass at c2 bit for bit."""
+    assert fd.team_size(64, 64, restart=False) == fused_gjk.team_size(64, 64)
+    assert fd.team_size(64, 64, restart=True) == fd.RESTART_TEAM
+    p1, p2 = (t.to(dev) for t in _k8_pairs("c2"))
+    cfg = GJKEPAConfig.for_f32()
+    two = fused_gjk_distance_hulls(p1, p2, cfg=cfg)
+    one = fused_gjk_distance_hulls(p1, p2, cfg=cfg, two_phase=False)
+    for x, y in zip(two, one):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("iters", [1, 16, 64])
+@pytest.mark.parametrize("name", ["mixed16", "dense_cyl", "c3"])
+def test_k7_is_bit_equal_to_plain(dev, name, iters):
+    """K7 at epa_max_iters 1, 16 and 64 (the shape ladder caps it at 16 on
+    48 faces): rows bit for bit against the plain version."""
+    sa, sb, retired = _shape_rows(_shape_pairs(name), dev)
+    cfg = GJKEPAConfig.for_f32().replace(epa_max_iters=iters)
+    hp = fs.gjk_shapes_plain(sa, sb, retired, cfg)
+    order, n_act = hit_first_order(hp.hit & ~hp.final)
+    st = fs.shape_stages(cfg)
+    assert {c.epa_max_faces for c, _ in st} == {48}
+    args = (sa, sb, hp.simplex, hp.status, hp.cf_depth, hp.cf_normal, order,
+            n_act, st)
+    n0 = fs.LAUNCHES["epa_shapes"]
+    ek = fs.epa_shapes(*args)
+    assert fs.LAUNCHES["epa_shapes"] == n0 + 1
+    ep = fs.epa_shapes_plain(*args)
+    assert int(n_act) > 0
+    assert _rows_equal(ek, ep)
+
+
+def test_k7_refuses_a_polytope_past_shared_memory(dev):
+    """A face capacity whose warp store does not fit in a block's shared
+    memory raises, naming the bytes; K7 allocates no device store."""
+    from gjkepa_tpu_torch import _build
+    lib = _build.load()
+    assert lib.epa_shapes_smem_bytes(48) == 4416        # K7_WARPS = 1
+    sa, sb, retired = _shape_rows(_shape_pairs("mixed16"), dev)
+    cfg = GJKEPAConfig.for_f32()
+    hp = fs.gjk_shapes_plain(sa, sb, retired, cfg)
+    order, n_act = hit_first_order(hp.hit & ~hp.final)
+    f_big = 4096
+    need = lib.epa_shapes_smem_bytes(f_big)
+    assert need > _build.smem_limit(dev)
+    ladder = [(cfg.replace(epa_max_faces=f_big, epa_max_iters=16), 16)]
+    n0 = fs.LAUNCHES["epa_shapes"]
+    with pytest.raises(RuntimeError, match=f"{need} bytes of shared memory"):
+        fs.epa_shapes(sa, sb, hp.simplex, hp.status, hp.cf_depth,
+                      hp.cf_normal, order, n_act, ladder)
+    assert fs.LAUNCHES["epa_shapes"] == n0
+
+
+def test_k10_is_bit_equal_to_plain_at_c3b(dev):
+    """K10 (the serial tier of epa_core.cuh, unchanged) at c3b: rows bit
+    for bit against the plain version."""
+    hulls, shapes = fixtures.c3b_pairs()
+    p1 = torch.from_numpy(hulls).to(dev)
+    sb = ShapeBatch.from_numpy(*shapes, device=dev).packed()
+    cfg = GJKEPAConfig.for_f32()
+    env = fh.hull_shape_retirement(p1, sb, cfg)
+    order, _ = hit_first_order(~env.retired)
+    gp = fh.gjk_hull_shape_plain(p1, sb, env.retired, order, cfg)
+    order, n_act = hit_first_order(gp.hit)
+    args = (p1, sb, gp.simplex, gp.status, order, n_act, fs.shape_stages(cfg))
+    assert int(n_act) > 1000
+    assert _rows_equal(fh.epa_hull_shape(*args), fh.epa_hull_shape_plain(*args))

@@ -218,6 +218,40 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
     assert fd.LAUNCHES == before
 
 
+@pytest.mark.parametrize("n", [12, 24, 64, 65, 256, 512, 513, 2048])
+def test_k8_team_size_rule_by_phase(n):
+    """K8's team: a launch over every pair (phase 1, one pass) takes K1's
+    rule by hull size (4 at c2's 64 vertices); a restart of the
+    unconverged pairs (phase 2) takes RESTART_TEAM; each is a team the
+    kernel instantiates."""
+    from gjkepa_tpu_torch.ops import fused_gjk
+    every = fd.team_size(n, n, restart=False)
+    assert every == fused_gjk.team_size(n, n) in fused_gjk.TEAMS
+    assert fd.team_size(n, 8, restart=False) == fused_gjk.team_size(n, 8)
+    assert fd.team_size(n, n, restart=True) == fd.RESTART_TEAM
+    assert fd.RESTART_TEAM in fused_gjk.TEAMS
+    if n == 64:
+        assert every == 4
+
+
+def test_k8_wrapper_passes_each_phase_its_team(monkeypatch):
+    """On a card, fused_gjk_distance_hulls launches phase 1 at K1's team and
+    phase 2 at RESTART_TEAM, and one pass at K1's team (the launch
+    recorded, the rows from the plain version)."""
+    teams = []
+
+    def fake_launch(name, dev, counts, *args, explain=None):
+        teams.append((args[2].value is not None, args[13]))
+        counts[name] += 1
+
+    monkeypatch.setattr(_build, "on_card", lambda t, k: True)
+    monkeypatch.setattr(_build, "launch", fake_launch)
+    p1, p2 = _two_phase_batch(np.random.default_rng(0), 64, 12, 2.0)
+    fused_gjk_distance_hulls(p1, p2, cfg=CFG)
+    fused_gjk_distance_hulls(p1, p2, cfg=CFG, two_phase=False)
+    assert teams == [(False, 4), (True, fd.RESTART_TEAM), (False, 4)]
+
+
 def test_unsupported_device_and_bad_inputs_raise():
     p1, p2, _ = _known_pairs()
     p1, p2 = (torch.from_numpy(x.astype(np.float32)) for x in (p1, p2))

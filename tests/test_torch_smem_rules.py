@@ -1,18 +1,23 @@
-"""K2's face stores by size, in plain Python, at their byte boundaries.
+"""K2's face stores by size, in plain Python, at their byte boundaries,
+and K7's store, which always fits.
 
 K2 (csrc/epa_hulls.cu) keeps a tier's polytope in shared memory where its
 store fits, and in device memory otherwise (``fused_epa.k2_near_faces``,
 ``k2_far_faces``).  The rule takes the kernel's byte count as a function
 (``epa_hulls_smem_bytes`` on the card) and the limit as an argument, so it
 is held here without a card, against stand-ins of that count: a block of
-P warps, each 1,152 B of scratch and 68 B a face.  K12's staged-or-scanned
-choice is its C launcher's (``gjk_hulls_big_staged``), held on the card.
+P warps, each 1,152 B of scratch and 68 B a face.  K7 (csrc/epa_shapes.cu)
+keeps its one store in shared memory and has no device store: the shape
+ladder (``fused_shapes.shape_stages``) is 48 faces at every
+``epa_max_iters``, so a block of W warps takes W * (1,152 + 68 * 48) B
+(``epa_shapes_smem_bytes`` on the card).  K12's staged-or-scanned choice
+is its C launcher's (``gjk_hulls_big_staged``), held on the card.
 """
 
 import pytest
 
 from gjkepa_tpu_torch import GJKEPAConfig
-from gjkepa_tpu_torch.ops import fused_epa
+from gjkepa_tpu_torch.ops import fused_epa, fused_shapes
 from gjkepa_tpu_torch.ops.fused import cascade_plan
 
 H100_LIMIT = 232_448     # an H100 block's opt-in shared memory
@@ -83,3 +88,32 @@ def test_k2_a_tier_is_shared_exactly_when_its_store_fits(faces, limit):
                      for f in faces]
     assert far == max((f for f in faces if nbytes(f) > limit), default=0)
     assert near == max((f for f in faces if nbytes(f) <= limit), default=0)
+
+
+def k7_bytes(warps):
+    """A stand-in of K7's block bytes, built with W = ``warps`` warps."""
+    return lambda faces: warps * (1152 + 68 * faces)
+
+
+def test_k7_ladder_is_48_faces_at_every_cap():
+    """shape_stages gives two tiers of 48 faces (K = 8, then 16) at every
+    epa_max_iters of 1..64, capped at 16 iterations, and no EPA at 0."""
+    cfg = GJKEPAConfig.for_f32()
+    assert fused_shapes.shape_stages(cfg.replace(epa_max_iters=0)) == []
+    for iters in range(1, 65):
+        stages = fused_shapes.shape_stages(cfg.replace(epa_max_iters=iters))
+        assert [(c.epa_max_faces, k) for c, k in stages] == [(48, 8), (48, 16)]
+        assert {c.epa_max_iters for c, _ in stages} == {min(iters, 16)}
+        fused_epa.check_stages(stages)
+
+
+@pytest.mark.parametrize("warps", [1, 2, 4])
+def test_k7_block_fits_shared_memory(warps):
+    """At each block size swept (1, 2 and 4 warps), K7's block at the
+    shape ladder's 48 faces fits an H100's opt-in shared memory, and
+    within the default 48 KB: no opt-in, no refusal on the main path."""
+    cfg = GJKEPAConfig.for_f32()
+    f_max = max(c.epa_max_faces for c, _ in fused_shapes.shape_stages(cfg))
+    need = k7_bytes(warps)(f_max)
+    assert need == warps * 4416
+    assert need <= 48 * 1024 < H100_LIMIT

@@ -4,18 +4,22 @@ K1 (csrc/gjk_hulls.cu) scans a pair's hulls with a team of 4-32 threads,
 K12 with a warp and K13 with a block of warps, all reducing (dot, vertex)
 pairs under one total order (csrc/hull_stream.cuh); K13's EPA tier
 (csrc/epa_warp.cuh) splits its face scans across a warp with a
-(distance, face) reduction and ballot/prefix ranks.  The CUDA code runs
-only on the card; these tests hold its rules, as
-``fused_streamed.warp_first_max_plain``, ``warp_first_min_plain`` and
-``ballot_rank_plain`` model them, to the torch operations the plain EPA
-phase (``fused_epa.epa_phase``) and the plain support use: ``argmax``,
-``argmin``, the stable ``argsort`` and ``cumsum``.  All exact.
+(distance, face) reduction and ballot/prefix ranks; K8
+(csrc/distance_hulls.cu) deals its 15 distance candidates out over a team
+and reduces (key, d2) pairs.  The CUDA code runs only on the card; these
+tests hold its rules, as ``fused_streamed.warp_first_max_plain``,
+``warp_first_min_plain``, ``ballot_rank_plain`` and
+``fused_distance.team_closest_plain`` model them, to the torch operations
+the plain EPA phase (``fused_epa.epa_phase``), the plain support and the
+plain distance GJK use: ``argmax``, ``argmin``, the stable ``argsort``,
+``cumsum`` and the in-order fold with strict <.  All exact.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from gjkepa_tpu_torch.ops import fused_distance as fd
 from gjkepa_tpu_torch.ops import fused_gjk
 from gjkepa_tpu_torch.ops import fused_streamed as fst
 from gjkepa_tpu_torch.ops.fused_epa import BIG
@@ -156,3 +160,61 @@ def test_block_first_max_is_the_first_maximum(case, warps):
     assert torch.equal(got, torch.argmax(dots, dim=1))
     if want is not None:
         assert bool((got == want).all())
+
+
+def _in_order_first_min(d2):
+    """The plain distance GJK's fold (fused_distance._distance_lanes): from
+    candidate 0, a later candidate replaces the best on a strict <."""
+    best, k = d2[:, 0], torch.zeros(d2.shape[0], dtype=torch.int64)
+    for j in range(1, d2.shape[1]):
+        better = d2[:, j] < best
+        best = torch.where(better, d2[:, j], best)
+        k = torch.where(better, j, k)
+    return k
+
+
+def _candidate_d2(case):
+    """(L, 15) candidate distances: ties on a coarse grid, invalid ones
+    (BIG) up to whole rows, all equal, NaNs (candidate 0's included), and
+    +0 against -0."""
+    rng = np.random.default_rng(len(case))
+    d = rng.integers(0, 4, size=(512, 15)).astype(np.float32) * 0.5
+    if case == "big":
+        d[rng.random(d.shape) < 0.6] = fd.BIG
+        d[:64] = fd.BIG
+    elif case == "equal":
+        d[:] = 0.75
+    elif case == "nan":
+        d[rng.random(d.shape) < 0.2] = np.nan
+        d[:32, 0] = np.nan
+        d[32:64, 1:] = np.nan
+    elif case == "signed_zero":
+        d = np.where(rng.random(d.shape) < 0.5, np.float32(0.0),
+                     np.float32(-0.0)).astype(np.float32)
+        d[:, 14] = fd.BIG
+    return torch.from_numpy(d)
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("case", ["grid", "big", "equal", "nan",
+                                  "signed_zero"])
+def test_team_closest_is_the_in_order_first_minimum(case, width):
+    """K8's dealt candidates and (key, d2) shuffles at every team width:
+    the plain version's in-order fold with strict <, on ties, invalid
+    candidates, NaNs (a NaN candidate 0 is kept, a later NaN never taken)
+    and signed zeros."""
+    d2 = _candidate_d2(case)
+    got = fd.team_closest_plain(d2, width)
+    assert torch.equal(got, _in_order_first_min(d2))
+    if case == "equal":
+        assert bool((got == 0).all())
+    if case == "nan":
+        assert bool((got[:32] == 0).all()) and bool((got[32:64] == 0).all())
+
+
+def test_deal_is_a_permutation_of_the_candidates():
+    """K8's deal covers each of the 15 candidates once, runs of 4 slots of
+    one kind (vertices, edges, faces) first."""
+    assert sorted(fd.DEAL) == list(range(15))
+    kind = [0] * 4 + [1] * 6 + [2] * 4 + [3]
+    assert [kind[k] for k in fd.DEAL[:12]] == [0] * 4 + [1] * 4 + [2] * 4
