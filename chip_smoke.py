@@ -24,13 +24,15 @@ over ``csrc/epa_warp.cuh``).  The distance path,
 team of threads a pair (``csrc/distance_hulls.cu``), over every pair at a
 low cap and again over the unconverged pairs.  The mixed
 path, ``fused_gjkepa_hull_shapes``, runs K9, GJK of a hull against an
-analytic shape (``csrc/gjk_hull_shape.cu``), then K10, the capped EPA
-cascade with the polish (``csrc/epa_hull_shape.cu``).  The script builds
+analytic shape, a team of threads a pair (``csrc/gjk_hull_shape.cu``),
+then K10, the capped EPA cascade with the polish, a warp a hit with the
+polytope in shared memory (``csrc/epa_hull_shape.cu``, K7's kernel in
+``csrc/epa_polish_warp.cuh``).  The script builds
 every kernel from the sources in the checkout (one nvcc per source, all at
 once) and runs, in phases:
 
   0. environment: card name and power limit, torch and CUDA versions, build,
-     and the registers and spills of K1, K2, K7, K8, K10, K12 and K13
+     and the registers and spills of K1, K2, K7, K8, K9, K10, K12 and K13
      (``-Xptxas -v``);
   1. K1 against its plain PyTorch version on the card (4096 x 64, 4096 x
      63 and 1024 x 2047 vertices), bit for bit;
@@ -66,15 +68,20 @@ once) and runs, in phases:
      rows and one pass, at c2 at every team size; two-phase equal to one
      pass bit for bit; known distances (cube gap, tetrahedron apex,
      crossing segments);
- 12. K9 and K10 against their plain versions on bench.py's c3b (16,384 x
-     24 hulls against the four shape kinds), the mixed path against the
-     plain path, sort_hits True = False, hull-vs-sphere depths against a
-     float64 convex projection (scipy) and the separation contract;
+ 12. K9 and K10 against their plain versions, rows bit for bit, on
+     bench.py's c3b (16,384 x 24 hulls against the four shape kinds), on
+     its hulls cut to 21, 22 and 23 vertices (each remainder mod 4) and on
+     hulls padded through a mask (repeated vertices: first-max ties); K9
+     at every team size, in the dispatch's order and in the caller's; K10
+     at epa_max_iters 1, 16 and 64 on c3b; the mixed path against the
+     plain path, sort_hits True = False, a mask equal to its padding,
+     hull-vs-sphere depths against a float64 convex projection (scipy) and
+     the separation contract;
  13. the distance and mixed paths at full size, each call with its
      kernels' launch counters set to 0 just before it and its exact
      launches checked just after, then timings of K8 (phase 1, phase 2 and
-     one pass, with the team sizes used), K9, K10, both paths and their
-     plain versions;
+     one pass, with the team sizes used), K9 (with its team), K10, both
+     paths and their plain versions;
  14. K12 and K13 against their plain versions, bit for bit, on 4096 x 2600
      pairs, on tie pairs (box corners copied one ulp apart at vertices i,
      i + 1 and i + 32k, n1 + n2 = 4200), on 256 x 8192 pairs
@@ -235,7 +242,7 @@ def ptxas_report(log_text: str) -> list[str]:
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"([a-z_]+_kernel)(?:IL[a-z](\d+)EE)?", m.group(1))
+            k = re.search(r"([a-z_]+_kernel)(?:IL[a-z](\d+)E)?", m.group(1))
             name = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
                     if k else m.group(1))
         elif "spill stores" in line:
@@ -268,6 +275,12 @@ def entry(name, src, line, launches, err, ms, plain_ms, bound):
 
 def isum(t) -> int:
     return int(t.long().sum())
+
+
+def maxerr(*pairs) -> float:
+    """The max abs difference over (x, y) tensor pairs (0 when empty)."""
+    return max(float((x - y).abs().max()) if x.numel() else 0.0
+               for x, y in pairs)
 
 
 def rows_equal(x, y, active=None) -> bool:
@@ -328,10 +341,6 @@ def compare_shape_kernels(sa, sb, retired, cfg, what):
     returns each kernel's max abs error over its float outputs."""
     from gjkepa_tpu_torch.ops import fused_shapes as fs
     from gjkepa_tpu_torch.ops.fused import hit_first_order
-
-    def maxerr(*pairs):
-        return max(float((x - y).abs().max()) if x.numel() else 0.0
-                   for x, y in pairs)
 
     def same_gjk(k, p, lanes, name):
         check(torch.equal(k.hit, p.hit) and torch.equal(k.status, p.status),
@@ -661,43 +670,59 @@ def mixed_plain_path(p1, shapes, cfg):
                        torch.where(env.retired, env.distance, g.sep))
 
 
-def compare_k9_k10(p1, sb, cfg, what):
-    """K9 and K10 against their plain versions on the same inputs; returns
-    each kernel's max abs error and its rows."""
+def compare_k9_k10(p1, sb, cfg, what, epa_iters=(None,)):
+    """K9 and K10 against their plain versions on the same inputs, rows bit
+    for bit: K9 through its wrapper and at every team size, each in the
+    dispatch's active-first order and in the caller's (the simplex on the
+    lanes that ran GJK), K10 at each of ``epa_iters`` (None: ``cfg``'s).
+    Returns each kernel's max abs error, K9's rows and K10's hit count."""
+    from gjkepa_tpu_torch.ops import fused_gjk
     from gjkepa_tpu_torch.ops import fused_hull_shapes as fh
     from gjkepa_tpu_torch.ops import fused_shapes as fs
     from gjkepa_tpu_torch.ops.fused import hit_first_order
     env = fh.hull_shape_retirement(p1, sb, cfg)
     order, _ = hit_first_order(~env.retired)
-    gk = fh.gjk_hull_shape(p1, sb, env.retired, order, cfg)
     gp = fh.gjk_hull_shape_plain(p1, sb, env.retired, order, cfg)
-    torch.cuda.synchronize()
-    check(torch.equal(gk.hit, gp.hit) and torch.equal(gk.status, gp.status),
-          f"{what}: K9 hit/status differ")
     ran = gp.status != 0            # the lanes that ran GJK
-    d9 = int((gk.iters != gp.iters).sum())
-    check(d9 <= 0.01 * isum(ran),
-          f"{what}: K9 iters differ on {d9} of {isum(ran)} GJK lanes")
-    e9 = max(float((gk.sep - gp.sep).abs().max()),
-             float((gk.simplex[ran] - gp.simplex[ran]).abs().max()))
-    check(e9 <= 1e-5, f"{what}: K9 sep/simplex differ by {e9}")
+    caller = torch.arange(p1.shape[0], dtype=torch.int32, device=p1.device)
+    e9 = 0.0
+    for team in (None,) + fused_gjk.TEAMS:
+        for how, o in (("sorted", order), ("caller's order", caller)):
+            gk = (fh.gjk_hull_shape(p1, sb, env.retired, o, cfg) if team is None
+                  else fh._gjk_hull_shape_cuda(p1, sb, env.retired, o, cfg,
+                                               team))
+            torch.cuda.synchronize()
+            err = maxerr((gk.sep, gp.sep), (gk.simplex[ran], gp.simplex[ran]))
+            e9 = max(e9, err)
+            check(rows_equal(gk, gp, ran),
+                  f"{what}: K9 (team {team or 'of the wrapper'}, {how}) rows "
+                  f"are not bit-equal to the plain version (status equal: "
+                  f"{torch.equal(gk.status, gp.status)}, iters differ on "
+                  f"{int((gk.iters != gp.iters).sum())} of {isum(ran)} GJK "
+                  f"lanes, sep/simplex err {err})")
     order, n_act = hit_first_order(gp.hit)
-    args = (p1, sb, gp.simplex, gp.status, order, n_act, fs.shape_stages(cfg))
-    ek, ep = fh.epa_hull_shape(*args), fh.epa_hull_shape_plain(*args)
-    torch.cuda.synchronize()
-    check(torch.equal(ek.status, ep.status), f"{what}: K10 status differs")
-    e10 = max(float((ek.depth - ep.depth).abs().max()),
-              float((ek.normal - ep.normal).abs().max()))
-    check(e10 <= 1e-5, f"{what}: K10 depth/normal differ by {e10}")
-    d10 = int((ek.iters != ep.iters).sum())
-    check(d10 <= 0.01 * int(n_act),
-          f"{what}: K10 iters differ on {d10} of {int(n_act)} lanes")
+    e10 = 0.0
+    for iters in epa_iters:
+        c = cfg if iters is None else cfg.replace(epa_max_iters=iters)
+        args = (p1, sb, gp.simplex, gp.status, order, n_act,
+                fs.shape_stages(c))
+        ek, ep = fh.epa_hull_shape(*args), fh.epa_hull_shape_plain(*args)
+        torch.cuda.synchronize()
+        err = maxerr((ek.depth, ep.depth), (ek.normal, ep.normal))
+        e10 = max(e10, err)
+        check(rows_equal(ek, ep),
+              f"{what}: K10 (epa_max_iters {c.epa_max_iters}) rows are not "
+              f"bit-equal to the plain version (status equal: "
+              f"{torch.equal(ek.status, ep.status)}, depth/normal err {err}, "
+              f"epa_iters differ on {int((ek.iters != ep.iters).sum())} of "
+              f"{int(n_act)} K10 lanes)")
     log(f"{what} K9/K10 vs plain, {p1.shape[0]} x {p1.shape[1]}: "
-        f"{isum(env.retired)} retired, {isum(ran)} GJK lanes, hit/status "
-        f"equal, K9 iters differ on {d9}, err {e9:.3g}; K10 {int(n_act)} "
-        f"lanes, status equal, iters differ on {d10}, depth/normal err "
-        f"{e10:.3g} (tol 1e-5)")
-    return e9, e10, gp, ep, int(n_act)
+        f"{isum(env.retired)} retired, {isum(ran)} GJK lanes; K9 rows bit for "
+        f"bit at teams {[fh.team_size(p1.shape[1])] + list(fused_gjk.TEAMS)} "
+        f"(the wrapper's first), sorted and in the caller's order; K10 "
+        f"{int(n_act)} lanes, rows bit for bit at epa_max_iters "
+        f"{[i or cfg.epa_max_iters for i in epa_iters]}")
+    return e9, e10, gp, int(n_act)
 
 
 def exact_sphere_depth(verts, c, rad):
@@ -724,7 +749,7 @@ def distance_and_mixed_phases(gt, dev, cfg, card, n2=65536, cut=1):
     from gjkepa_tpu_torch.ops import fused_gjk
     from gjkepa_tpu_torch.ops import fused_hull_shapes as fh
     from gjkepa_tpu_torch.ops import fused_shapes as fs
-    from gjkepa_tpu_torch.ops.fused import hit_first_order
+    from gjkepa_tpu_torch.ops.fused import hit_first_order, mask_to_padding
 
     def on_dev(*arrays):
         return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -756,7 +781,22 @@ def distance_and_mixed_phases(gt, dev, cfg, card, n2=65536, cut=1):
     (h3,) = on_dev(hulls)
     s3 = gt.ShapeBatch.from_numpy(*shp, device=dev)
     sb3 = s3.packed()
-    e9, e10, g9, _, n10 = compare_k9_k10(h3, sb3, cfg, "phase 12 c3b")
+    e9, e10, g9, n10 = compare_k9_k10(h3, sb3, cfg, "phase 12 c3b",
+                                      (None, 1, 16, 64))
+    # each remainder mod 4 (K11's single-vertex scan below 24), and hulls
+    # padded through a mask, whose repeated vertices tie exactly
+    keep = torch.from_numpy(np.random.default_rng(9).random(
+        hulls.shape[:2]) > 0.2).to(dev)
+    keep[:, 1] = True
+    padded = mask_to_padding(h3, keep).contiguous()
+    cuts = [(f"N={n}", h3[:, :n].contiguous()) for n in (21, 22, 23)]
+    for what, hv in cuts + [("masked", padded)]:
+        c9, c10, *_ = compare_k9_k10(hv, sb3, cfg, f"phase 12 c3b {what}")
+        e9, e10 = max(e9, c9), max(e10, c10)
+    by_mask = gt.fused_gjkepa_hull_shapes(h3, s3, mask1=keep, cfg=cfg)
+    by_pad = gt.fused_gjkepa_hull_shapes(padded, s3, cfg=cfg)
+    check(all(torch.equal(x, y) for x, y in zip(by_mask, by_pad)),
+          "phase 12: the masked mixed path differs from its padding")
     mixed = gt.fused_gjkepa_hull_shapes(h3, s3, cfg=cfg)
     unsorted = gt.fused_gjkepa_hull_shapes(h3, s3, cfg=cfg, sort_hits=False)
     plain = mixed_plain_path(h3, s3, cfg)
@@ -793,7 +833,8 @@ def distance_and_mixed_phases(gt, dev, cfg, card, n2=65536, cut=1):
           and max(sphere_err) < 5e-3,
           f"phase 12: hull-sphere depth errors {sphere_err}")
     log(f"phase 12 mixed path: c3b {n3b} pairs, {isum(hit)} hits, sort_hits "
-        f"True = False, equal to the plain path, every hit pair apart after "
+        f"True = False, a mask equal to its padding, equal to the plain path, "
+        f"every hit pair apart after "
         f"the shift depth*normal + 1e-3; hull-sphere depth vs the float64 "
         f"projection: max err {max(sphere_err[:12]):.3g} on the first 12 "
         f"hits (tol 2e-3), {max(sphere_err):.3g} on all {len(sphere_err)} "
@@ -884,6 +925,9 @@ def distance_and_mixed_phases(gt, dev, cfg, card, n2=65536, cut=1):
         f"team of {fd.team_size(nd1, nd2, True)}, one pass "
         f"{times['k8_one_pass_c2']:.4f} ms at a team of "
         f"{fd.team_size(nd1, nd2, False)} (K7 at c3: phase 10) [{card}]")
+    log(f"phase 13 K9 at c3b: {times['k9_c3b']:.4f} ms at a team of "
+        f"{fh.team_size(h3.shape[1])}; K10 {times['k10_c3b']:.4f} ms over "
+        f"{n10} hits, a warp a hit [{card}]")
     log(f"phase 13 end to end: c2 {n2} x 64 fused_gjk_distance_hulls "
         f"{n2 / times['path_dist_c2'] * 1e3:,.0f} q/s two-phase, "
         f"{n2 / times['path_dist_c2_one_pass'] * 1e3:,.0f} q/s one pass "
@@ -1248,8 +1292,8 @@ def main() -> int:
     log(f"phase 0 build: {', '.join(p.name for p in libs.values())} "
         f"built and loaded in {time.perf_counter() - t0:.2f} s")
     for src in ("gjk_hulls.cu", "epa_hulls.cu", "epa_shapes.cu",
-                "distance_hulls.cu", "epa_hull_shape.cu", "gjk_hulls_big.cu",
-                "epa_hulls_big.cu"):
+                "distance_hulls.cu", "gjk_hull_shape.cu", "epa_hull_shape.cu",
+                "gjk_hulls_big.cu", "epa_hulls_big.cu"):
         for line in ptxas_report(libs[src].with_suffix(".log").read_text()):
             log(f"phase 0 ptxas {src}: {line}")
 

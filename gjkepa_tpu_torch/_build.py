@@ -35,7 +35,8 @@ SOURCES = ("gjk_hulls.cu", "epa_hulls.cu", "cf_shapes.cu", "gjk_shapes.cu",
            "epa_shapes.cu", "distance_hulls.cu", "gjk_hull_shape.cu",
            "epa_hull_shape.cu", "gjk_hulls_big.cu", "epa_hulls_big.cu")
 HEADERS = ("lane_geom.cuh", "gjk_core.cuh", "epa_core.cuh", "shape_geom.cuh",
-           "hull_shape.cuh", "hull_stream.cuh", "epa_warp.cuh")
+           "hull_shape.cuh", "hull_stream.cuh", "epa_warp.cuh",
+           "epa_polish_warp.cuh")
 NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -68,11 +69,12 @@ ENTRY_POINTS = {
     "epa_shapes_smem_bytes": ("epa_shapes.cu", [_ci]),
     "distance_hulls_launch": ("distance_hulls.cu", [_vp] * 10 + [_ci] * 4
                               + [_cf, _ci, _vp]),
-    "gjk_hull_shape_launch": ("gjk_hull_shape.cu", [_vp] * 10 + [_ci] * 2
+    "gjk_hull_shape_launch": ("gjk_hull_shape.cu", [_vp] * 10 + [_ci] * 3
                               + [_cf] * 4 + [_ci, _vp]),
-    "epa_hull_shape_launch": ("epa_hull_shape.cu", [_vp] * 10
+    "epa_hull_shape_launch": ("epa_hull_shape.cu", [_vp] * 9
                               + [_ci, _ci, _ci, _ip, _ip, _ci, _cf, _cf, _ci,
                                  _vp]),
+    "epa_hull_shape_smem_bytes": ("epa_hull_shape.cu", [_ci]),
 }
 
 

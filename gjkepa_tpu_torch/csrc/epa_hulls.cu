@@ -48,14 +48,8 @@ namespace {
 #define K2_PAIRS 1
 #endif
 constexpr int kPairs = K2_PAIRS;  // P, the warps (pairs) a block
-constexpr size_t kScratchWords = sizeof(WarpScratch) / sizeof(float);
-static_assert(sizeof(WarpScratch) % sizeof(float) == 0, "word-sized scratch");
 
-// One warp's shared memory: its scratch, then its face store.
-__host__ __device__ inline size_t warp_words(int near_faces) {
-  return kScratchWords + (size_t)kFields * near_faces;
-}
-
+// P warps, each its scratch and its near face store (epa_warp.cuh).
 inline size_t smem_bytes(int near_faces) {
   return (size_t)kPairs * warp_words(near_faces) * sizeof(float);
 }

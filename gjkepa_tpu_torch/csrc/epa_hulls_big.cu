@@ -54,9 +54,7 @@ using Support = BlockHullSupport<kWarps>;
 
 // K13's shared memory: the probe exchange, the warp scratch, then the faces.
 constexpr size_t kProbeWords = sizeof(Probe) / sizeof(float);
-constexpr size_t kScratchWords = sizeof(WarpScratch) / sizeof(float);
-static_assert(sizeof(Probe) % sizeof(float) == 0 && sizeof(WarpScratch) % sizeof(float) == 0,
-              "word-sized shared memory regions");
+static_assert(sizeof(Probe) % sizeof(float) == 0, "word-sized probe exchange");
 
 inline size_t smem_bytes(int f_max) {
   return (kProbeWords + kScratchWords + (size_t)kFields * f_max) * sizeof(float);

@@ -2,15 +2,15 @@
 // support map, over one or two face stores.
 //
 // Ports _epa_phase_fast (gjkepa_tpu/ops/fused.py:456-749) and _epa_cascade
-// (:837-873), as epa_core.cuh's epa_tier does for one thread.  Plain
-// PyTorch version: epa_phase and run_cascade in
+// (:837-873) over epa_core.cuh's shared pieces (Tiers, plane_of,
+// write_face).  Plain PyTorch version: epa_phase and run_cascade in
 // gjkepa_tpu_torch/ops/fused_epa.py, whose per-face tensor operations are
 // what the warp computes 32 faces at a time; the reductions' rules in torch
 // are warp_first_min_plain and ballot_rank_plain in
 // gjkepa_tpu_torch/ops/fused_streamed.py.  K2 (epa_hulls.cu) and K13
-// (epa_hulls_big.cu) run it over hull supports, K7 (epa_shapes.cu) over
-// the analytic shape support, which every thread evaluates to the same
-// point.
+// (epa_hulls_big.cu) run it over hull supports, K10 (epa_hull_shape.cu)
+// over a hull against an analytic shape, K7 (epa_shapes.cu) over the
+// analytic shape support, which every thread evaluates to the same point.
 //
 // A face store (PairFaces) is one pair's polytope, [field][face] with
 // f_max faces a field, 17 words a face (epa_core.cuh Field): 14,144 B at
@@ -69,6 +69,16 @@ struct WarpScratch {
   int key[3 * kKMax];    // undirected key of edge row j (edge j / nvis of face j % nvis)
   int hor[3 * kKMax];    // horizon rows, in row order
 };
+
+// WarpScratch in 32-bit words, and one warp's shared memory in the kernels
+// that give each warp its own pair (K2, K7, K10): its scratch, then a face
+// store of `faces` faces.
+constexpr size_t kScratchWords = sizeof(WarpScratch) / sizeof(float);
+static_assert(sizeof(WarpScratch) % sizeof(float) == 0, "word-sized scratch");
+
+__host__ __device__ inline size_t warp_words(int faces) {
+  return kScratchWords + (size_t)kFields * faces;
+}
 
 __device__ __forceinline__ unsigned lanemask_lt() {
   unsigned m;

@@ -17,10 +17,11 @@
 // t of the team reads 4-vertex groups t, t + T, ... as three float4 words
 // each, kGroupUnroll groups loaded before they are folded, so a team's
 // loads cover 48 * T neighbouring bytes; else it reads vertices t, t + T,
-// ..., kUnroll at a time.  K1 (gjk_hulls.cu) and K8 (distance_hulls.cu)
-// run teams of 4-32 threads, K2 (epa_hulls.cu) a warp (T = 32), K12
-// (gjk_hulls_big.cu) and K13 (epa_hulls_big.cu) W warps of one block whose
-// warp results meet in shared memory (BlockHullSupport).
+// ..., kUnroll at a time.  K1 (gjk_hulls.cu), K8 (distance_hulls.cu) and
+// K9 (gjk_hull_shape.cu) run teams of 4-32 threads, K2 (epa_hulls.cu) and
+// K10 (epa_hull_shape.cu) a warp (T = 32), K12 (gjk_hulls_big.cu) and
+// K13 (epa_hulls_big.cu) W warps of one block whose warp results meet in
+// shared memory (BlockHullSupport).
 //
 // The tie rule.  Each thread keeps the first (strict >) maximum of its own
 // vertices in index order, which is the smallest index among its maxima;
@@ -30,9 +31,9 @@
 // every thread of the team ends with the same pair: the smallest index
 // among the maximal dots, which is what the serial scan and torch.argmax
 // return.  A thread that owns no vertex (n < T) enters with (-inf, INT_MAX)
-// and loses every comparison.  The dot keeps first_max_vertex's expression
-// and operation order (built with --fmad=false), so the chosen vertex is
-// the thread-per-pair one.
+// and loses every comparison.  The dot keeps the plain version's
+// expression and operation order (fused_gjk.hull_vertex; built with
+// --fmad=false), so the chosen vertex is torch.argmax's.
 //
 // Every thread of a team must call the support with the same direction:
 // the shuffles take the team's mask.  The GJK and EPA cores are uniform in
@@ -374,8 +375,8 @@ inline int resident_grid(Kernel kernel, int threads, size_t smem, long long need
 }
 
 // The bounding sphere of one row-major (N, 3) hull for a team of T: the
-// centroid summed in vertex order by every thread (lane_geom.cuh
-// bounding_sphere's rounding: a tree sum would move the broadphase verdict
+// centroid summed in vertex order by every thread (a serial scan's
+// rounding: a tree sum would move the broadphase verdict
 // near its boundary), from float4 words where the hull reads as groups,
 // and the radius, a max, split across the team.
 template <int T>

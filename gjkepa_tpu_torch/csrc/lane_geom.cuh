@@ -140,47 +140,8 @@ __device__ __forceinline__ P3 vec_pl(P3 p, P3 a, P3 b, float eps_zero) {
   return utz(sub(foot, p), eps_zero);
 }
 
-// Index of the first vertex of a row-major (N, 3) hull maximising <v, d>,
-// or -<v, d> when kNeg (side 2 of the Minkowski support), in vertex order
-// (strict >, as the reference's scan and torch.argmax).
-template <bool kNeg>
-__device__ __forceinline__ int first_max_vertex(const float* __restrict__ v, int n, P3 d) {
-  float best = v[0] * d.x + v[1] * d.y + v[2] * d.z;
-  if (kNeg) best = -best;
-  int idx = 0;
-  for (int i = 1; i < n; ++i) {
-    float t = v[3 * i] * d.x + v[3 * i + 1] * d.y + v[3 * i + 2] * d.z;
-    if (kNeg) t = -t;
-    if (t > best) {
-      best = t;
-      idx = i;
-    }
-  }
-  return idx;
-}
-
 __device__ __forceinline__ P3 vertex(const float* __restrict__ v, int i) {
   return mk(v[3 * i], v[3 * i + 1], v[3 * i + 2]);
-}
-
-// Centroid (sum / n, vertex order) and largest centroid-vertex distance of
-// one row-major (N, 3) hull: the bounding sphere of the broadphase.
-__device__ __forceinline__ void bounding_sphere(const float* __restrict__ v, int n, P3* c,
-                                                float* r) {
-  float sx = 0.0f, sy = 0.0f, sz = 0.0f;
-  for (int i = 0; i < n; ++i) {
-    sx += v[3 * i];
-    sy += v[3 * i + 1];
-    sz += v[3 * i + 2];
-  }
-  float fn = (float)n;
-  *c = mk(sx / fn, sy / fn, sz / fn);
-  float rr = 0.0f;
-  for (int i = 0; i < n; ++i) {
-    float dx = v[3 * i] - c->x, dy = v[3 * i + 1] - c->y, dz = v[3 * i + 2] - c->z;
-    rr = fmaxf(rr, sqrtf(dx * dx + dy * dy + dz * dz));
-  }
-  *r = rr;
 }
 
 }  // namespace gjkepa

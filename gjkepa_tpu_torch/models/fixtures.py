@@ -30,6 +30,7 @@ import numpy as np
 
 __all__ = ["c3_pairs", "c3_shuffled", "mixed16_pairs", "kind_batch", "concat",
            "permute", "random_hulls", "c2_hulls", "c3b_pairs",
+           "hull_kind_pairs",
            "big_pairs_8192", "big_subhull_pairs", "big_c2_pairs",
            "large_hulls", "tie_pairs"]
 
@@ -146,19 +147,12 @@ def c2_hulls(seed: int = 0, n: int = 65536, verts: int = 64):
     return _c2_draws(np.random.default_rng(seed), n, verts)
 
 
-def c3b_pairs(seed: int = 0):
-    """bench.py's config 3b (:252-268): 16,384 24-vertex hulls and a quarter
-    each of spheres, boxes, capsules and cylinders at positions ~ N(0,
-    0.8^2), identity rotations.  Drawn after config 2's hulls from the same
-    generator, as the bench does.  Returns (hulls, (kind, params, pos,
-    rot))."""
-    rng = np.random.default_rng(seed)
-    _c2_draws(rng, 65536, 64)
-    b, q = 16384, 16384 // 4
-    hulls = random_hulls(rng, b, 24)
-
+def _four_kinds(rng, q: int, spread: float):
+    """A quarter each of spheres, boxes, capsules and cylinders (``q`` of
+    each) at positions ~ N(0, spread^2), identity rotations, drawn as
+    bench.py's config 3b draws them (:258-268)."""
     def pos():
-        return rng.normal(size=(q, 3)).astype(np.float32) * 0.8
+        return rng.normal(size=(q, 3)).astype(np.float32) * spread
 
     def u(lo, width, shape=q):
         return lo + width * rng.random(shape).astype(np.float32)
@@ -169,7 +163,30 @@ def c3b_pairs(seed: int = 0):
     cap = _shapes(2, _col3(r, u(0.25, 0.25)), pos())
     r = u(0.2, 0.25)
     cyl = _shapes(3, _col3(r, u(0.25, 0.25)), pos())
-    return hulls, concat(sph, box, cap, cyl)
+    return concat(sph, box, cap, cyl)
+
+
+def c3b_pairs(seed: int = 0):
+    """bench.py's config 3b (:252-268): 16,384 24-vertex hulls and a quarter
+    each of spheres, boxes, capsules and cylinders at positions ~ N(0,
+    0.8^2), identity rotations.  Drawn after config 2's hulls from the same
+    generator, as the bench does.  Returns (hulls, (kind, params, pos,
+    rot))."""
+    rng = np.random.default_rng(seed)
+    _c2_draws(rng, 65536, 64)
+    b = 16384
+    hulls = random_hulls(rng, b, 24)
+    return hulls, _four_kinds(rng, b // 4, 0.8)
+
+
+def hull_kind_pairs(seed: int, b: int, n: int, spread: float = 0.8):
+    """c3b's recipe at other sizes: ``b`` hulls of ``n`` vertices against a
+    quarter each of the four kinds, hull centres and shape positions ~ N(0,
+    spread^2) (c3b: 0.8; smaller, more hits).  Returns (hulls, (kind,
+    params, pos, rot))."""
+    rng = np.random.default_rng(seed)
+    hulls = random_hulls(rng, b, n, spread)
+    return hulls, _four_kinds(rng, b // 4, spread)
 
 
 # -- large hulls --------------------------------------------------------------

@@ -5,10 +5,11 @@ Ports from ``gjkepa_tpu/ops/fused.py`` the mixed kernels
 (K10, :2588) with ``_make_hull_shape_support`` (:2544) and
 ``_hull_shape_broadphase`` (:2561), and the dispatch
 ``fused_gjkepa_hull_shapes`` (:2620-2758).  The CUDA kernels are
-``csrc/gjk_hull_shape.cu`` and ``csrc/epa_hull_shape.cu`` over the support
-functor of ``csrc/hull_shape.cuh``; each has its plain PyTorch version here.
-A wrapper takes the plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises.
+``csrc/gjk_hull_shape.cu`` (a team of :func:`team_size` threads a pair) and
+``csrc/epa_hull_shape.cu`` (a warp a hit, the polytope in shared memory)
+over the team support of ``csrc/hull_shape.cuh``; each has its plain
+PyTorch version here.  A wrapper takes the plain version only for tensors
+on the CPU; for CUDA tensors it launches the kernel or raises.
 
 Side A is a (B, N, 3) float32 hull, side B an analytic shape
 (:class:`ShapeBatch`, read by the kernels as packed (B, 16) rows).  The
@@ -45,7 +46,9 @@ from .fused import FusedResult, hit_first_order, mask_to_padding, round_cfg
 from .fused_epa import EPARows, MAX_TIERS, check_stages, check_tensors
 from .fused_epa import _passthrough as _miss_rows
 from .fused_epa import run_cascade
-from .fused_gjk import INIT_DIRS, GJKRows, gjk_phase, hull_sphere, hull_vertex
+from .fused_gjk import (INIT_DIRS, TEAMS, GJKRows, gjk_phase, hull_sphere,
+                        hull_vertex)
+from .fused_gjk import team_size as k1_team_size
 from .fused_shapes import (empty_gjk_rows, gjk_args, polish_direction,
                            shape_stages)
 from .lane_geom import P3, fsqrt, pnorm
@@ -54,8 +57,8 @@ from .shape_geom import (Shape, shape_of, shape_radius, shape_support_side,
 
 __all__ = ["fused_gjkepa_hull_shapes", "hull_shape_retirement",
            "make_hull_shape_support", "hull_shape_broadphase",
-           "gjk_hull_shape", "gjk_hull_shape_plain", "epa_hull_shape",
-           "epa_hull_shape_plain", "LAUNCHES"]
+           "gjk_hull_shape", "gjk_hull_shape_plain", "team_size",
+           "epa_hull_shape", "epa_hull_shape_plain", "LAUNCHES"]
 
 # Kernel launches made by the wrappers below (CUDA tensors only).
 LAUNCHES = {"gjk_hull_shape": 0, "epa_hull_shape": 0}
@@ -164,20 +167,39 @@ def gjk_hull_shape_plain(p1, sb, retired, order, cfg: GJKEPAConfig
     return out
 
 
-def gjk_hull_shape(p1, sb, retired, order, cfg: GJKEPAConfig) -> GJKRows:
-    """K9: GJK over every hull-shape pair, thread i taking pair
-    ``order[i]``."""
-    _check_k9(p1, sb, retired, order)
-    if not _build.on_card(p1, "K9"):
-        return gjk_hull_shape_plain(p1, sb, retired, order, cfg)
-    out = empty_gjk_rows(p1.shape[0], p1.device)
+def team_size(n1: int) -> int:
+    """Threads of K9 that share one pair (a divisor of the 32-thread warp):
+    K1's crossovers (``fused_gjk.TEAM_MAX_VERTICES``) by the hull's size.
+    On an H100 they came within 1.5% of K9's fastest team at 24, 256 and
+    1,024 vertices (``scripts/torch_kernel_sweep.py k9``, PERF.md)."""
+    return k1_team_size(n1, n1)
+
+
+def _gjk_hull_shape_cuda(p1, sb, retired, order, cfg: GJKEPAConfig,
+                         team: int | None = None) -> GJKRows:
+    """K9 on the card; ``team`` (threads a pair, one of TEAMS) defaults to
+    :func:`team_size`."""
+    b, n1 = p1.shape[:2]
+    if team is None:
+        team = team_size(n1)
+    if team not in TEAMS:
+        raise ValueError(f"K9 team of {team} threads, expected one of {TEAMS}")
+    out = empty_gjk_rows(b, p1.device)
     ptr = _build.ptr
     _build.launch("gjk_hull_shape", p1.device, LAUNCHES, ptr(p1), ptr(sb),
                   ptr(retired), ptr(order),
                   INIT_DIRS.ctypes.data_as(ctypes.c_void_p),
-                  *(ptr(t) for t in out), p1.shape[0], p1.shape[1],
-                  *gjk_args(cfg))
+                  *(ptr(t) for t in out), b, n1, team, *gjk_args(cfg))
     return out
+
+
+def gjk_hull_shape(p1, sb, retired, order, cfg: GJKEPAConfig) -> GJKRows:
+    """K9: GJK over every hull-shape pair, team j taking pair
+    ``order[j]``."""
+    _check_k9(p1, sb, retired, order)
+    if not _build.on_card(p1, "K9"):
+        return gjk_hull_shape_plain(p1, sb, retired, order, cfg)
+    return _gjk_hull_shape_cuda(p1, sb, retired, order, cfg)
 
 
 # -- K10 ----------------------------------------------------------------------
@@ -222,7 +244,10 @@ def epa_hull_shape_plain(p1, sb, simplex, status, order, n_act,
 
 
 def epa_hull_shape(p1, sb, simplex, status, order, n_act, stages) -> EPARows:
-    """K10 over pairs ``order[:n_act]`` (``n_act`` a device scalar)."""
+    """K10 over pairs ``order[:n_act]`` (``n_act`` a device scalar), a warp
+    a hit with its polytope in shared memory.  Raises, naming the bytes,
+    for a face capacity whose store does not fit in a block's shared
+    memory (the shape ladder's 48 faces take 4,416 B a warp)."""
     _check_epa(p1, sb, simplex, status, order, n_act)
     check_stages(stages)
     if not _build.on_card(p1, "K10"):
@@ -235,14 +260,13 @@ def epa_hull_shape(p1, sb, simplex, status, order, n_act, stages) -> EPARows:
     tier_f = (ctypes.c_int * MAX_TIERS)(*[c.epa_max_faces for c, _ in stages])
     tier_k = (ctypes.c_int * MAX_TIERS)(*[k for _, k in stages])
     out = _miss_rows(status, b, dev)
-    # per-lane polytope state, [field][face][lane] (see csrc/epa_core.cuh)
-    scratch = torch.empty((lib.epa_scratch_words_per_face(), f_max, b),
-                          dtype=torch.float32, device=dev)
     ptr = _build.ptr
     _build.launch("epa_hull_shape", dev, LAUNCHES, ptr(p1), ptr(sb),
                   ptr(simplex), ptr(order), ptr(n_act), *(ptr(t) for t in out),
-                  ptr(scratch), b, p1.shape[1], len(stages), tier_f, tier_k,
-                  f_max, cfg.eps_coincide, cfg.eps_zero, cfg.epa_max_iters)
+                  b, p1.shape[1], len(stages), tier_f, tier_k, f_max,
+                  cfg.eps_coincide, cfg.eps_zero, cfg.epa_max_iters,
+                  explain=_build.smem_refusal(lib.epa_hull_shape_smem_bytes,
+                                              f_max, dev))
     return out
 
 

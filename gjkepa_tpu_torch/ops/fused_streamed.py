@@ -84,23 +84,31 @@ def streamed_broadphase(p1: torch.Tensor, p2: torch.Tensor, tol,
     return hull_broadphase(pad_tile(p1, tile), pad_tile(p2, tile), tol)
 
 
-def warp_first_max_plain(dots: torch.Tensor, width: int = WARP
-                         ) -> torch.Tensor:
+def warp_first_max_plain(dots: torch.Tensor, width: int = WARP,
+                         group: int = 1) -> torch.Tensor:
     """K11's reduction over (B, N) dots in torch: thread t of a ``width``
-    warp keeps the first maximum of columns t, t + width, ...; then
-    log2(width) xor-shuffle steps keep the larger value, and on an equal
-    value the smaller index.  Returns the (B,) int64 index every thread
-    ends with (held to ``torch.argmax``, the first maximum)."""
+    warp keeps the first maximum of its columns in index order, the
+    ``group`` columns from (t + width * k) * group on, k = 0, 1, ... (the
+    kernels read 4-vertex groups, ``group=4``, where N % 4 == 0, single
+    vertices otherwise); then log2(width) xor-shuffle steps keep the larger
+    value, and on an equal value the smaller index.  Returns the (B,) int64
+    index every thread ends with (held to ``torch.argmax``, the first
+    maximum)."""
     b, n = dots.shape
-    cols = -(-n // width) * width
+    cols = -(-n // (width * group)) * width * group
     vals = torch.full((b, cols), -torch.inf, dtype=dots.dtype,
                       device=dots.device)
     vals[:, :n] = dots
     idx = torch.arange(cols, device=dots.device).expand(b, -1)
     idx = torch.where(idx < n, idx, torch.iinfo(torch.int32).max)
-    # thread t owns column t + width * k, k = 0, 1, ...: row k of the view
-    vals = vals.view(b, -1, width)
-    idx = idx.reshape(b, -1, width)
+
+    def by_thread(x):
+        """Column (k * width + t) * group + j as row k * group + j of
+        thread t's column: each thread's columns in its scan order."""
+        return x.reshape(b, -1, width, group).transpose(2, 3).reshape(
+            b, -1, width)
+
+    vals, idx = by_thread(vals), by_thread(idx)
     best, bidx = vals[:, 0], idx[:, 0]
     for k in range(1, vals.shape[1]):
         take = vals[:, k] > best                     # strict: first wins

@@ -9,6 +9,8 @@ Usage, from the root of a checkout:
     python3 scripts/torch_kernel_sweep.py k12
     python3 scripts/torch_kernel_sweep.py k8
     python3 scripts/torch_kernel_sweep.py k7
+    python3 scripts/torch_kernel_sweep.py k9
+    python3 scripts/torch_kernel_sweep.py k10
     python3 scripts/torch_kernel_sweep.py times [--root DIR] [--tag NAME]
 
 ``teams``: K1 (``csrc/gjk_hulls.cu``) runs a team of T threads a pair, T
@@ -55,11 +57,27 @@ runs each build at c3 (chip_smoke.py's inputs) and on a dense
 all-cylinder batch (16,384 pairs, most of them hits), bit for bit
 against the plain version, and prints each one's device time.
 
+``k9``: K9 (``csrc/gjk_hull_shape.cu``) runs a team of T threads a pair,
+T picked by ``fused_hull_shapes.team_size`` from the hull size.  This runs
+every T of ``fused_gjk.TEAMS`` at c3b (chip_smoke.py's inputs) and on
+4,096 hulls of 256 and of 1,024 vertices against the four kinds
+(``fixtures.hull_kind_pairs``), each bit for bit against the plain
+version, and prints each one's device time, the GJK iteration counts
+(mean, 99th percentile, max) and, at c3b, the wrapper's team's time
+without the pairs above the 99th percentile of iterations (the chain that
+sets a launch's length).
+
+``k10``: K10 (``csrc/epa_hull_shape.cu``) runs a warp a hit, 1 warp a
+block.  This rebuilds that source with ``-DK10_WARPS=W`` for W = 1, 2 and
+4 and runs each build at c3b and on a denser mixed batch (16,384 x 24
+hulls and shapes at positions ~ N(0, 0.2^2), most pairs hits), bit
+for bit against the plain version, and prints each one's device time.
+
 ``times``: device times of K1 (c4, c2), K2 (c4), K7 (c3), K8 (c2: phase
-1, phase 2 and one pass), K10 (c3b), K12 and K13 (4096 x 2600, 256 x
-8192), chip_smoke.py's inputs, and the walls of the hull paths at c4, c2,
-4096 x 2600 and 256 x 8192, of the distance path at c2 (two-phase and one
-pass) and of the shape path at c3, from the package under DIR (default:
+1, phase 2 and one pass), K9 and K10 (c3b), K12 and K13 (4096 x 2600, 256
+x 8192), chip_smoke.py's inputs, and the walls of the hull paths at c4,
+c2, 4096 x 2600 and 256 x 8192, of the distance path at c2 (two-phase and
+one pass), of the shape path at c3 and of the mixed path at c3b, from the package under DIR (default:
 this checkout), so that a parent and a change can be timed in turn on one
 card.  Prints one JSON line tagged NAME.
 
@@ -503,6 +521,123 @@ def k7(cs, dev, card) -> None:
     print(json.dumps({"k7_warps": table, "card": card}), flush=True)
 
 
+# -- k9 ------------------------------------------------------------------------
+
+def _mixed_rows(dev, pairs):
+    """The K9 inputs of chip_smoke.py phase 12 from numpy (hulls, shapes):
+    hulls, shape rows, the retirement and its active-first order."""
+    from gjkepa_tpu_torch import GJKEPAConfig, ShapeBatch
+    from gjkepa_tpu_torch.ops import fused_hull_shapes as fh
+    from gjkepa_tpu_torch.ops.fused import hit_first_order
+    hulls, shapes = pairs
+    (p1,) = on_card(dev, hulls)
+    sb = ShapeBatch.from_numpy(*shapes, device=dev).packed()
+    env = fh.hull_shape_retirement(p1, sb, GJKEPAConfig.for_f32())
+    order, _ = hit_first_order(~env.retired)
+    return p1, sb, env.retired, order
+
+
+def k9(cs, dev, card) -> None:
+    from gjkepa_tpu_torch import GJKEPAConfig
+    from gjkepa_tpu_torch.models import fixtures
+    from gjkepa_tpu_torch.ops import fused_gjk
+    from gjkepa_tpu_torch.ops import fused_hull_shapes as fh
+    from gjkepa_tpu_torch.ops.fused import hit_first_order
+    cfg = GJKEPAConfig.for_f32()
+    cases = (("c3b", fixtures.c3b_pairs()),
+             ("4096 x 256", fixtures.hull_kind_pairs(2, 4096, 256)),
+             ("4096 x 1024", fixtures.hull_kind_pairs(3, 4096, 1024)))
+    table = []
+    for what, pairs in cases:
+        p1, sb, retired, order = _mixed_rows(dev, pairs)
+        n = p1.shape[1]
+        want = fh.gjk_hull_shape_plain(p1, sb, retired, order, cfg)
+        ran = want.status != 0
+        it = want.iters[ran].float()
+        row = {"case": what, "pairs": p1.shape[0], "vertices": n,
+               "gjk_lanes": int(ran.sum()), "mean_iters": float(it.mean()),
+               "p99_iters": float(torch.quantile(it, 0.99)),
+               "max_iters": int(it.max()), "rule": fh.team_size(n)}
+        for t in fused_gjk.TEAMS:
+            def fn(t=t, p1=p1, sb=sb, retired=retired, order=order):
+                return fh._gjk_hull_shape_cuda(p1, sb, retired, order, cfg, t)
+            got = fn()
+            torch.cuda.synchronize()
+            if not rows_equal(got, want, ran):
+                raise AssertionError(f"K9 at a team of {t} differs from plain "
+                                     f"at {what}")
+            row[f"T{t}"] = cs.device_ms(fn)
+        row["fastest"] = min(fused_gjk.TEAMS, key=lambda t: row[f"T{t}"])
+        if what == "c3b":
+            # the same pairs without the longest GJK chains
+            keep = ~(ran & (want.iters > row["p99_iters"]))
+            q1, qs, qr = (x[keep].contiguous() for x in (p1, sb, retired))
+            qo, _ = hit_first_order(~qr)
+            row["rule_without_p99_tail"] = cs.device_ms(
+                lambda: fh._gjk_hull_shape_cuda(q1, qs, qr, qo, cfg))
+            row["rule_caller_order"] = cs.device_ms(
+                lambda: fh._gjk_hull_shape_cuda(
+                    p1, sb, retired, torch.arange(p1.shape[0],
+                                                  dtype=torch.int32,
+                                                  device=dev), cfg))
+        table.append(row)
+        print(f"K9 {what}: {row['gjk_lanes']} GJK lanes, iters mean "
+              f"{row['mean_iters']:.3f}, p99 {row['p99_iters']:.0f}, max "
+              f"{row['max_iters']}; every team bit-equal to plain; "
+              + ", ".join(f"T={t} {row[f'T{t}']:.4f}" for t in fused_gjk.TEAMS)
+              + f" ms; fastest T={row['fastest']}, rule T={row['rule']}"
+              + (f"; rule without the pairs above p99 "
+                 f"{row['rule_without_p99_tail']:.4f} ms, in the caller's "
+                 f"order {row['rule_caller_order']:.4f} ms"
+                 if what == "c3b" else "") + f" [{card}]", flush=True)
+        del p1, sb, retired, order, want
+        torch.cuda.empty_cache()
+    print(json.dumps({"k9_teams": table, "card": card}), flush=True)
+
+
+# -- k10 -----------------------------------------------------------------------
+
+K10_WARPS = (1, 2, 4)
+
+
+def k10(cs, dev, card) -> None:
+    from gjkepa_tpu_torch import GJKEPAConfig, _build
+    from gjkepa_tpu_torch.models import fixtures
+    from gjkepa_tpu_torch.ops import fused_hull_shapes as fh
+    from gjkepa_tpu_torch.ops import fused_shapes as fs
+    from gjkepa_tpu_torch.ops.fused import hit_first_order
+    cfg = GJKEPAConfig.for_f32()
+    builds = variants(cs, "epa_hull_shape.cu", {w: {"K10_WARPS": w}
+                                                for w in K10_WARPS})
+    cases = (("c3b", fixtures.c3b_pairs()),
+             ("dense 16384 x 24", fixtures.hull_kind_pairs(1, 16384, 24,
+                                                           0.2)))
+    table = []
+    for what, pairs in cases:
+        p1, sb, retired, order = _mixed_rows(dev, pairs)
+        g = fh.gjk_hull_shape_plain(p1, sb, retired, order, cfg)
+        o10, n10 = hit_first_order(g.hit)
+        args = (p1, sb, g.simplex, g.status, o10, n10, fs.shape_stages(cfg))
+        want = fh.epa_hull_shape_plain(*args)
+        lanes = want.iters > 0
+        row = {"case": what, "hits": int(n10),
+               "mean_epa_iters": float(want.iters[lanes].float().mean())}
+        for w, ns in builds.items():
+            with mock.patch.object(_build, "load", lambda ns=ns: ns):
+                got = fh.epa_hull_shape(*args)
+                torch.cuda.synchronize()
+                if not rows_equal(got, want):
+                    raise AssertionError(f"K10 at W={w} differs from plain "
+                                         f"at {what}")
+                row[f"W{w}"] = cs.device_ms(lambda: fh.epa_hull_shape(*args))
+        table.append(row)
+        print(f"K10 {what}: {row['hits']} hits, mean epa_iters "
+              f"{row['mean_epa_iters']:.3f}; every W bit-equal to plain; "
+              + ", ".join(f"W={w} {row[f'W{w}']:.4f}" for w in K10_WARPS)
+              + f" ms [{card}]", flush=True)
+    print(json.dumps({"k10_warps": table, "card": card}), flush=True)
+
+
 # -- times ---------------------------------------------------------------------
 
 def times(cs, dev, card, tag) -> None:
@@ -537,7 +672,8 @@ def times(cs, dev, card, tag) -> None:
           c5.depth, c5.normal, o7, n7, fs.shape_stages(cfg))
     hulls, shp = fixtures.c3b_pairs()                # chip_smoke.py phase 13
     (h3,) = on_dev(hulls)
-    sb = gt.ShapeBatch.from_numpy(*shp, device=dev).packed()
+    s3 = gt.ShapeBatch.from_numpy(*shp, device=dev)
+    sb = s3.packed()
     env = fh.hull_shape_retirement(h3, sb, cfg)
     o9, _ = hit_first_order(~env.retired)
     g9 = fh.gjk_hull_shape_plain(h3, sb, env.retired, o9, cfg)
@@ -558,6 +694,7 @@ def times(cs, dev, card, tag) -> None:
         "k8_phase2_c2": lambda: fd.distance_hulls(d1, d2, cfg, 64, o8, n8,
                                                   out=rows8),
         "k8_one_pass_c2": lambda: fd.distance_hulls(d1, d2, cfg, 64),
+        "k9_c3b": lambda: fh.gjk_hull_shape(h3, sb, env.retired, o9, cfg),
         "k10_c3b": lambda: fh.epa_hull_shape(*k10),
     }
     walls = {
@@ -568,6 +705,7 @@ def times(cs, dev, card, tag) -> None:
         "path_dist_c2_one_pass": lambda: gt.fused_gjk_distance_hulls(
             d1, d2, cfg=cfg, two_phase=False),
         "path_c3": lambda: gt.fused_gjkepa_shapes(a3, b3, cfg=cfg),
+        "path_c3b": lambda: gt.fused_gjkepa_hull_shapes(h3, s3, cfg=cfg),
     }
     for key, pair in (("2600", fixtures.big_c2_pairs()),        # phase 15
                       ("8192", fixtures.big_pairs_8192())):
@@ -600,7 +738,7 @@ def times(cs, dev, card, tag) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("what", choices=("teams", "warps", "k2", "k12", "k8", "k7",
-                                     "times"))
+                                     "k9", "k10", "times"))
     ap.add_argument("--root", type=Path, default=ROOT,
                     help="checkout whose gjkepa_tpu_torch `times` imports")
     ap.add_argument("--tag", default="change")
@@ -612,7 +750,7 @@ def main() -> int:
     cs = _chip_smoke()
     dev, card = torch.device("cuda", 0), card_name()
     {"teams": teams, "warps": warps, "k2": k2, "k12": k12, "k8": k8,
-     "k7": k7}.get(
+     "k7": k7, "k9": k9, "k10": k10}.get(
         a.what, lambda *x: times(*x, a.tag))(cs, dev, card)
     return 0
 

@@ -1,5 +1,5 @@
 """K2's face stores by size, in plain Python, at their byte boundaries,
-and K7's store, which always fits.
+and K7's and K10's store, which always fits.
 
 K2 (csrc/epa_hulls.cu) keeps a tier's polytope in shared memory where its
 store fits, and in device memory otherwise (``fused_epa.k2_near_faces``,
@@ -10,7 +10,10 @@ P warps, each 1,152 B of scratch and 68 B a face.  K7 (csrc/epa_shapes.cu)
 keeps its one store in shared memory and has no device store: the shape
 ladder (``fused_shapes.shape_stages``) is 48 faces at every
 ``epa_max_iters``, so a block of W warps takes W * (1,152 + 68 * 48) B
-(``epa_shapes_smem_bytes`` on the card).  K12's staged-or-scanned choice
+(``epa_shapes_smem_bytes`` on the card).  K10 (csrc/epa_hull_shape.cu)
+runs the same kernel (csrc/epa_polish_warp.cuh) over the mixed path's
+ladder, the same ``shape_stages``, with its own block size
+(``epa_hull_shape_smem_bytes``).  K12's staged-or-scanned choice
 is its C launcher's (``gjk_hulls_big_staged``), held on the card.
 """
 
@@ -115,5 +118,18 @@ def test_k7_block_fits_shared_memory(warps):
     cfg = GJKEPAConfig.for_f32()
     f_max = max(c.epa_max_faces for c, _ in fused_shapes.shape_stages(cfg))
     need = k7_bytes(warps)(f_max)
+    assert need == warps * 4416
+    assert need <= 48 * 1024 < H100_LIMIT
+
+
+@pytest.mark.parametrize("warps", [1, 2, 4])
+def test_k10_block_fits_shared_memory(warps):
+    """At each block size the K10 sweep takes (1, 2 and 4 warps), K10's
+    block at the mixed path's ladder (48 faces) fits within the default
+    48 KB of shared memory: no opt-in, no refusal on the main path."""
+    stages = fused_shapes.shape_stages(GJKEPAConfig.for_f32())
+    f_max = max(c.epa_max_faces for c, _ in stages)
+    assert f_max == 48
+    need = k7_bytes(warps)(f_max)       # the same kernel and layout as K7
     assert need == warps * 4416
     assert need <= 48 * 1024 < H100_LIMIT

@@ -1,7 +1,8 @@
 """The team and warp reductions of the port's kernels, modelled in torch.
 
-K1 (csrc/gjk_hulls.cu) scans a pair's hulls with a team of 4-32 threads,
-K12 with a warp and K13 with a block of warps, all reducing (dot, vertex)
+K1 (csrc/gjk_hulls.cu) and K9 (csrc/gjk_hull_shape.cu) scan a pair's
+hulls with a team of 4-32 threads, K10 with a warp, K12 with a warp and
+K13 with a block of warps, all reducing (dot, vertex)
 pairs under one total order (csrc/hull_stream.cuh); K13's EPA tier
 (csrc/epa_warp.cuh) splits its face scans across a warp with a
 (distance, face) reduction and ballot/prefix ranks; K8
@@ -19,8 +20,11 @@ import numpy as np
 import pytest
 import torch
 
+from gjkepa_tpu_torch.models import fixtures
 from gjkepa_tpu_torch.ops import fused_distance as fd
 from gjkepa_tpu_torch.ops import fused_gjk
+from gjkepa_tpu_torch.ops import fused_hull_shapes as fh
+from gjkepa_tpu_torch.ops.fused import mask_to_padding
 from gjkepa_tpu_torch.ops import fused_streamed as fst
 from gjkepa_tpu_torch.ops.fused_epa import BIG
 
@@ -70,6 +74,48 @@ def test_team_sizes_are_the_kernels():
             513: 32, 2048: 32, 8192: 32}
     for n, t in want.items():
         assert fused_gjk.team_size(n, 1) == fused_gjk.team_size(1, n) == t
+
+
+def test_k9_team_rule_is_k1s_crossovers():
+    """K9's team for a hull of N = 1..2048 vertices: K1's crossovers (4 up
+    to 64 vertices, 8 up to 256, 16 up to 512, then 32), each a team that
+    divides the warp."""
+    for n in range(1, 2049):
+        want = 4 if n <= 64 else 8 if n <= 256 else 16 if n <= 512 else 32
+        assert fh.team_size(n) == want, n
+        assert 32 % fh.team_size(n) == 0
+
+
+def _padded_hull_dots(n, seed):
+    """(B, N) dots of hulls padded through a mask (20% of the rows out,
+    each replaced by the hull's first valid vertex, as ``mask1`` does),
+    along random directions, computed as the kernels compute them."""
+    rng = np.random.default_rng(seed)
+    hulls = torch.from_numpy(fixtures.random_hulls(rng, 64, n))
+    keep = torch.from_numpy(rng.random((64, n)) > 0.2)
+    keep[:, 0] = False                  # the copied vertex is not vertex 0
+    keep[:, 1] = True
+    p = mask_to_padding(hulls, keep)
+    d = torch.from_numpy(rng.normal(size=(64, 64, 3)).astype(np.float32))
+    dots = (p[:, None, :, 0] * d[:, :, None, 0]
+            + p[:, None, :, 1] * d[:, :, None, 1]
+            + p[:, None, :, 2] * d[:, :, None, 2])
+    return dots.reshape(-1, n)
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("n", [21, 22, 23, 24, 63, 64])
+def test_team_first_max_on_padded_hulls(n, width):
+    """K9's and K10's hull scan (TeamHullShapeSupport) at every team width
+    on hulls padded by a repeated vertex, whose copies tie exactly, and at
+    N % 4 != 0: the first maximum, torch.argmax, read by single vertices
+    and, where N % 4 == 0, by the kernels' 4-vertex groups."""
+    dots = _padded_hull_dots(n, 100 + n)
+    top = dots.max(dim=1, keepdim=True).values
+    assert int(((dots == top).sum(dim=1) > 1).sum()) > 50    # tied maxima
+    want = torch.argmax(dots, dim=1)
+    for group in (1, 4) if n % 4 == 0 else (1,):
+        assert torch.equal(fst.warp_first_max_plain(dots, width, group), want)
 
 
 def _face_states(f, seed):
