@@ -15,8 +15,9 @@ warps a hit with the polytope in shared memory (``csrc/epa_hulls_big.cu``
 over ``csrc/epa_warp.cuh``), all over the team support K11
 (``csrc/hull_stream.cuh``).  The
 shape path is the analytic-shape query, ``fused_gjkepa_shapes`` and
-``collide_shapes_batch_fused``: K5, the closed-form kernel
-(``csrc/cf_shapes.cu``), K6a over the GJK lanes or K6b over all lanes
+``collide_shapes_batch_fused``: K5, the closed-form kernel, a thread a
+pair (``csrc/cf_shapes.cu``), K6a, GJK a quad of threads a pair over the
+GJK lanes (``csrc/gjk_quad.cuh``), or K6b over all lanes
 (``csrc/gjk_shapes.cu``), then K7, the capped EPA cascade with the polish,
 a warp a hit with the polytope in shared memory (``csrc/epa_shapes.cu``
 over ``csrc/epa_warp.cuh``).  The distance path,
@@ -32,8 +33,7 @@ every kernel from the sources in the checkout (one nvcc per source, all at
 once) and runs, in phases:
 
   0. environment: card name and power limit, torch and CUDA versions, build,
-     and the registers and spills of K1, K2, K7, K8, K9, K10, K12 and K13
-     (``-Xptxas -v``);
+     and every kernel's registers, stack and spills (``-Xptxas -v``);
   1. K1 against its plain PyTorch version on the card (4096 x 64, 4096 x
      63 and 1024 x 2047 vertices), bit for bit;
   2. K2 against its plain version, bit for bit: 2048 deep pairs x 24
@@ -50,10 +50,12 @@ once) and runs, in phases:
   6. timings, kernel path against plain path at the phase-5 sizes, and K1
      at each team size at c4 and c2 (each bit-equal to the wrapper's
      team);
-  7. K5, K6a, K6b and K7 against their plain versions on bench.py's c3
-     pairs (65,536, seed 0), the 16 rotated kind combinations (16,384) and
-     a dense all-cylinder batch (16,384, nearly all lanes in GJK); K7's
-     rows bit for bit, also at epa_max_iters 1 and 64 on c3;
+  7. K5, K6a, K6b and K7 against their plain versions, rows bit for bit,
+     on bench.py's c3 pairs (65,536, seed 0) in natural and shuffled
+     order, the 16 rotated kind combinations (16,384), a dense
+     all-cylinder batch (16,384, nearly all lanes in GJK), c3's first
+     65,533 pairs and sphere pairs (no GJK lane); also at epa_max_iters 1
+     and 64 on c3;
   8. known shape geometry: spheres at 1.5 (depth 0.5 exactly), sphere-box
      and box-box closed-form depths;
   9. the shape path at full size (c3, 65,536 pairs): natural and shuffled
@@ -61,7 +63,11 @@ once) and runs, in phases:
      call with the shape kernels' launch counters set to 0 just before it
      and its exact launches checked just after; then the whole result
      against the plain path;
- 10. timings of each shape kernel against its plain version, and of the
+ 10. c3's GJK iteration spread; K5's, K6a's and K6b's wrappers launch one
+     kernel each (``torch.profiler``), and the shape path's device
+     launches a call; timings of each shape kernel against its plain
+     version (K5 also shuffled, K6a and K6b also alone through their C
+     entry points, writing into rows allocated beforehand), and of the
      shape path, at c3;
  11. K8 against its plain version, rows bit for bit (4096 x 12 at spread
      2.0 and bench.py's c2, 65,536 x 64): phase 1, phase 2 into phase 1's
@@ -337,46 +343,44 @@ def plain_shapes_path(a, b, cfg):
 
 
 def compare_shape_kernels(sa, sb, retired, cfg, what):
-    """K5, K6a, K6b and K7 against their plain versions on the same inputs;
-    returns each kernel's max abs error over its float outputs."""
+    """K5, K6a, K6b and K7 against their plain versions on the same inputs,
+    rows bit for bit (K6b's simplex on its GJK lanes: the plain version
+    leaves probes in the others, the kernel zeros); returns each kernel's
+    max abs error over its float outputs."""
     from gjkepa_tpu_torch.ops import fused_shapes as fs
     from gjkepa_tpu_torch.ops.fused import hit_first_order
 
-    def same_gjk(k, p, lanes, name):
-        check(torch.equal(k.hit, p.hit) and torch.equal(k.status, p.status),
-              f"{what}: {name} hit/status differ")
-        # counted over the GJK lanes: every other lane is 0 on both sides
-        it_diff = int((k.iters != p.iters).sum())
-        check(it_diff <= 0.005 * int(lanes.sum()),
-              f"{what}: {name} gjk_iters differ on {it_diff} of "
-              f"{int(lanes.sum())} GJK lanes")
-        err = maxerr((k.sep, p.sep), (k.simplex[lanes], p.simplex[lanes]))
-        check(err <= 1e-5, f"{what}: {name} sep/simplex differ by {err}")
-        return err, it_diff
+    def same(k, p, name, lanes=None):
+        it_diff = int((k.iters != p.iters).sum()) if hasattr(k, "iters") \
+            else 0
+        check(rows_equal(k, p, lanes),
+              f"{what}: {name} rows are not bit-equal to the plain version "
+              f"(fields equal: {[torch.equal(x, y) for x, y in zip(k, p)]}, "
+              f"iteration counts differ on {it_diff} lanes)")
 
     n = sa.shape[0]
     ck = fs.cf_shapes(sa, sb, retired, cfg)
     cp = fs.cf_shapes_plain(sa, sb, retired, cfg)
     torch.cuda.synchronize()
-    check(all(torch.equal(x, y) for x, y in ((ck.hit, cp.hit),
-                                              (ck.status, cp.status),
-                                              (ck.act, cp.act))),
-          f"{what}: K5 hit/status/act differ")
+    same(ck, cp, "K5")
     e5 = maxerr((ck.depth, cp.depth), (ck.normal, cp.normal),
                 (ck.distance, cp.distance))
-    check(e5 <= 1e-6, f"{what}: K5 depth/normal/distance differ by {e5}")
 
     order, n_act = hit_first_order(cp.act)
     gk = fs.gjk_sub_shapes(sa, sb, retired, order, n_act, cfg)
     gp = fs.gjk_sub_shapes_plain(sa, sb, retired, order, n_act, cfg)
-    e6a, d6a = same_gjk(gk, gp, cp.act, "K6a")
+    torch.cuda.synchronize()
+    same(gk, gp, "K6a")     # every row: the kernel writes the inactive ones
+    e6a = maxerr((gk.sep, gp.sep), (gk.simplex, gp.simplex))
 
     hk = fs.gjk_shapes(sa, sb, retired, cfg)
     hp = fs.gjk_shapes_plain(sa, sb, retired, cfg)
-    e6b, d6b = same_gjk(hk, hp, cp.act, "K6b")
-    check(torch.equal(hk.final, hp.final), f"{what}: K6b closed-form flags")
-    ecf = maxerr((hk.cf_depth, hp.cf_depth), (hk.cf_normal, hp.cf_normal))
-    check(ecf <= 1e-6, f"{what}: K6b closed-form channel differs by {ecf}")
+    torch.cuda.synchronize()
+    same(hk, hp, "K6b", cp.act)
+    check(all(torch.equal(x, y) for x, y in zip(hk[5:], hp[5:])),
+          f"{what}: K6b's closed-form channel is not bit-equal")
+    e6b = maxerr((hk.sep, hp.sep), (hk.simplex[cp.act], hp.simplex[cp.act]),
+                 (hk.cf_depth, hp.cf_depth), (hk.cf_normal, hp.cf_normal))
 
     epa = hp.hit & ~hp.final
     order, n_act = hit_first_order(epa)
@@ -385,35 +389,41 @@ def compare_shape_kernels(sa, sb, retired, cfg, what):
     ek, ep = fs.epa_shapes(*args), fs.epa_shapes_plain(*args)
     torch.cuda.synchronize()
     e7 = maxerr((ek.depth, ep.depth), (ek.normal, ep.normal))
-    check(rows_equal(ek, ep),
-          f"{what}: K7 rows are not bit-equal to the plain version (status "
-          f"equal: {torch.equal(ek.status, ep.status)}, depth/normal err "
-          f"{e7}, epa_iters differ on {int((ek.iters != ep.iters).sum())} "
-          f"of {int(n_act)} K7 lanes)")
-    log(f"{what} shape kernels vs plain, {n} pairs: K5 exact discrete, err "
-        f"{e5:.3g}; K6a {int(cp.act.sum())} GJK lanes, iters differ on "
-        f"{d6a}, err {e6a:.3g}; K6b iters differ on {d6b}, err "
-        f"{max(e6b, ecf):.3g}; K7 {int(n_act)} lanes, rows bit for bit")
-    return {"cf_shapes": e5, "gjk_sub_shapes": e6a,
-            "gjk_shapes": max(e6b, ecf), "epa_shapes": e7}
+    same(ek, ep, "K7")
+    log(f"{what} shape kernels vs plain, {n} pairs: K5, K6a over "
+        f"{int(cp.act.sum())} GJK lanes, K6b, K7 over {int(n_act)} hits: "
+        f"rows bit for bit")
+    return {"cf_shapes": e5, "gjk_sub_shapes": e6a, "gjk_shapes": e6b,
+            "epa_shapes": e7}
 
 
 def shape_phases(gt, dev, cfg, card, n3=C3) -> list[dict]:
     """Phases 7-10, the shape path; returns the shape kernels' entries of
     the ``kernels`` line."""
+    import ctypes
+
+    from gjkepa_tpu_torch import _build
     from gjkepa_tpu_torch.models import fixtures
     from gjkepa_tpu_torch.ops import fused_shapes as fs
     from gjkepa_tpu_torch.ops.fused import hit_first_order
+    from gjkepa_tpu_torch.profile import kernel_launches
 
     # -- phase 7: the shape kernels vs their plain versions ------------------
     rng = np.random.default_rng(3)
     dense = (fixtures.kind_batch(3, n3 // 4, rng, spread=0.2),
              fixtures.kind_batch(3, n3 // 4, rng, spread=0.2))
     c3_np = fixtures.c3_pairs(0, n3)
+    *c3s_np, perm = fixtures.c3_shuffled(0, n3)
     shape_err = {k: 0.0 for k in fs.LAUNCHES}
     mixed16 = fixtures.mixed16_pairs(n3 // 64, 7)
-    for what, pairs in (("phase 7 c3", c3_np), ("phase 7 mixed16", mixed16),
-                        ("phase 7 dense cylinders", dense)):
+    odd = tuple(tuple(x[: n3 - 3] for x in side) for side in c3_np)
+    spheres = (fixtures.kind_batch(0, n3 // 64, rng),
+               fixtures.kind_batch(0, n3 // 64, rng))
+    for what, pairs in (("phase 7 c3", c3_np), ("phase 7 c3 shuffled", c3s_np),
+                        ("phase 7 mixed16", mixed16),
+                        ("phase 7 dense cylinders", dense),
+                        (f"phase 7 c3's first {n3 - 3} pairs", odd),
+                        ("phase 7 spheres (no GJK lanes)", spheres)):
         errs = compare_shape_kernels(*shape_inputs(pairs, dev)[2:], cfg, what)
         shape_err = {k: max(v, errs[k]) for k, v in shape_err.items()}
     for iters in (1, 64):       # the shape ladder caps EPA at 16 iterations
@@ -447,7 +457,6 @@ def shape_phases(gt, dev, cfg, card, n3=C3) -> list[dict]:
 
     # -- phase 9: the shape path at full size, launches counted ---------------
     a3, b3 = shape_inputs(c3_np, dev)[:2]
-    *c3s_np, perm = fixtures.c3_shuffled(0, n3)
     a3s, b3s = shape_inputs(c3s_np, dev)[:2]
     perm = torch.from_numpy(perm).to(dev)
     split = {"cf_shapes": 1, "gjk_sub_shapes": 1, "gjk_shapes": 0,
@@ -518,22 +527,60 @@ def shape_phases(gt, dev, cfg, card, n3=C3) -> list[dict]:
 
     # -- phase 10: shape timings, kernels vs plain, path -----------------------
     _, _, sa3, sb3, ret3 = shape_inputs(c3_np, dev)
+    _, _, sa3s, sb3s, ret3s = shape_inputs(c3s_np, dev)
     c5 = fs.cf_shapes(sa3, sb3, ret3, cfg)
     o6, n6 = hit_first_order(c5.act)
-    g6 = fs.gjk_sub_shapes(sa3, sb3, ret3, o6, n6, cfg)
+    k6a = (sa3, sb3, ret3, o6, n6)
+    g6 = fs.gjk_sub_shapes(*k6a, cfg)
     st6 = torch.where(c5.act, g6.status, c5.status)
     o7, n7 = hit_first_order(g6.hit)
     k7 = (sa3, sb3, g6.simplex, st6, c5.depth, c5.normal, o7, n7,
           fs.shape_stages(cfg))
+    it6 = g6.iters[c5.act].float()
+    log(f"phase 10 c3's GJK lanes: {int(n6)} (kinds a/b "
+        f"{sorted(set(zip(a3.kind[c5.act].tolist(), b3.kind[c5.act].tolist())))}"
+        f"), iterations mean {float(it6.mean()):.3f}, p99 "
+        f"{float(torch.quantile(it6, 0.99)):.0f}, max {int(it6.max())}; "
+        f"{int(g6.hit.sum())} hits")
+    # K5's, K6a's and K6b's wrappers launch their kernel and nothing else:
+    # K6a and K6b write every row (no zero fills)
+    wrapper_launches = {
+        "cf_shapes": kernel_launches(lambda: fs.cf_shapes(sa3, sb3, ret3,
+                                                          cfg)),
+        "gjk_sub_shapes": kernel_launches(lambda: fs.gjk_sub_shapes(*k6a,
+                                                                    cfg)),
+        "gjk_shapes": kernel_launches(lambda: fs.gjk_shapes(sa3, sb3, ret3,
+                                                            cfg))}
+    check(all(v == 1 for v in wrapper_launches.values()),
+          f"phase 10: a shape wrapper launched more than its kernel: "
+          f"{wrapper_launches}")
+    path_launches = kernel_launches(
+        lambda: gt.fused_gjkepa_shapes(a3, b3, cfg=cfg))
+    log(f"phase 10 device launches: {wrapper_launches} a wrapper call; "
+        f"fused_gjkepa_shapes at c3 {path_launches} a call")
+    dirs = fs.INIT_DIRS.ctypes.data_as(ctypes.c_void_p)
+
+    def kernel_alone(name, ins, outs):
+        """``name``'s kernel through its C entry point, writing into rows
+        allocated once: no allocation or compaction in the call."""
+        ins, outs = [_build.ptr(t) for t in ins], [_build.ptr(t) for t in outs]
+        return lambda: _build.launch(name, dev, {name: 0}, *ins, dirs, *outs,
+                                     n3, *fs.gjk_args(cfg))
+
+    k6b = fs.gjk_shapes(sa3, sb3, ret3, cfg)
     stimes = {
         "k5_c3": device_ms(lambda: fs.cf_shapes(sa3, sb3, ret3, cfg)),
+        "k5_c3_shuffled": device_ms(lambda: fs.cf_shapes(sa3s, sb3s, ret3s,
+                                                         cfg)),
         "k5_c3_plain": cuda_ms(lambda: fs.cf_shapes_plain(sa3, sb3, ret3,
                                                           cfg)),
-        "k6a_c3": device_ms(lambda: fs.gjk_sub_shapes(sa3, sb3, ret3, o6, n6,
-                                                    cfg)),
+        "k6a_c3": device_ms(lambda: fs.gjk_sub_shapes(*k6a, cfg)),
+        "k6a_c3_kernel": device_ms(kernel_alone("gjk_sub_shapes", k6a, g6)),
         "k6a_c3_plain": cuda_ms(lambda: fs.gjk_sub_shapes_plain(
             sa3, sb3, ret3, o6, n6, cfg)),
         "k6b_c3": device_ms(lambda: fs.gjk_shapes(sa3, sb3, ret3, cfg)),
+        "k6b_c3_kernel": device_ms(kernel_alone(
+            "gjk_shapes", (sa3, sb3, ret3), k6b)),
         "k6b_c3_plain": cuda_ms(lambda: fs.gjk_shapes_plain(sa3, sb3, ret3,
                                                            cfg)),
         "k7_c3": device_ms(lambda: fs.epa_shapes(*k7)),
@@ -562,7 +609,9 @@ def shape_phases(gt, dev, cfg, card, n3=C3) -> list[dict]:
     n_gjk, n_epa, probe = int(n6), int(n7), 2 * SHAPE_OPS
     bounds = {
         "cf_shapes": work(n3, 129 + 26, n3 * CF_OPS),
-        "gjk_sub_shapes": work(n_gjk, 133 + 61,
+        # the GJK lanes' rows, retirement and order entries; every other
+        # pair's order entry and its written row
+        "gjk_sub_shapes": work(1, n_gjk * 133 + (n3 - n_gjk) * (4 + 61),
                                gjk_ops(n_gjk, isum(g6.iters), probe)),
         "gjk_shapes": work(n3, 129 + 78, n3 * CF_OPS
                            + gjk_ops(n_gjk, isum(hk3.iters), probe)),
@@ -1291,9 +1340,7 @@ def main() -> int:
     libs = _build.build()
     log(f"phase 0 build: {', '.join(p.name for p in libs.values())} "
         f"built and loaded in {time.perf_counter() - t0:.2f} s")
-    for src in ("gjk_hulls.cu", "epa_hulls.cu", "epa_shapes.cu",
-                "distance_hulls.cu", "gjk_hull_shape.cu", "epa_hull_shape.cu",
-                "gjk_hulls_big.cu", "epa_hulls_big.cu"):
+    for src in _build.SOURCES:
         for line in ptxas_report(libs[src].with_suffix(".log").read_text()):
             log(f"phase 0 ptxas {src}: {line}")
 

@@ -1,4 +1,4 @@
-// K5: the closed-form shape kernel, one thread per pair, in the caller's order.
+// K5: the closed-form shape kernel, a thread a pair in the caller's order.
 //
 // Replaces the TPU kernel _cf_kernel_shapes (gjkepa_tpu/ops/fused.py:1880,
 // with the closed forms _closed_form_rows :1662 and the broadphase
@@ -14,16 +14,26 @@
 // envelope): the dispatch compacts the GJK lanes on it, so every lane K6a
 // runs is active in K6a's own test, which uses the same device functions.
 //
-// What bounds it: 64 bytes of shape rows in and 25 bytes out per pair, and a
-// few hundred flops (the box-box SAT is the longest branch); lanes of a warp
-// take different kind branches.  It is a short memory-bound pass; the rows
-// are read with 16-byte loads.
+// What bounds it: 129 bytes in (two 64-byte rows and the retirement bit)
+// and 26 out per pair, and a few hundred flops: a memory-bound pass with
+// one long branch, the box-box SAT (15 axes, each with a square root and a
+// divide).  On an H100 (scripts/torch_kernel_sweep.py k5; PERF.md) a
+// kernel that only moves these bytes takes ~4.0 us at c3.  The first
+// version of this kernel took 7.2 us in natural order, its box quarter
+// alone 6.5 us: the SAT loop kept its axes in local memory (a 72-byte
+// stack).  Unrolled (shape_geom.cuh), the axes stay in registers, and the
+// kernel takes ~5.5 us natural and ~7.8 shuffled.  Of the ~2.2 us, warps
+// that mix branches cost ~1 (the shuffled pairs sorted by kind in each
+// block of 128 take ~6.9), and where the box pairs fall in the batch the
+// other ~1 (whole warps of one kind in a random order take ~6.6).  Staging
+// a block's rows in shared memory, and dealing its pairs into one list per
+// branch, cost more than they saved in both orders (PERF.md).
 #include "shape_geom.cuh"
 
 namespace gjkepa {
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
 
 __global__ void __launch_bounds__(kThreads)
 cf_shapes_kernel(const float* __restrict__ sa, const float* __restrict__ sb,

@@ -4,7 +4,8 @@
 // over the first 8 direction-table rows and the always-tetra iterate loop,
 // with the simplex in registers.  Plain PyTorch version: gjk_phase in
 // gjkepa_tpu_torch/ops/fused_gjk.py.  K1 (gjk_hulls.cu) instantiates it with
-// the hull support, K6a/K6b (gjk_shapes.cu) with the analytic-shape support;
+// the hull support, K6b (gjk_shapes.cu) with the analytic-shape support (K6a
+// runs a copy split over a quad of threads, gjk_quad.cuh);
 // a support functor is `P3 operator()(P3 d) const`, the support point of the
 // Minkowski difference A - B along d.
 #pragma once

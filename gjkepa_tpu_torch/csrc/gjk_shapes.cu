@@ -1,30 +1,45 @@
-// K6a and K6b: GJK over analytic shape pairs, one thread per pair.
+// K6a and K6b: GJK over analytic shape pairs.
 //
 // K6a replaces the TPU kernel _gjk_sub_kernel_shapes
 // (gjkepa_tpu/ops/fused.py:1910), K6b replaces _gjk_kernel_shapes (:1935);
-// both run the GJK phase of gjk_core.cuh with the shape support of
-// shape_geom.cuh.  Plain PyTorch versions: gjk_sub_shapes_plain and
-// gjk_shapes_plain in gjkepa_tpu_torch/ops/fused_shapes.py.
+// both run the GJK phase with the shape support of shape_geom.cuh.  Plain
+// PyTorch versions: gjk_sub_shapes_plain and gjk_shapes_plain in
+// gjkepa_tpu_torch/ops/fused_shapes.py.
 //
 // Activity is the same in both: bounding-sphere overlap, no closed form,
 // and not retired (the capsule-envelope bit the dispatch decides once and
 // passes in; the kernels read it and never recompute it).
 //
-//   K6a runs over the compacted GJK lanes: thread i < n_act (a device
-//       scalar) takes pair order[i] and writes its hit, status, iterations,
-//       separation and simplex to pair order[i]; the wrapper has filled the
-//       other pairs with the inactive row.
-//   K6b runs over every pair in the caller's order and also writes the
-//       closed-form channel (final flag, depth, normal); a closed-form
-//       lane's status and separation come from the closed form.
+//   K6a runs over the compacted GJK lanes, a quad of threads a pair
+//       (gjk_phase_quad, gjk_quad.cuh): compact index i < n_act (a device
+//       scalar) takes pair order[i] and writes its hit, status,
+//       iterations, separation and simplex to pair order[i].  The same
+//       grid writes the inactive row (all zeros, status MISS_BROADPHASE)
+//       of pair order[i] for every i >= n_act, a thread a pair; order is
+//       a permutation of the pairs (hit_first_order's), so every row of
+//       the output is written once, as the plain version leaves it, and
+//       the wrapper fills nothing.
+//   K6b runs over every pair in the caller's order, one thread a pair
+//       (gjk_phase, gjk_core.cuh), and also writes the closed-form channel
+//       (final flag, depth, normal); a closed-form lane's status and
+//       separation come from the closed form.
 //
-// What bounds it: each support probe is a few dozen flops on the 128 bytes
-// of the pair's two shapes, held in registers, so the kernel is bound by
-// compute and by divergence: iteration counts and kind branches differ
-// between the lanes of a warp.  K6a keeps the warps of the split pipeline
-// full of GJK lanes; K6b lets closed-form and missing lanes idle beside
-// them.
-#include "gjk_core.cuh"
+// What bounds them: each support probe is a few dozen flops on the 128
+// bytes of the pair's two shapes, held in registers, so GJK is bound by
+// each pair's chain of dependent iterations (c3: 793 GJK lanes, 2.3
+// iterations on average, up to 15).  K6a's grid does not scale with B:
+// the blocks of kSubPairs quads the card holds at once (resident_grid,
+// hull_stream.cuh), and quad t of block b takes compact indices b + G*t,
+// b + G*t + G*kSubPairs, ... (G blocks), so the few live pairs reach
+// every SM rather than the first few blocks; the quad splits each
+// iteration's four faces, which shortens the chain (on an H100 an
+// iteration of c3's longest chain takes ~0.9 us in K6a's quad and ~1.5 us
+// on K6b's one thread; 8 quads a block is the k6a sweep's choice,
+// scripts/torch_kernel_sweep.py).  The inactive rows are ~60 bytes a pair
+// over nearly all B pairs, in pair order (hit_first_order is stable), the
+// simplex as three float4 words; they are most of the bytes bound.  K6b
+// lets closed-form and missing lanes idle beside its GJK lanes.
+#include "gjk_quad.cuh"
 #include "shape_geom.cuh"
 
 namespace gjkepa {
@@ -49,21 +64,58 @@ __device__ __forceinline__ void write_gjk(const GjkOut& g, int lane, bool* __res
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// K6a: the sweep's knob (scripts/torch_kernel_sweep.py k6a).
+#ifndef K6A_PAIRS
+#define K6A_PAIRS 8
+#endif
+constexpr int kSubPairs = K6A_PAIRS;  // quads (pairs in flight) a block
+constexpr int kSubThreads = kSubPairs * kQuad;
+
+__global__ void __launch_bounds__(kSubThreads)
 gjk_sub_shapes_kernel(const float* __restrict__ sa, const float* __restrict__ sb,
                       const bool* __restrict__ retired, const int* __restrict__ order,
-                      const int* __restrict__ n_act, InitDirs dirs, bool* __restrict__ hit_out,
-                      int* __restrict__ status_out, int* __restrict__ iters_out,
-                      float* __restrict__ sep_out, float* __restrict__ simplex_out, int B,
-                      GjkParams prm) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B || i >= *n_act) return;
-  const int lane = order[i];
-  const ShapeSupport support = {load_shape(sa, lane), load_shape(sb, lane)};
-  const bool active = shape_broadphase(support.a, support.b, prm.bp_tol) &&
-                      !cf_kind_mask(support.a.kind, support.b.kind) && !retired[lane];
-  const GjkOut g = gjk_phase(support, active, dirs, prm);
-  write_gjk(g, lane, hit_out, status_out, iters_out, sep_out, simplex_out);
+                      const int* __restrict__ n_act, InitDirs dirs,
+                      bool* __restrict__ hit_out, int* __restrict__ status_out,
+                      int* __restrict__ iters_out, float* __restrict__ sep_out,
+                      float* __restrict__ simplex_out, int B, GjkParams prm) {
+  const int count = min(*n_act, B);
+  // the inactive rows, pairs order[count:]: a thread a pair
+  const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int i = count + blockIdx.x * kSubThreads + threadIdx.x; i < B;
+       i += gridDim.x * kSubThreads) {
+    const int lane = order[i];
+    hit_out[lane] = false;
+    status_out[lane] = kMissBroadphase;
+    iters_out[lane] = 0;
+    sep_out[lane] = 0.0f;
+    float4* __restrict__ words = reinterpret_cast<float4*>(simplex_out) + (size_t)lane * 3;
+    words[0] = zero4;
+    words[1] = zero4;
+    words[2] = zero4;
+  }
+
+  // the GJK lanes, pairs order[:count]: a quad a pair
+  const int f = threadIdx.x & (kQuad - 1);
+  for (int i = blockIdx.x + gridDim.x * (threadIdx.x / kQuad); i < count;
+       i += gridDim.x * kSubPairs) {
+    const int lane = order[i];
+    const ShapeSupport support = {load_shape(sa, lane), load_shape(sb, lane)};
+    const bool active = shape_broadphase(support.a, support.b, prm.bp_tol) &&
+                        !cf_kind_mask(support.a.kind, support.b.kind) && !retired[lane];
+    const GjkOut g = gjk_phase_quad(support, active, dirs, prm);
+    if (f == 0) {
+      hit_out[lane] = g.status == kHit;
+      status_out[lane] = g.status;
+      iters_out[lane] = g.iters;
+      sep_out[lane] = g.sep;
+    }
+    // lane f writes vertex f of the simplex
+    const P3 v = simplex_vertex(g.s, f);
+    float* so = simplex_out + (size_t)lane * 12 + 3 * f;
+    so[0] = v.x;
+    so[1] = v.y;
+    so[2] = v.z;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -96,7 +148,9 @@ gjk_shapes_kernel(const float* __restrict__ sa, const float* __restrict__ sb,
 }  // namespace gjkepa
 
 // C interfaces, bound with ctypes.  Each returns cudaGetLastError() after
-// the launch; the launch is asynchronous on `stream`.
+// the launch (or the error of asking the device its occupancy); the launch
+// is asynchronous on `stream`.  K6a's simplex output must be 16-byte
+// aligned.
 extern "C" int gjk_sub_shapes_launch(const void* sa, const void* sb, const void* retired,
                                      const void* order, const void* n_act,
                                      const void* init_dirs_host, void* hit, void* status,
@@ -105,15 +159,20 @@ extern "C" int gjk_sub_shapes_launch(const void* sa, const void* sb, const void*
                                      float broadphase_tol, int gjk_max_iters, void* stream) {
   using namespace gjkepa;
   if (B <= 0) return 0;
+  // the blocks the card holds at once, no more quads than pairs
+  int blocks = 0;
+  const int err = resident_grid(gjk_sub_shapes_kernel, kSubThreads, 0,
+                                (B + kSubPairs - 1) / kSubPairs, &blocks);
+  if (err != 0) return err;
   const InitDirs dirs = make_init_dirs(static_cast<const float*>(init_dirs_host));
   const GjkParams prm =
       make_gjk_params(eps_coincide, eps_zero, eps_sq, broadphase_tol, gjk_max_iters);
-  const int blocks = (B + kThreads - 1) / kThreads;
-  gjk_sub_shapes_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  gjk_sub_shapes_kernel<<<blocks, kSubThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(sa), static_cast<const float*>(sb),
       static_cast<const bool*>(retired), static_cast<const int*>(order),
-      static_cast<const int*>(n_act), dirs, static_cast<bool*>(hit), static_cast<int*>(status),
-      static_cast<int*>(iters), static_cast<float*>(sep), static_cast<float*>(simplex), B, prm);
+      static_cast<const int*>(n_act), dirs,
+      static_cast<bool*>(hit), static_cast<int*>(status), static_cast<int*>(iters),
+      static_cast<float*>(sep), static_cast<float*>(simplex), B, prm);
   return (int)cudaGetLastError();
 }
 

@@ -190,7 +190,9 @@ __device__ __forceinline__ CfPart sphere_vs_cyl(P3 c, float r, const Shape& cyl)
 }
 
 // Box-box SAT over the 15 axes: ax(3), bx(3), cross(ax_i, bx_j) i-major;
-// the strict < keeps the first minimal axis.
+// the strict < keeps the first minimal axis.  Unrolled, every axis index
+// is a constant and ax, bx stay in registers (rolled, they took a 72-byte
+// stack frame).
 __device__ __forceinline__ CfPart box_box_sat(const Shape& a, const Shape& b) {
   P3 ax[3], bx[3];
   for (int j = 0; j < 3; ++j) {
@@ -200,6 +202,7 @@ __device__ __forceinline__ CfPart box_box_sat(const Shape& a, const Shape& b) {
   const P3 t = sub(b.pos, a.pos);
   float best = kCfBig, sep = -kCfBig;
   P3 bn = mk(0.0f, 0.0f, 0.0f);
+#pragma unroll
   for (int k = 0; k < 15; ++k) {
     const P3 L = k < 3 ? ax[k] : (k < 6 ? bx[k - 3] : cross(ax[(k - 6) / 3], bx[(k - 6) % 3]));
     const float ln2 = dot(L, L);

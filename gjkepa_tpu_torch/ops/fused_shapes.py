@@ -18,7 +18,9 @@ pipeline):
      GJK activity ``act``;
   2. ``hit_first_order(act)``: the GJK lanes first, their count on the
      device;
-  3. K6a over those lanes, writing back to their own pairs;
+  3. K6a over those lanes, a quad of threads a pair, writing back to their
+     own pairs; its grid also writes the inactive row of every other pair
+     (``order[n_act:]``), so no row is filled beforehand;
   4. ``hit_first_order`` of the GJK hits, then K7 over them, the other
      pairs passing their row through.
 
@@ -199,15 +201,27 @@ def gjk_sub_shapes_plain(sa, sb, retired, order, n_act,
     return out
 
 
+def _unwritten_gjk_rows(b, dev) -> GJKRows:
+    """GJK rows for a kernel that writes every one of them: no fills."""
+    return GJKRows(torch.empty(b, dtype=torch.bool, device=dev),
+                   torch.empty(b, dtype=torch.int32, device=dev),
+                   torch.empty(b, dtype=torch.int32, device=dev),
+                   torch.empty(b, dtype=torch.float32, device=dev),
+                   torch.empty((b, 4, 3), dtype=torch.float32, device=dev))
+
+
 def gjk_sub_shapes(sa, sb, retired, order, n_act,
                    cfg: GJKEPAConfig) -> GJKRows:
     """K6a: GJK over the compacted lanes ``order[:n_act]`` (``n_act`` a
-    device scalar), written back to their own pairs."""
+    device scalar), written back to their own pairs, a quad of threads a
+    pair; the kernel writes the inactive row of pairs ``order[n_act:]``.
+    ``order`` is a permutation of the pairs (``hit_first_order``'s), so
+    every row is written once."""
     _check_rows(sa, sb, retired)
     _check_order(sa, order, n_act)
     if not _build.on_card(sa, "K6a"):
         return gjk_sub_shapes_plain(sa, sb, retired, order, n_act, cfg)
-    out = empty_gjk_rows(sa.shape[0], sa.device)
+    out = _unwritten_gjk_rows(sa.shape[0], sa.device)
     ptr = _build.ptr
     _build.launch("gjk_sub_shapes", sa.device, LAUNCHES, ptr(sa), ptr(sb),
                   ptr(retired), ptr(order), ptr(n_act),
@@ -236,7 +250,7 @@ def gjk_shapes(sa, sb, retired, cfg: GJKEPAConfig) -> ShapeGJKRows:
     if not _build.on_card(sa, "K6b"):
         return gjk_shapes_plain(sa, sb, retired, cfg)
     b, dev = sa.shape[0], sa.device
-    g = empty_gjk_rows(b, dev)
+    g = _unwritten_gjk_rows(b, dev)     # the kernel writes every row
     out = ShapeGJKRows(*g, torch.empty(b, dtype=torch.bool, device=dev),
                        torch.empty(b, dtype=torch.float32, device=dev),
                        torch.empty((b, 3), dtype=torch.float32, device=dev))

@@ -76,6 +76,34 @@ def _self_device_us(event) -> float:
     raise AttributeError("profiler event without a device time")
 
 
+def kernel_launches(fn, attempts=3) -> int:
+    """Device kernels one call of ``fn`` launches, counted by
+    ``torch.profiler``.  The profiled call is bracketed by two
+    ``torch.cuda._sleep`` kernels (``spin_kernel``): a session that did not
+    record both lost kernels (the first session in a process can, while
+    CUPTI starts) and is run again, up to ``attempts`` sessions; then it
+    raises rather than return a short count."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    seen = []
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1)
+            fn()
+            torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == cuda]
+        marks = sum("spin_kernel" in n for n in names)
+        if marks == 2:
+            return len(names) - marks
+        seen.append(len(names))
+    raise RuntimeError(f"the profiler lost kernels in each of {attempts} "
+                       f"sessions (kernels recorded: {seen})")
+
+
 def profile_path(name, fn, card) -> None:
     """Wall, device time, busy share, launches and top ops of one path."""
     from torch.profiler import ProfilerActivity, profile

@@ -11,6 +11,8 @@ Usage, from the root of a checkout:
     python3 scripts/torch_kernel_sweep.py k7
     python3 scripts/torch_kernel_sweep.py k9
     python3 scripts/torch_kernel_sweep.py k10
+    python3 scripts/torch_kernel_sweep.py k5
+    python3 scripts/torch_kernel_sweep.py k6a
     python3 scripts/torch_kernel_sweep.py times [--root DIR] [--tag NAME]
 
 ``teams``: K1 (``csrc/gjk_hulls.cu``) runs a team of T threads a pair, T
@@ -73,13 +75,36 @@ block.  This rebuilds that source with ``-DK10_WARPS=W`` for W = 1, 2 and
 hulls and shapes at positions ~ N(0, 0.2^2), most pairs hits), bit
 for bit against the plain version, and prints each one's device time.
 
-``times``: device times of K1 (c4, c2), K2 (c4), K7 (c3), K8 (c2: phase
-1, phase 2 and one pass), K9 and K10 (c3b), K12 and K13 (4096 x 2600, 256
-x 8192), chip_smoke.py's inputs, and the walls of the hull paths at c4,
-c2, 4096 x 2600 and 256 x 8192, of the distance path at c2 (two-phase and
-one pass), of the shape path at c3 and of the mixed path at c3b, from the package under DIR (default:
-this checkout), so that a parent and a change can be timed in turn on one
-card.  Prints one JSON line tagged NAME.
+``k5``: K5 (``csrc/cf_shapes.cu``) runs a thread a pair.  This times it at
+c3 in natural and shuffled order, on c3's box-box quarter alone and on the
+rest, on c3 as whole warps of one kind in a random order and as the
+shuffled pairs sorted by kind in each block of 128, and on the 16 kind
+pairs, each bit for bit against the plain version, beside a kernel that
+only moves K5's bytes in K5's layout (``K5_COPY_SOURCE``: the floor this
+card reaches for that traffic).
+
+``k6a``: K6a (``csrc/gjk_shapes.cu``) runs a quad of threads a GJK pair on
+the blocks the card holds at once.  This rebuilds that source with
+``-DK6A_PAIRS=P`` (quads a block) and runs each build on c3 (natural and
+shuffled), the 16 kind pairs, 16,381 all-cylinder pairs and a batch with
+no GJK lane, bit for bit against the plain version (every row, the
+inactive ones too), and prints each one's time alone (through its C entry
+point, on rows allocated beforehand), the GJK iteration spread and, at
+c3, the shipped build's time without the pairs above the 99th percentile
+of iterations; then K6a and K6b (a thread a pair) at c3 with
+``gjk_max_iters`` capped at 0-16, whose slope is a GJK iteration's
+latency on one chain.
+
+``times``: device times of K5 (c3, natural and shuffled), K6a and K6b (c3,
+the wrapper and the kernel alone through its C entry point), K1 (c4, c2),
+K2 (c4), K7 (c3), K8 (c2: phase 1, phase 2 and one pass), K9 and K10
+(c3b), K12 and K13 (4096 x 2600, 256 x 8192), chip_smoke.py's inputs, the
+walls of the hull paths at c4, c2, 4096 x 2600 and 256 x 8192, of the
+distance path at c2 (two-phase and one pass), of the shape path at c3 and
+of the mixed path at c3b, and the shape path's device launches a call,
+from the package under DIR (default: this checkout), so that a parent and
+a change can be timed in turn on one card.  Prints one JSON line tagged
+NAME.
 
 Device times are chip_smoke.py's ``device_ms``: CUDA events around 10
 back-to-back calls queued behind a sleep kernel, so that the host's
@@ -638,10 +663,224 @@ def k10(cs, dev, card) -> None:
     print(json.dumps({"k10_warps": table, "card": card}), flush=True)
 
 
+# -- k5 ------------------------------------------------------------------------
+
+# A kernel that moves K5's bytes in K5's layout and computes nothing: a
+# thread a pair reads both 64-byte rows as float4 words and the retirement
+# bit, and writes every output, the normal as three 4-byte stores 12 bytes
+# apart.  Its time is the floor this card reaches for K5's traffic.
+K5_COPY_SOURCE = r"""
+#include <cuda_runtime.h>
+__global__ void k5_copy_kernel(const float4* sa, const float4* sb, const bool* retired,
+                               bool* hit, int* status, float* depth, float* normal,
+                               float* dist, bool* act, int B) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B) return;
+  float s = 0.0f;
+  for (int k = 0; k < 4; ++k) {
+    const float4 a = sa[4 * i + k], b = sb[4 * i + k];
+    s += a.x + a.y + a.z + a.w + b.x + b.y + b.z + b.w;
+  }
+  const bool r = retired[i];
+  hit[i] = s > 0.0f;
+  status[i] = r ? 1 : 0;
+  depth[i] = s;
+  normal[3 * i] = s;
+  normal[3 * i + 1] = -s;
+  normal[3 * i + 2] = 2.0f * s;
+  dist[i] = 0.5f * s;
+  act[i] = !r;
+}
+extern "C" int k5_copy_launch(const void* sa, const void* sb, const void* retired, void* hit,
+                              void* status, void* depth, void* normal, void* dist,
+                              void* act, int B, void* stream) {
+  k5_copy_kernel<<<(B + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(sa), static_cast<const float4*>(sb),
+      static_cast<const bool*>(retired), static_cast<bool*>(hit), static_cast<int*>(status),
+      static_cast<float*>(depth), static_cast<float*>(normal), static_cast<float*>(dist),
+      static_cast<bool*>(act), B);
+  return (int)cudaGetLastError();
+}
+"""
+
+def _k5_copy(out_dir: Path):
+    """K5_COPY_SOURCE built with the port's flags; returns its launcher."""
+    import ctypes
+    from gjkepa_tpu_torch import _build
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src, lib = out_dir / "k5_copy.cu", out_dir / "libk5_copy.so"
+    src.write_text(K5_COPY_SOURCE)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                    str(src)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib)).k5_copy_launch
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def k5(cs, dev, card) -> None:
+    from gjkepa_tpu_torch import GJKEPAConfig, _build
+    from gjkepa_tpu_torch.models import fixtures
+    from gjkepa_tpu_torch.ops import fused_shapes as fs
+    cfg = GJKEPAConfig.for_f32()
+    n, q = cs.C3, cs.C3 // 4
+    sa, sb, ret = cs.shape_inputs(fixtures.c3_pairs(0, n), dev)[2:]
+    *shuf, _ = fixtures.c3_shuffled(0, n)
+
+    def cut(keep):
+        return tuple(t[keep].contiguous() for t in (sa, sb, ret))
+
+    idx = torch.arange(n, device=dev)
+    # where the shuffled order's cost lies: whole warps of one kind in a
+    # random order, and the shuffled pairs sorted by kind in each block of
+    # 128 (a deal by branch in each block, done beforehand)
+    rng = np.random.default_rng(1)
+    warps = (rng.permutation(n // 32)[:, None] * 32
+             + np.arange(32)[None]).reshape(-1)
+    kinds = shuf[0][0]
+    by_block = np.concatenate([
+        b + np.argsort(kinds[b:b + 128], kind="stable")
+        for b in range(0, n, 128)])
+    nat = fixtures.c3_pairs(0, n)
+    cases = {"c3": (sa, sb, ret),
+             "c3_shuffled": cs.shape_inputs(shuf, dev)[2:],
+             "c3_warps_shuffled": cs.shape_inputs(tuple(
+                 fixtures.permute(x, warps) for x in nat), dev)[2:],
+             "c3_shuffled_sorted_in_blocks": cs.shape_inputs(tuple(
+                 fixtures.permute(x, by_block) for x in shuf), dev)[2:],
+             "c3_box_quarter": cut((idx >= q) & (idx < 2 * q)),
+             "c3_without_box": cut((idx < q) | (idx >= 2 * q)),
+             "mixed16": cs.shape_inputs(fixtures.mixed16_pairs(n // 16, 7),
+                                        dev)[2:]}
+    want = {k: fs.cf_shapes_plain(*c, cfg) for k, c in cases.items()}
+    copy = _k5_copy(_build.BUILD_DIR / "sweep")
+
+    def copied():
+        out = [torch.empty_like(t) for t in want["c3"]]
+        rc = copy(*(_build.ptr(t) for t in (sa, sb, ret, *out)), n,
+                  torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"k5_copy launch failed: CUDA error {rc}")
+
+    row = {"copy_floor_c3": cs.device_ms(copied),
+           "bound_c3": cs.work(n, 129 + 26, 0)[0]}
+    for what, c in cases.items():
+        got = fs.cf_shapes(*c, cfg)
+        torch.cuda.synchronize()
+        if not rows_equal(got, want[what]):
+            raise AssertionError(f"K5 differs from plain at {what}")
+        row[what] = cs.device_ms(lambda c=c: fs.cf_shapes(*c, cfg))
+    print("K5: every case bit-equal to plain; " + ", ".join(
+        f"{what} {row[what]:.4f}" for what in cases)
+        + f" ms (copy floor at c3 {row['copy_floor_c3']:.4f}, bound "
+        f"{row['bound_c3']:.4f}) [{card}]", flush=True)
+    print(json.dumps({"k5": row, "card": card}), flush=True)
+
+
+# -- k6a -----------------------------------------------------------------------
+
+# K6a's block: quads (pairs in flight) a block.
+K6A_PAIRS = (8, 16, 32, 64)
+ITER_CAPS = (0, 1, 2, 4, 8, 16)     # gjk_max_iters of the chain's slope
+
+
+def k6a(cs, dev, card) -> None:
+    import ctypes
+
+    from gjkepa_tpu_torch import GJKEPAConfig, _build
+    from gjkepa_tpu_torch.models import fixtures
+    from gjkepa_tpu_torch.ops import fused_shapes as fs
+    from gjkepa_tpu_torch.ops.fused import hit_first_order
+    cfg = GJKEPAConfig.for_f32()
+    builds = variants(cs, "gjk_shapes.cu", {p: {"K6A_PAIRS": p}
+                                           for p in K6A_PAIRS})
+    dirs = fs.INIT_DIRS.ctypes.data_as(ctypes.c_void_p)
+
+    def alone(sa, sb, ret, act, c):
+        """K6a's kernel through its C entry point, on the compaction of
+        ``act`` and rows allocated here, once."""
+        order, n_act = hit_first_order(act)
+        rows = fs.gjk_sub_shapes(sa, sb, ret, order, n_act, c)
+        ptrs = [_build.ptr(t) for t in (sa, sb, ret, order, n_act)]
+        outs = [_build.ptr(t) for t in rows]
+        return lambda: _build.launch(
+            "gjk_sub_shapes", dev, {"gjk_sub_shapes": 0}, *ptrs, dirs,
+            *outs, sa.shape[0], *fs.gjk_args(c))
+
+    rng = np.random.default_rng(3)
+    *shuf, _ = fixtures.c3_shuffled(0, cs.C3)
+    cases = (("c3", fixtures.c3_pairs(0, cs.C3)), ("c3_shuffled", shuf),
+             ("mixed16", fixtures.mixed16_pairs(cs.C3 // 64, 7)),
+             ("dense_cyl", (fixtures.kind_batch(3, 16381, rng, spread=0.2),
+                            fixtures.kind_batch(3, 16381, rng, spread=0.2))),
+             ("no_gjk_lanes", fixtures.mixed16_pairs(1, 1)))
+    table = []
+    for what, pairs in cases:
+        sa, sb, ret = cs.shape_inputs(pairs, dev)[2:]
+        act = fs.cf_shapes_plain(sa, sb, ret, cfg).act
+        if what == "no_gjk_lanes":
+            act = torch.zeros_like(act)
+        order, n_act = hit_first_order(act)
+        want = fs.gjk_sub_shapes_plain(sa, sb, ret, order, n_act, cfg)
+        it = want.iters[act].float()
+        row = {"case": what, "pairs": sa.shape[0], "gjk_lanes": int(n_act)}
+        if int(n_act):
+            row.update(mean_iters=float(it.mean()),
+                       p99_iters=float(torch.quantile(it, 0.99)),
+                       max_iters=int(it.max()))
+        for label, ns in builds.items():
+            with mock.patch.object(_build, "load", lambda ns=ns: ns):
+                got = fs.gjk_sub_shapes(sa, sb, ret, order, n_act, cfg)
+                torch.cuda.synchronize()
+                if not rows_equal(got, want):
+                    raise AssertionError(f"K6a at P={label} differs from "
+                                         f"plain at {what}")
+                row[f"P{label}"] = cs.device_ms(alone(sa, sb, ret, act, cfg))
+        row["fastest"] = f"P{min(builds, key=lambda p: row[f'P{p}'])}"
+        row["shipped"] = cs.device_ms(
+            lambda: fs.gjk_sub_shapes(sa, sb, ret, order, n_act, cfg))
+        if what == "c3":
+            # the same pairs without the longest GJK chains
+            keep = ~(act & (want.iters > row["p99_iters"]))
+            q = [t[keep].contiguous() for t in (sa, sb, ret, act)]
+            row["shipped_without_p99_tail"] = cs.device_ms(alone(*q, cfg))
+        table.append(row)
+        print(f"K6a {what}: {row['gjk_lanes']} GJK lanes"
+              + (f", iters mean {row['mean_iters']:.3f}, p99 "
+                 f"{row['p99_iters']:.0f}, max {row['max_iters']}"
+                 if int(n_act) else "")
+              + "; every build bit-equal to plain; " + ", ".join(
+                  f"P={p} {row[f'P{p}']:.4f}" for p in builds)
+              + f" ms (kernel alone); fastest {row['fastest']}; shipped "
+              f"wrapper {row['shipped']:.4f} ms"
+              + (f", kernel alone without the pairs above p99 "
+                 f"{row['shipped_without_p99_tail']:.4f} ms"
+                 if what == "c3" else "") + f" [{card}]", flush=True)
+    # the chain: K6a (a quad a pair, its kernel alone) and K6b (a thread a
+    # pair, over the same GJK lanes and every closed form) at c3 with the
+    # iterations capped
+    sa, sb, ret = cs.shape_inputs(cases[0][1], dev)[2:]
+    act = fs.cf_shapes(sa, sb, ret, cfg).act
+    caps = {}
+    for cap in ITER_CAPS:
+        c = cfg.replace(gjk_max_iters=cap)
+        caps[f"k6a_cap{cap}"] = cs.device_ms(alone(sa, sb, ret, act, c))
+        caps[f"k6b_cap{cap}"] = cs.device_ms(
+            lambda: fs.gjk_shapes(sa, sb, ret, c))
+    print("K6a and K6b at c3 by gjk_max_iters: " + ", ".join(
+        f"{cap}: {caps[f'k6a_cap{cap}']:.4f} / {caps[f'k6b_cap{cap}']:.4f}"
+        for cap in ITER_CAPS) + f" ms [{card}]", flush=True)
+    print(json.dumps({"k6a_grid": table, "iteration_caps": caps,
+                      "card": card}), flush=True)
+
+
 # -- times ---------------------------------------------------------------------
 
 def times(cs, dev, card, tag) -> None:
+    import ctypes
+
     import gjkepa_tpu_torch as gt
+    from gjkepa_tpu_torch import _build
     from gjkepa_tpu_torch.models import fixtures
     from gjkepa_tpu_torch.ops import fused_distance as fd
     from gjkepa_tpu_torch.ops import fused_epa, fused_gjk
@@ -664,9 +903,24 @@ def times(cs, dev, card, tag) -> None:
     g4 = fused_gjk.gjk_hulls(m1, m2, cfg)
     o4, n4 = hit_first_order(g4.hit)
     _, _, sa3, sb3, ret3 = cs.shape_inputs(fixtures.c3_pairs(0, cs.C3), dev)
+    *shuf, _ = fixtures.c3_shuffled(0, cs.C3)
+    _, _, sa3s, sb3s, ret3s = cs.shape_inputs(shuf, dev)
     c5 = fs.cf_shapes(sa3, sb3, ret3, cfg)           # chip_smoke.py phase 10
     o6, n6 = hit_first_order(c5.act)
-    g6 = fs.gjk_sub_shapes(sa3, sb3, ret3, o6, n6, cfg)
+    # the kernels alone through their C entry points on rows allocated
+    # once (older wrappers fill rows on every call)
+    k6a_in = (sa3, sb3, ret3, o6, n6)
+    g6 = fs.gjk_sub_shapes(*k6a_in, cfg)
+    g6b = fs.gjk_shapes(sa3, sb3, ret3, cfg)
+    dirs = fused_gjk.INIT_DIRS.ctypes.data_as(ctypes.c_void_p)
+
+    def kernel_alone(name, ins, outs):
+        rc = getattr(_build.load(), f"{name}_launch")(
+            *(_build.ptr(t) for t in ins), dirs, *(_build.ptr(t) for t in outs),
+            cs.C3, *fs.gjk_args(cfg),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        if rc != 0:
+            raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     o7, n7 = hit_first_order(g6.hit)
     k7 = (sa3, sb3, g6.simplex, torch.where(c5.act, g6.status, c5.status),
           c5.depth, c5.normal, o7, n7, fs.shape_stages(cfg))
@@ -685,6 +939,13 @@ def times(cs, dev, card, tag) -> None:
     rows8 = fd.DistanceRows(*(t.clone() for t in low))
     a3, b3 = cs.shape_inputs(fixtures.c3_pairs(0, cs.C3), dev)[:2]
     fns = {
+        "k5_c3": lambda: fs.cf_shapes(sa3, sb3, ret3, cfg),
+        "k5_c3_shuffled": lambda: fs.cf_shapes(sa3s, sb3s, ret3s, cfg),
+        "k6a_c3": lambda: fs.gjk_sub_shapes(*k6a_in, cfg),
+        "k6a_c3_kernel": lambda: kernel_alone("gjk_sub_shapes", k6a_in, g6),
+        "k6b_c3": lambda: fs.gjk_shapes(sa3, sb3, ret3, cfg),
+        "k6b_c3_kernel": lambda: kernel_alone("gjk_shapes", (sa3, sb3, ret3),
+                                              g6b),
         "k1_c4": lambda: fused_gjk.gjk_hulls(m1, m2, cfg),
         "k1_c2": lambda: fused_gjk.gjk_hulls(b1, b2, bool_cfg),
         "k2_c4": lambda: fused_epa.epa_cascade(m1, m2, g4.simplex, g4.status,
@@ -732,13 +993,14 @@ def times(cs, dev, card, tag) -> None:
         out[key + "_one_call"] = cs.cuda_ms(fn)
     for key, fn in walls.items():
         out[key] = cs.cuda_ms(fn)
+    out["launches_c3"] = cs.device_launches(walls["path_c3"])
     print(json.dumps(out), flush=True)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("what", choices=("teams", "warps", "k2", "k12", "k8", "k7",
-                                     "k9", "k10", "times"))
+                                     "k9", "k10", "k5", "k6a", "times"))
     ap.add_argument("--root", type=Path, default=ROOT,
                     help="checkout whose gjkepa_tpu_torch `times` imports")
     ap.add_argument("--tag", default="change")
@@ -750,7 +1012,7 @@ def main() -> int:
     cs = _chip_smoke()
     dev, card = torch.device("cuda", 0), card_name()
     {"teams": teams, "warps": warps, "k2": k2, "k12": k12, "k8": k8,
-     "k7": k7, "k9": k9, "k10": k10}.get(
+     "k7": k7, "k9": k9, "k10": k10, "k5": k5, "k6a": k6a}.get(
         a.what, lambda *x: times(*x, a.tag))(cs, dev, card)
     return 0
 

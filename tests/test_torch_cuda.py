@@ -6,12 +6,14 @@ the card has no JAX, so run this file without the JAX conftest:
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest \
         -o addopts="" -p no:cacheprovider
 
-Tolerances: hit and status exact, separation and depth 1e-5, iteration
-counts on >= 99.5% / 99% of lanes (both versions round every op on their
-own: the kernels are built with --fmad=false), normals dot > 1-1e-4 on
->= 98% of hit lanes; closed-form depth and normal 1e-6.  Those hold K1 in
-``test_k1_matches_plain_on_card`` and the shape kernels K5, K6a and K6b;
-every other check is bit for bit.  K7 and K10 (a warp a hit over
+Tolerances: hit and status exact, separation 1e-5, iteration counts on
+>= 99.5% of lanes (both versions round every op on their own: the kernels
+are built with --fmad=false) hold K1 in ``test_k1_matches_plain_on_card``;
+every other check is bit for bit.  K5, K6a and K6b: rows bit for bit on
+c3 in natural and shuffled order, a batch of 4,093 pairs, the 16 kind
+pairs, all-cylinder pairs (every pair in GJK) and spheres (no pair in
+GJK), K6a's inactive rows included; their wrappers launch one kernel
+each.  K7 and K10 (a warp a hit over
 epa_warp.cuh, one kernel in epa_polish_warp.cuh): rows bit for bit at
 epa_max_iters 1, 16 and 64, K10 also on hulls of 21-24 vertices and on
 masked hulls.  K8 and K9 (a team of threads a pair over K11's support):
@@ -24,10 +26,13 @@ K13 over a tier ladder forced to overflow into their retries, at vertex
 counts with each remainder mod 4: bit for bit.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
+from gjkepa_tpu_torch import _build
 from gjkepa_tpu_torch import (GJKEPAConfig, ShapeBatch,
                               fused_gjk_distance_hulls,
                               fused_gjkepa_hull_shapes, fused_gjkepa_shapes,
@@ -120,44 +125,43 @@ def _shape_rows(pairs, dev):
 def _shape_pairs(name):
     if name == "mixed16":
         return fixtures.mixed16_pairs(64, 5)
-    if name == "dense_cyl":
+    if name == "dense_cyl":     # every pair active
         rng = np.random.default_rng(3)
         return (fixtures.kind_batch(3, 1024, rng, spread=0.2),
                 fixtures.kind_batch(3, 1024, rng, spread=0.2))
+    if name == "spheres":       # no GJK lanes: n_act = 0
+        rng = np.random.default_rng(4)
+        return (fixtures.kind_batch(0, 1000, rng),
+                fixtures.kind_batch(0, 1000, rng))
+    if name == "c3_shuffled":
+        return tuple(fixtures.c3_shuffled(0, 4096)[:2])
+    if name == "c3_odd":        # B % 4 != 0
+        return tuple(tuple(x[:4093] for x in side)
+                     for side in fixtures.c3_pairs(0, 4096))
     return fixtures.c3_pairs(0, 4096)
 
 
-def _assert_gjk_close(k, p, lanes):
-    assert torch.equal(k.hit, p.hit) and torch.equal(k.status, p.status)
-    # iteration counts on the GJK lanes only: the others are 0 on both sides
-    assert int((k.iters != p.iters).sum()) <= 0.005 * int(lanes.sum())
-    assert float((k.sep - p.sep).abs().max()) <= 1e-5
-    assert float((k.simplex[lanes] - p.simplex[lanes]).abs().max()) <= 1e-5
-
-
-@pytest.mark.parametrize("name", ["mixed16", "dense_cyl", "c3"])
+@pytest.mark.parametrize("name", ["mixed16", "dense_cyl", "c3", "c3_shuffled",
+                                  "c3_odd", "spheres"])
 def test_shape_kernels_match_plain_on_card(dev, name):
     sa, sb, retired = _shape_rows(_shape_pairs(name), dev)
     cfg = GJKEPAConfig.for_f32()
     n0 = dict(fs.LAUNCHES)
-    # K5: exact
+    # K5
     ck = fs.cf_shapes(sa, sb, retired, cfg)
     cp = fs.cf_shapes_plain(sa, sb, retired, cfg)
-    for x, y in zip(ck, cp):
-        assert float((x.float() - y.float()).abs().max()) <= 1e-6
-    assert torch.equal(ck.act, cp.act) and torch.equal(ck.status, cp.status)
-    # K6a over the compacted GJK lanes
+    assert _rows_equal(ck, cp)
+    # K6a over the compacted GJK lanes: every row, the inactive ones too
     order, n_act = hit_first_order(cp.act)
     gk = fs.gjk_sub_shapes(sa, sb, retired, order, n_act, cfg)
     gp = fs.gjk_sub_shapes_plain(sa, sb, retired, order, n_act, cfg)
-    _assert_gjk_close(gk, gp, cp.act)
-    # K6b over every lane, with the closed-form channel
+    assert _rows_equal(gk, gp)
+    # K6b over every lane (its simplex on the GJK lanes), with the
+    # closed-form channel
     hk = fs.gjk_shapes(sa, sb, retired, cfg)
     hp = fs.gjk_shapes_plain(sa, sb, retired, cfg)
-    _assert_gjk_close(hk, hp, cp.act)
-    assert torch.equal(hk.final, hp.final)
-    assert float((hk.cf_depth - hp.cf_depth).abs().max()) <= 1e-6
-    assert float((hk.cf_normal - hp.cf_normal).abs().max()) <= 1e-6
+    assert _rows_equal(hk, hp, cp.act)
+    assert all(torch.equal(x, y) for x, y in zip(hk[5:], hp[5:]))
     # K7 over the GJK hits
     st = fs.shape_stages(cfg)
     epa = hp.hit & ~hp.final
@@ -165,10 +169,56 @@ def test_shape_kernels_match_plain_on_card(dev, name):
     args = (sa, sb, hp.simplex, hp.status, hp.cf_depth, hp.cf_normal, order,
             n_act, st)
     ek, ep = fs.epa_shapes(*args), fs.epa_shapes_plain(*args)
-    assert int(n_act) > 0
+    assert (int(n_act) > 0) == (name != "spheres")
     assert _rows_equal(ek, ep)
     assert {k: fs.LAUNCHES[k] - n0[k] for k in n0} == {
         "cf_shapes": 1, "gjk_sub_shapes": 1, "gjk_shapes": 1, "epa_shapes": 1}
+
+
+def test_shape_wrappers_launch_one_kernel_on_card(dev):
+    """K6a and K6b write every row themselves: each wrapper launches its
+    kernel and nothing else (no zero fills)."""
+    from gjkepa_tpu_torch.profile import kernel_launches
+    sa, sb, retired = _shape_rows(_shape_pairs("c3"), dev)
+    cfg = GJKEPAConfig.for_f32()
+    order, n_act = hit_first_order(fs.cf_shapes(sa, sb, retired, cfg).act)
+    for fn in (lambda: fs.gjk_sub_shapes(sa, sb, retired, order, n_act, cfg),
+               lambda: fs.gjk_shapes(sa, sb, retired, cfg),
+               lambda: fs.cf_shapes(sa, sb, retired, cfg)):
+        assert kernel_launches(fn) == 1
+
+
+@pytest.mark.parametrize("n_act", [0, 17, 4093])
+def test_k6a_writes_every_row_for_any_order(dev, n_act):
+    """K6a writes pair order[i]'s row for every i, GJK below ``n_act`` and
+    the inactive row above, so with any permutation and count no row is
+    left as it was: rows filled with NaN beforehand all equal plain's (a
+    pair below ``n_act`` that its GJK test finds inactive keeps a zero
+    simplex, where the plain version leaves its probes)."""
+    sa, sb, retired = _shape_rows(_shape_pairs("c3_odd"), dev)
+    cfg = GJKEPAConfig.for_f32()
+    b = sa.shape[0]
+    order = torch.randperm(b, generator=torch.Generator().manual_seed(n_act))
+    order = order.to(dev, torch.int32)
+    count = torch.tensor(n_act, dtype=torch.int32, device=dev)
+    want = fs.gjk_sub_shapes_plain(sa, sb, retired, order, count, cfg)
+    nan = float("nan")
+    rows = fs.GJKRows(torch.ones(b, dtype=torch.bool, device=dev),
+                      torch.full((b,), 7, dtype=torch.int32, device=dev),
+                      torch.full((b,), 7, dtype=torch.int32, device=dev),
+                      torch.full((b,), nan, device=dev),
+                      torch.full((b, 4, 3), nan, device=dev))
+    ptr = _build.ptr
+    _build.launch("gjk_sub_shapes", dev, {"gjk_sub_shapes": 0},
+                  *(ptr(t) for t in (sa, sb, retired, order, count)),
+                  fs.INIT_DIRS.ctypes.data_as(ctypes.c_void_p),
+                  *(ptr(t) for t in rows), b, *fs.gjk_args(cfg))
+    torch.cuda.synchronize()
+    probes = torch.zeros(b, dtype=torch.bool, device=dev)
+    probes[order[:n_act].long()] = True
+    probes &= ~fs.cf_shapes_plain(sa, sb, retired, cfg).act
+    assert _rows_equal(rows, want, ~probes)
+    assert not bool(rows.simplex[probes].any())
 
 
 def test_shape_path_sort_hits_agree_on_card(dev):
