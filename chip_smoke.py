@@ -17,7 +17,8 @@ over ``csrc/epa_warp.cuh``), all over the team support K11
 shape path is the analytic-shape query, ``fused_gjkepa_shapes`` and
 ``collide_shapes_batch_fused``: K5, the closed-form kernel, a thread a
 pair (``csrc/cf_shapes.cu``), K6a, GJK a quad of threads a pair over the
-GJK lanes (``csrc/gjk_quad.cuh``), or K6b over all lanes
+GJK lanes (``csrc/gjk_quad.cuh``), or K6b over all lanes, the closed
+forms a thread a pair and each block's GJK lanes a quad each
 (``csrc/gjk_shapes.cu``), then K7, the capped EPA cascade with the polish,
 a warp a hit with the polytope in shared memory (``csrc/epa_shapes.cu``
 over ``csrc/epa_warp.cuh``).  The distance path,
@@ -105,7 +106,14 @@ once) and runs, in phases:
      repeated-vertex padding bit for bit; the path against the plain path;
      timings of K12, K13, their plain versions, K1/K2 on the same inputs,
      the padded broadphase, the contact rows and both paths; K13's ms per
-     EPA iteration and K12's ms per probe.
+     EPA iteration and K12's ms per probe;
+ 16. the portable path (torch code, no kernel of its own) through its
+     entry points: ``gjkepa`` on bench.py's c1 cubes (depth 0.5 within
+     1e-4), ``gjkepa_batch`` at phase 5's 16384 x 24 deep pairs in
+     float32 and a 256-pair float64 sample of them against the oracle (no
+     hit mismatch, depth within 1e-6), ``collide_shapes_batch`` at c3 and
+     ``collide_hull_shape_batch`` at c3b (hits equal to the fused path's
+     on >= 99% of lanes), each timed (host wall, synchronised).
 
 Times are CUDA-event times.  A kernel's (``ms`` in the ``kernels`` line)
 is a device time, ``device_ms``: 10 calls queued behind a sleep kernel
@@ -1312,6 +1320,115 @@ def big_phases(gt, dev, cfg, card) -> list[dict]:
     ]
 
 
+# -- the portable path -----------------------------------------------------------
+
+def portable_phase(gt, dev, card, n4=16384, n3=C3, n3b=None,
+                   oracle_pairs=256) -> None:
+    """Phase 16: the portable path (``gjkepa``, ``gjkepa_batch``,
+    ``collide_shapes_batch``, ``collide_hull_shape_batch``: torch code, no
+    kernel of its own) on the card through its entry points."""
+    from gjkepa_tpu_torch.models import fixtures
+    cfg = gt.GJKEPAConfig.for_f32()
+
+    def wall_ms(fn, calls=TIMED_CALLS):
+        """Median host wall of one synchronised call, ms (the portable
+        loops read a device flag every iteration, so the host waits on the
+        card anyway)."""
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    def finite(r, what):
+        for name, t in r._asdict().items():
+            check(t.device == dev, f"phase 16: {what} {name} on {t.device}")
+            if t.is_floating_point():
+                check(bool(torch.isfinite(t).all()),
+                      f"phase 16: {what} {name} not finite")
+
+    # c1: one cube pair (bench.py:144-162)
+    corners = np.array([[x, y, z] for x in (-.5, .5) for y in (-.5, .5)
+                        for z in (-.5, .5)], np.float32)
+    c1 = torch.from_numpy(corners).to(dev)
+    c2 = torch.from_numpy(corners + np.array([0.5, 0, 0], np.float32)).to(dev)
+    r = gt.gjkepa(c1, c2, cfg=cfg)
+    finite(r, "c1")
+    check(bool(r.hit) and abs(float(r.depth) - 0.5) < 1e-4,
+          f"phase 16: c1 depth {float(r.depth)}, status {int(r.status)}")
+    times = {"c1": wall_ms(lambda: gt.gjkepa(c1, c2, cfg=cfg))}
+
+    # c4: deep pairs in float32, then a sample in float64 against the oracle
+    rng = np.random.default_rng(0)                  # phase 5's recipe
+    m1, m2 = (torch.from_numpy(a).to(dev) for a in deep_pairs(rng, n4, 24))
+    r4 = gt.gjkepa_batch(m1, m2, cfg=cfg)
+    finite(r4, "c4")
+    hit4 = float(r4.hit.float().mean())
+    check(r4.contact_point.shape == (n4, 3) and hit4 >= 0.9,
+          f"phase 16: c4 hit fraction {hit4}")
+    times["c4"] = wall_ms(lambda: gt.gjkepa_batch(m1, m2, cfg=cfg), 3)
+    oracle = load_oracle()
+    s1, s2 = (t[:oracle_pairs].double() for t in (m1, m2))
+    r64 = gt.gjkepa_batch(s1, s2)
+    finite(r64, "c4 float64 sample")
+    a1, a2 = s1.cpu().numpy(), s2.cpu().numpy()
+    hit64, depth64 = r64.hit.cpu().numpy(), r64.depth.cpu().numpy()
+    mismatch, err, compared = 0, 0.0, 0
+    for i in range(oracle_pairs):
+        try:
+            o = oracle.gjkepa_oracle(a1[i], a2[i])
+        except oracle.OracleHalt:
+            continue
+        mismatch += int(bool(hit64[i]) != o.hit)
+        if o.hit and not o.epa_capped:
+            err = max(err, abs(float(depth64[i]) - o.depth))
+            compared += 1
+    check(mismatch == 0 and err < 1e-6 and compared > oracle_pairs // 2,
+          f"phase 16: float64 sample vs oracle: {mismatch} hit mismatches, "
+          f"depth error {err} over {compared} hits")
+
+    # c3 shapes and c3b hulls against shapes, at full width
+    a3, b3 = (gt.ShapeBatch.from_numpy(*side, device=dev)
+              for side in fixtures.c3_pairs(0, n3))
+    r3 = gt.collide_shapes_batch(a3, b3, cfg=cfg)
+    finite(r3, "c3")
+    f3 = gt.fused_gjkepa_shapes(a3, b3, cfg=cfg)
+    agree3 = float((r3.hit == f3.hit).float().mean())
+    check(isum(r3.hit) > 0 and agree3 >= 0.99,
+          f"phase 16: c3 {isum(r3.hit)} hits, {agree3} agree with fused")
+    times["c3"] = wall_ms(lambda: gt.collide_shapes_batch(a3, b3, cfg=cfg), 3)
+    hulls, shp = fixtures.c3b_pairs()
+    hulls, shp = hulls[:n3b], tuple(x[:n3b] for x in shp)
+    h3 = torch.from_numpy(hulls).to(dev)
+    s3 = gt.ShapeBatch.from_numpy(*shp, device=dev)
+    rb = gt.collide_hull_shape_batch(h3, s3, cfg=cfg)
+    finite(rb, "c3b")
+    fb = gt.fused_gjkepa_hull_shapes(h3, s3, cfg=cfg)
+    agreeb = float((rb.hit == fb.hit).float().mean())
+    check(isum(rb.hit) > 0 and agreeb >= 0.99,
+          f"phase 16: c3b {isum(rb.hit)} hits, {agreeb} agree with fused")
+    times["c3b"] = wall_ms(
+        lambda: gt.collide_hull_shape_batch(h3, s3, cfg=cfg), 3)
+    sizes = {"c1": 1, "c4": n4, "c3": n3, "c3b": h3.shape[0]}
+    for key, ms in times.items():
+        log(f"phase 16 time {key}: {ms:.4f} ms = "
+            f"{sizes[key] / ms * 1e3:,.0f} q/s [{card}]")
+    log(f"phase 16 portable path: c1 depth {float(r.depth):.6f} in "
+        f"{times['c1'] * 1e3:.1f} us; gjkepa_batch c4 {n4} x 24 float32 hit "
+        f"fraction {hit4:.4f}, mean gjk/epa iterations "
+        f"{float(r4.gjk_iters.float().mean()):.3f}/"
+        f"{float(r4.epa_iters.float().mean()):.3f}; float64 sample of "
+        f"{oracle_pairs} vs the oracle: 0 hit mismatches, depth error "
+        f"{err:.3g} over {compared} hits; collide_shapes_batch c3 "
+        f"{isum(r3.hit)} hits ({agree3:.5f} agree with the fused path), "
+        f"collide_hull_shape_batch c3b {isum(rb.hit)} hits ({agreeb:.5f}) "
+        f"[{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1599,6 +1716,7 @@ def main() -> int:
     kernels += shape_phases(gt, dev, cfg, card)
     kernels += distance_and_mixed_phases(gt, dev, cfg, card)
     kernels += big_phases(gt, dev, cfg, card)
+    portable_phase(gt, dev, card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,15 @@
 """gjkepa_tpu_torch: the PyTorch/CUDA port of gjkepa_tpu.
 
-The port holds the four fused queries of the JAX package and its
-portable distance API:
+The port holds the JAX package's portable query and its four fused
+queries:
+
+  * the portable path (``api``), torch code over the support maps in
+    float32 or float64: :func:`gjkepa` and :func:`gjkepa_batch` over hull
+    pairs (``ops.gjk``, ``ops.epa``, ``ops.contact``, with
+    :func:`derive_contact`), :func:`collide_supports` over any support map
+    with the depth polish, :func:`collide_shapes_batch` and
+    :func:`collide_hull_shape_batch`; the hull utilities are
+    ``utils.hull``;
 
   * hull pairs: :func:`gjkepa_batch_fused` / :func:`derive_contact_batch`
     (``api``) over :func:`fused_gjkepa_hulls` (``ops.fused``): K1, the GJK
@@ -39,8 +47,10 @@ falls back from one to the other.  The package imports neither jax nor
 gjkepa_tpu.
 """
 
-from .api import (collide_shapes_batch_fused, derive_contact_batch,
-                  gjk_distance_batch, gjk_distance_shapes_batch,
+from .api import (collide_hull_shape_batch, collide_shapes_batch,
+                  collide_shapes_batch_fused, collide_supports,
+                  derive_contact, derive_contact_batch, gjk_distance_batch,
+                  gjk_distance_shapes_batch, gjkepa, gjkepa_batch,
                   gjkepa_batch_fused)
 from .config import DEFAULT_CONFIG, GJKEPAConfig
 from .models.shapes import (ShapeBatch, boxes, capsules, concat_shapes,
@@ -52,7 +62,9 @@ from .ops.fused import (FusedResult, fused_gjk_distance_hulls,
                         fused_gjkepa_shapes)
 from .types import CollisionResult, Status
 
-__all__ = ["gjkepa_batch_fused", "derive_contact_batch", "fused_gjkepa_hulls",
+__all__ = ["gjkepa", "gjkepa_batch", "derive_contact", "collide_supports",
+           "collide_shapes_batch", "collide_hull_shape_batch",
+           "gjkepa_batch_fused", "derive_contact_batch", "fused_gjkepa_hulls",
            "derive_contact_rows", "collide_shapes_batch_fused",
            "fused_gjkepa_shapes", "fused_gjk_distance_hulls",
            "fused_gjkepa_hull_shapes", "gjk_distance_batch",

@@ -1,8 +1,9 @@
 """Contact derivation for analytic shape pairs (ref :329-343 on shapes).
 
-Port of ``gjkepa_tpu/ops/contact_shapes.py``, with the version-2 case tree
-``collision_point_v2_sets`` of ``gjkepa_tpu/ops/contact.py:142-196``,
-row-vectorised over the batch.  Analytic shapes have no vertex arrays, so
+Port of ``gjkepa_tpu/ops/contact_shapes.py``, row-vectorised over the
+batch, through the version-2 case tree of :mod:`.contact`
+(``collision_point_v2_sets``, ``gjkepa_tpu/ops/contact.py:142-196``), as
+in the JAX package.  Analytic shapes have no vertex arrays, so
 the support SETS feeding the reference's case trees are the closed-form
 candidate sets of :func:`.manifold.shape_support_polygon` (box corners,
 capsule ends, cylinder rim samples, the sphere point), front-compacted in
@@ -31,7 +32,7 @@ import torch
 from ..config import GJKEPAConfig
 from ..models.shapes import (BOX, ShapeBatch, rot_apply, rot_t_apply,
                              shape_support_world)
-from .contact_rows import _foot_ll, case_04_rows
+from .contact import _centroid, collision_point_v2_sets
 from .lane_geom import fsqrt
 from .manifold import shape_support_polygon
 
@@ -46,56 +47,6 @@ def _support_first(kind, params, pos, rot, d):
     wbox = rot_apply(rot, torch.where(rot_t_apply(rot, d) > 0.0, params,
                                       -params), pos)
     return torch.where((kind == BOX)[:, None], wbox, w)
-
-
-def _xyz(p):
-    """(B, 3) -> an (x, y, z) triple of (B,) tensors."""
-    return p[:, 0], p[:, 1], p[:, 2]
-
-
-def _centroid(s, n):
-    k = torch.arange(s.shape[1], device=s.device)[None, :] < n[:, None]
-    return (torch.where(k[:, :, None], s, 0.0).sum(dim=1)
-            / torch.clamp(n, min=1).to(s.dtype)[:, None])
-
-
-def collision_point_v2_sets(s1, n1, s2, n2, cfg: GJKEPAConfig):
-    """The version-2 (n1, n2) case dispatch (ref :477-502) over
-    front-compacted (B, K, 3) support sets with n1/n2 members."""
-    epz = cfg.eps_zero
-    a0, a1 = _xyz(s1[:, 0]), _xyz(s1[:, 1])
-    b0, b1 = _xyz(s2[:, 0]), _xyz(s2[:, 1])
-    c01 = (s1[:, 0] + s2[:, 0]) * 0.5                      # vertex-vertex
-    f1, f2 = _foot_ll(a0, a1, b0, b1, epz)                 # edge-edge
-    c03 = torch.stack([(u + v) * 0.5 for u, v in zip(f1, f2)], dim=1)
-
-    def case_04(poly, n_poly, e0, e1):
-        """Edge-face: poly is the >= 3 set, (e0, e1) the edge.  The sets
-        are front-compacted, so their member mask is the first n rows; the
-        coincidence test of SORT_CLOCK is the JAX package's 1e-12
-        (``sort_clock_indices``)."""
-        members = (torch.arange(poly.shape[1], device=poly.device)[:, None]
-                   < n_poly[None, :])
-        rows = tuple(poly[:, :, j].T for j in range(3))
-        first3 = tuple(_xyz(poly[:, i]) for i in range(3))
-        return torch.stack(case_04_rows(
-            *rows, members, n_poly, _xyz(_centroid(poly, n_poly)), first3,
-            e0, e1, epz, 1e-12), dim=1)
-
-    c04_p1poly = case_04(s1, n1, b0, b1)                   # n1 >= 3, n2 == 2
-    c04_p2poly = case_04(s2, n2, a0, a1)                   # n1 == 2, n2 >= 3
-    c05 = _centroid(s1, n1)                                # face-face
-
-    def sel(cond, t, f):
-        return torch.where(cond[:, None], t, f)
-
-    return sel((n1 == 1) & (n2 == 1), c01,
-               sel((n1 == 1) & (n2 >= 2), s1[:, 0],
-                   sel((n1 >= 2) & (n2 == 1), s2[:, 0],
-                       sel((n1 == 2) & (n2 == 2), c03,
-                           sel((n1 == 2) & (n2 >= 3), c04_p2poly,
-                               sel((n1 >= 3) & (n2 == 2), c04_p1poly,
-                                   c05))))))
 
 
 def derive_contact_shapes(a: ShapeBatch, b: ShapeBatch, normal,

@@ -19,7 +19,8 @@ import torch
 
 from .lane_geom import fsqrt
 
-__all__ = ["SupportResult", "hull_support_point", "make_hull_support",
+__all__ = ["SupportResult", "hull_support_point", "minkowski_support_hulls",
+           "make_hull_support",
            "sphere_support", "box_support", "capsule_support",
            "cylinder_support"]
 
@@ -43,14 +44,21 @@ def hull_support_point(verts: torch.Tensor, d: torch.Tensor,
     return torch.gather(verts, 1, i[:, None, None].expand(-1, 1, 3))[:, 0]
 
 
+def minkowski_support_hulls(p1, p2, d, mask1=None, mask2=None
+                            ) -> SupportResult:
+    """support_mapping(p1, p2, d) = argmax<d, p1> - argmax<-d, p2> row by
+    row (ref :1030-1062)."""
+    a = hull_support_point(p1, d, mask1)
+    b = hull_support_point(p2, -d, mask2)
+    return SupportResult(a - b, a, b)
+
+
 def make_hull_support(p1, p2, mask1=None, mask2=None):
     """Minkowski support over two padded hull batches (B, N, 3), with
     optional (B, N) bool validity masks."""
 
     def support(d: torch.Tensor) -> SupportResult:
-        a = hull_support_point(p1, d, mask1)
-        b = hull_support_point(p2, -d, mask2)
-        return SupportResult(a - b, a, b)
+        return minkowski_support_hulls(p1, p2, d, mask1, mask2)
 
     return support
 

@@ -16,7 +16,10 @@ Paths, each at its bench.py configuration (``models/fixtures.py``):
   c4        ``gjkepa_batch_fused``, 16,384 x 24 deep pairs, full contact;
   big8192   ``gjkepa_batch_fused``, 256 x 8,192 hull pairs (the large-hull
             path: K12, K13), full contact;
-  big2600   ``fused_gjkepa_hulls``, 4,096 x 2,600 hull pairs (K12, K13).
+  big2600   ``fused_gjkepa_hulls``, 4,096 x 2,600 hull pairs (K12, K13);
+  c1        ``gjkepa``, the portable path (torch code, no kernel of its
+            own), one unit cube against the same at +0.5 in x, float32;
+  c4portable  ``gjkepa_batch``, the portable path, c4's pairs, float32.
 
 Without arguments it profiles them all; named paths run in the order given,
 repeats included (``c3b c3b_unsorted c3b_unsorted c3b`` compares two in
@@ -42,7 +45,8 @@ import torch
 
 from . import (GJKEPAConfig, ShapeBatch, derive_contact_batch,
                fused_gjk_distance_hulls, fused_gjkepa_hull_shapes,
-               fused_gjkepa_hulls, fused_gjkepa_shapes, gjkepa_batch_fused)
+               fused_gjkepa_hulls, fused_gjkepa_shapes, gjkepa,
+               gjkepa_batch, gjkepa_batch_fused)
 from .models import fixtures
 from .ops import fused_distance as fd
 from .ops import fused_hull_shapes as fh
@@ -205,7 +209,7 @@ def main(argv) -> int:
                           text=True, check=True).stdout.strip()
     cfg = GJKEPAConfig.for_f32()
     order = argv or ["c2", "c2dist", "c2dist1", "c3", "c3b", "c3b_unsorted",
-                     "c4", "big8192", "big2600"]
+                     "c4", "big8192", "big2600", "c1", "c4portable"]
     want = set(order)
 
     def on_dev(*arrays):
@@ -230,13 +234,19 @@ def main(argv) -> int:
         paths["c3b"] = lambda: fused_gjkepa_hull_shapes(h3, s3, cfg=cfg)
         paths["c3b_unsorted"] = lambda: fused_gjkepa_hull_shapes(
             h3, s3, cfg=cfg, sort_hits=False)
-    if "c4" in want:
+    if "c1" in want:
+        corners = np.array([[x, y, z] for x in (-.5, .5) for y in (-.5, .5)
+                            for z in (-.5, .5)], np.float32)
+        c1, c2 = on_dev(corners, corners + np.float32([0.5, 0.0, 0.0]))
+        paths["c1"] = lambda: gjkepa(c1, c2, cfg=cfg)
+    if want & {"c4", "c4portable"}:
         rng = np.random.default_rng(0)        # bench.py:278-281's recipe
         big = fixtures.random_hulls(rng, 16384, 24, spread=0.0) * 2.0
         small = fixtures.random_hulls(rng, 16384, 24, spread=0.0) * 0.5
         small += rng.normal(size=(16384, 1, 3)).astype(np.float32) * 0.2
         m1, m2 = on_dev(big, small)
         paths["c4"] = lambda: gjkepa_batch_fused(m1, m2, cfg=cfg)
+        paths["c4portable"] = lambda: gjkepa_batch(m1, m2, cfg=cfg)
     if "big8192" in want:
         g1, g2 = on_dev(*fixtures.big_pairs_8192())
         paths["big8192"] = lambda: gjkepa_batch_fused(g1, g2, cfg=cfg)

@@ -13,6 +13,7 @@ Usage, from the root of a checkout:
     python3 scripts/torch_kernel_sweep.py k10
     python3 scripts/torch_kernel_sweep.py k5
     python3 scripts/torch_kernel_sweep.py k6a
+    python3 scripts/torch_kernel_sweep.py k6b [--root DIR]
     python3 scripts/torch_kernel_sweep.py times [--root DIR] [--tag NAME]
 
 ``teams``: K1 (``csrc/gjk_hulls.cu``) runs a team of T threads a pair, T
@@ -95,8 +96,21 @@ of iterations; then K6a and K6b (a thread a pair) at c3 with
 ``gjk_max_iters`` capped at 0-16, whose slope is a GJK iteration's
 latency on one chain.
 
+``k6b``: K6b (``csrc/gjk_shapes.cu``) runs a block of K6B_PAIRS pairs on
+K6B_THREADS threads: their closed forms a thread a pair, then the block's
+GJK lanes a quad of threads a pair.  This rebuilds that source with
+``-DK6B_THREADS=T -DK6B_PAIRS=P`` for (T, P) = (128, 128), (64, 64),
+(128, 64) and (128, 32) and, with ``--root DIR``, builds DIR's
+``gjk_shapes.cu`` (a parent's K6b), and runs each build on c3 (natural and shuffled), the 16
+kind pairs and an all-cylinder batch, bit for bit against the plain
+version (the closed-form channel too), timing each alone through its C
+entry point on rows allocated beforehand, in the order parent, builds,
+builds reversed, parent; then each build at c3 with ``gjk_max_iters``
+capped at 0-16.
+
 ``times``: device times of K5 (c3, natural and shuffled), K6a and K6b (c3,
-the wrapper and the kernel alone through its C entry point), K1 (c4, c2),
+the wrapper and the kernel alone through its C entry point; K6b's kernel
+also shuffled), K1 (c4, c2),
 K2 (c4), K7 (c3), K8 (c2: phase 1, phase 2 and one pass), K9 and K10
 (c3b), K12 and K13 (4096 x 2600, 256 x 8192), chip_smoke.py's inputs, the
 walls of the hull paths at c4, c2, 4096 x 2600 and 256 x 8192, of the
@@ -211,19 +225,22 @@ def teams(cs, dev, card) -> None:
 
 # -- rebuilt variants ------------------------------------------------------------
 
-def build_variants(source: str, builds: dict, out_dir: Path) -> dict:
+def build_variants(source: str, builds: dict, out_dir: Path,
+                   csrc: dict | None = None) -> dict:
     """``source`` built once for each label of ``builds``, with its macros
-    (``{"NAME": value}``) defined, all in parallel."""
+    (``{"NAME": value}``) defined, all in parallel; ``csrc`` maps a label
+    to another checkout's source directory (default: this one's)."""
     from gjkepa_tpu_torch import _build
     out_dir.mkdir(parents=True, exist_ok=True)
     stem = Path(source).stem
     libs, jobs = {}, []
     for label, macros in builds.items():
-        tag = "_".join(f"{k}{v}" for k, v in macros.items())
+        tag = "_".join([str(label)] + [f"{k}{v}" for k, v in macros.items()])
         libs[label] = out_dir / f"lib{stem}_{tag}.so"
+        src_dir = (csrc or {}).get(label, _build.CSRC)
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS,
                *(f"-D{k}={v}" for k, v in macros.items()), "-o",
-               str(libs[label]), str(_build.CSRC / source)]
+               str(libs[label]), str(src_dir / source)]
         jobs.append((label, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT,
                                              text=True)))
@@ -251,11 +268,11 @@ def bound_to(lib_path: Path, source: str) -> types.SimpleNamespace:
     return ns
 
 
-def variants(cs, source, builds):
+def variants(cs, source, builds, csrc=None):
     """Each rebuilt variant's entry points (label -> namespace), after its
     ptxas report."""
     from gjkepa_tpu_torch import _build
-    libs = build_variants(source, builds, _build.BUILD_DIR / "sweep")
+    libs = build_variants(source, builds, _build.BUILD_DIR / "sweep", csrc)
     for label, path in libs.items():
         for line in cs.ptxas_report(path.with_suffix(".log").read_text()):
             print(f"{source} {builds[label]} ptxas: {line}", flush=True)
@@ -874,6 +891,98 @@ def k6a(cs, dev, card) -> None:
                       "card": card}), flush=True)
 
 
+# -- k6b -----------------------------------------------------------------------
+
+# K6b's block: (threads, pairs); the quads a block are threads / 4
+K6B_BLOCKS = ((128, 128), (64, 64), (128, 64), (128, 32))
+
+
+def k6b(cs, dev, card, parent: Path | None) -> None:
+    import ctypes
+
+    from gjkepa_tpu_torch import GJKEPAConfig, _build
+    from gjkepa_tpu_torch.models import fixtures
+    from gjkepa_tpu_torch.ops import fused_shapes as fs
+    cfg = GJKEPAConfig.for_f32()
+    specs = {f"T{t}P{p}": {"K6B_THREADS": t, "K6B_PAIRS": p}
+             for t, p in K6B_BLOCKS}
+    csrc = {}
+    if parent is not None:
+        specs["parent"] = {}
+        csrc["parent"] = parent.resolve() / "gjkepa_tpu_torch" / "csrc"
+    builds = variants(cs, "gjk_shapes.cu", specs, csrc)
+    labels = list(builds)
+    if parent is not None:          # parent, builds, builds reversed, parent
+        labels = ["parent"] + [x for x in labels if x != "parent"]
+    turns = labels + labels[::-1]
+    dirs = fs.INIT_DIRS.ctypes.data_as(ctypes.c_void_p)
+
+    def alone(ns, sa, sb, ret, rows, c):
+        """K6b's kernel of build ``ns`` through its C entry point, on rows
+        allocated beforehand."""
+        ptrs = [_build.ptr(t) for t in (sa, sb, ret)]
+        outs = [_build.ptr(t) for t in rows]
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+        def fn():
+            rc = ns.gjk_shapes_launch(*ptrs, dirs, *outs, sa.shape[0],
+                                      *fs.gjk_args(c), stream)
+            if rc != 0:
+                raise RuntimeError(f"gjk_shapes launch failed: CUDA error {rc}")
+        return fn
+
+    rng = np.random.default_rng(3)
+    *shuf, _ = fixtures.c3_shuffled(0, cs.C3)
+    cases = (("c3", fixtures.c3_pairs(0, cs.C3)), ("c3_shuffled", shuf),
+             ("mixed16", fixtures.mixed16_pairs(cs.C3 // 64, 7)),
+             ("dense_cyl", (fixtures.kind_batch(3, 16381, rng, spread=0.2),
+                            fixtures.kind_batch(3, 16381, rng, spread=0.2))))
+    table = []
+    for what, pairs in cases:
+        sa, sb, ret = cs.shape_inputs(pairs, dev)[2:]
+        act = fs.cf_shapes_plain(sa, sb, ret, cfg).act
+        want = fs.gjk_shapes_plain(sa, sb, ret, cfg)
+        it = want.iters[act].float()
+        row = {"case": what, "pairs": sa.shape[0], "gjk_lanes": cs.isum(act),
+               "mean_iters": float(it.mean()),
+               "p99_iters": float(torch.quantile(it, 0.99)),
+               "max_iters": int(it.max())}
+        fns = {}
+        for label, ns in builds.items():
+            with mock.patch.object(_build, "load", lambda ns=ns: ns):
+                got = fs.gjk_shapes(sa, sb, ret, cfg)
+            torch.cuda.synchronize()
+            if not (rows_equal(got, want, act) and all(
+                    torch.equal(x, y) for x, y in zip(got[5:], want[5:]))):
+                raise AssertionError(f"K6b {label} differs from plain at "
+                                     f"{what}")
+            fns[label] = alone(ns, sa, sb, ret, got, cfg)
+        for k, label in enumerate(turns):
+            row[f"{label}_{k}"] = cs.device_ms(fns[label])
+        table.append(row)
+        print(f"K6b {what}: {row['gjk_lanes']} GJK lanes, iters mean "
+              f"{row['mean_iters']:.3f}, p99 {row['p99_iters']:.0f}, max "
+              f"{row['max_iters']}; every build bit-equal to plain; "
+              + ", ".join(f"{label} {row[f'{label}_{k}']:.4f}"
+                          for k, label in enumerate(turns))
+              + f" ms (kernel alone) [{card}]", flush=True)
+    sa, sb, ret = cs.shape_inputs(cases[0][1], dev)[2:]
+    caps = {}
+    for cap in ITER_CAPS:
+        c = cfg.replace(gjk_max_iters=cap)
+        for label, ns in builds.items():
+            with mock.patch.object(_build, "load", lambda ns=ns: ns):
+                rows = fs.gjk_shapes(sa, sb, ret, c)
+            caps[f"{label}_cap{cap}"] = cs.device_ms(
+                alone(ns, sa, sb, ret, rows, c))
+    print("K6b at c3 by gjk_max_iters: " + ", ".join(
+        f"{cap}: " + " / ".join(f"{label} {caps[f'{label}_cap{cap}']:.4f}"
+                                for label in builds) for cap in ITER_CAPS)
+        + f" ms [{card}]", flush=True)
+    print(json.dumps({"k6b_grid": table, "iteration_caps": caps,
+                      "card": card}), flush=True)
+
+
 # -- times ---------------------------------------------------------------------
 
 def times(cs, dev, card, tag) -> None:
@@ -912,6 +1021,7 @@ def times(cs, dev, card, tag) -> None:
     k6a_in = (sa3, sb3, ret3, o6, n6)
     g6 = fs.gjk_sub_shapes(*k6a_in, cfg)
     g6b = fs.gjk_shapes(sa3, sb3, ret3, cfg)
+    g6bs = fs.gjk_shapes(sa3s, sb3s, ret3s, cfg)
     dirs = fused_gjk.INIT_DIRS.ctypes.data_as(ctypes.c_void_p)
 
     def kernel_alone(name, ins, outs):
@@ -946,6 +1056,8 @@ def times(cs, dev, card, tag) -> None:
         "k6b_c3": lambda: fs.gjk_shapes(sa3, sb3, ret3, cfg),
         "k6b_c3_kernel": lambda: kernel_alone("gjk_shapes", (sa3, sb3, ret3),
                                               g6b),
+        "k6b_c3_shuffled_kernel": lambda: kernel_alone(
+            "gjk_shapes", (sa3s, sb3s, ret3s), g6bs),
         "k1_c4": lambda: fused_gjk.gjk_hulls(m1, m2, cfg),
         "k1_c2": lambda: fused_gjk.gjk_hulls(b1, b2, bool_cfg),
         "k2_c4": lambda: fused_epa.epa_cascade(m1, m2, g4.simplex, g4.status,
@@ -993,27 +1105,31 @@ def times(cs, dev, card, tag) -> None:
         out[key + "_one_call"] = cs.cuda_ms(fn)
     for key, fn in walls.items():
         out[key] = cs.cuda_ms(fn)
-    out["launches_c3"] = cs.device_launches(walls["path_c3"])
+    from gjkepa_tpu_torch.profile import kernel_launches
+    out["launches_c3"] = kernel_launches(walls["path_c3"])
     print(json.dumps(out), flush=True)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("what", choices=("teams", "warps", "k2", "k12", "k8", "k7",
-                                     "k9", "k10", "k5", "k6a", "times"))
-    ap.add_argument("--root", type=Path, default=ROOT,
-                    help="checkout whose gjkepa_tpu_torch `times` imports")
+                                     "k9", "k10", "k5", "k6a", "k6b", "times"))
+    ap.add_argument("--root", type=Path, default=None,
+                    help="another checkout: the package `times` imports, "
+                    "the parent whose K6b `k6b` builds")
     ap.add_argument("--tag", default="change")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(a.root.resolve() if a.what == "times" else ROOT))
+    root = a.root if a.what == "times" and a.root is not None else ROOT
+    sys.path.insert(0, str(root.resolve()))
     cs = _chip_smoke()
     dev, card = torch.device("cuda", 0), card_name()
     {"teams": teams, "warps": warps, "k2": k2, "k12": k12, "k8": k8,
-     "k7": k7, "k9": k9, "k10": k10, "k5": k5, "k6a": k6a}.get(
-        a.what, lambda *x: times(*x, a.tag))(cs, dev, card)
+     "k7": k7, "k9": k9, "k10": k10, "k5": k5, "k6a": k6a,
+     "k6b": lambda *x: k6b(*x, a.root),
+     "times": lambda *x: times(*x, a.tag)}[a.what](cs, dev, card)
     return 0
 
 

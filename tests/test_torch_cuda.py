@@ -23,7 +23,10 @@ kernels over K11's support): rows bit for bit against their plain
 versions on every input, the tie fixture, both of K2's face stores and
 both of K12's hull sources included.  K1 at each team size and K2 and
 K13 over a tier ladder forced to overflow into their retries, at vertex
-counts with each remainder mod 4: bit for bit.
+counts with each remainder mod 4: bit for bit.  The portable path (torch
+code, no kernel): ``gjkepa_batch`` and ``collide_shapes_batch`` on the
+card against their CPU runs, with the tolerances of their comparison with
+the JAX package.
 """
 
 import ctypes
@@ -721,3 +724,42 @@ def test_k9_teams_are_bit_equal_to_plain(dev, case, team):
                                   device=dev)):
         got = fh._gjk_hull_shape_cuda(p1, sb, env.retired, o, cfg, team)
         assert _rows_equal(got, gp, gp.status != 0)
+
+
+# -- the portable path ----------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_portable_gjkepa_batch_on_card_matches_cpu(dev, dtype):
+    """gjkepa_batch (torch code, no kernel) runs on the card's tensors and
+    agrees with its CPU run: hit, status and contact type exact,
+    iterations on >= 95% of lanes, depth within 1e-9 (float64) or 1e-5
+    (float32), the tolerances of its comparison with the JAX package."""
+    from gjkepa_tpu_torch import gjkepa_batch
+    cfg = GJKEPAConfig() if dtype == torch.float64 else GJKEPAConfig.for_f32()
+    rng = np.random.default_rng(0)
+    p1, p2 = (torch.from_numpy(_hulls(rng, 512, 12, spread=0.6)).to(dtype)
+              for _ in range(2))
+    want = gjkepa_batch(p1, p2, cfg=cfg)
+    got = gjkepa_batch(p1.to(dev), p2.to(dev), cfg=cfg)
+    assert got.depth.device.type == "cuda"
+    for f in ("hit", "status", "colli_type"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    for f in ("gjk_iters", "epa_iters"):
+        assert (getattr(got, f).cpu() == getattr(want, f)).float().mean() \
+            >= 0.95
+    tol = 1e-9 if dtype == torch.float64 else 1e-5
+    assert float((got.depth.cpu() - want.depth).abs().max()) <= tol
+
+
+def test_portable_collide_shapes_on_card(dev):
+    """collide_shapes_batch on the card: the CPU run's hits and depths
+    (within 2e-5, float32), on the 16 kind pairs."""
+    from gjkepa_tpu_torch import collide_shapes_batch
+    cfg = GJKEPAConfig.for_f32()
+    a, b = fixtures.mixed16_pairs(16, 3)
+    ca, cb = (ShapeBatch.from_numpy(*x, device="cpu") for x in (a, b))
+    ga, gb = (ShapeBatch.from_numpy(*x, device=dev) for x in (a, b))
+    want = collide_shapes_batch(ca, cb, cfg=cfg)
+    got = collide_shapes_batch(ga, gb, cfg=cfg)
+    assert torch.equal(got.hit.cpu(), want.hit) and int(want.hit.sum()) > 10
+    assert float((got.depth.cpu() - want.depth).abs().max()) <= 2e-5

@@ -10,8 +10,9 @@ lane 2's face.  The CUDA code runs only on the card; these tests hold a lane-by-
 plain version (``fused_gjk.gjk_phase``) with ``torch.equal`` on c3's GJK
 lanes and on degenerate inputs (coincident, collinear and coplanar
 vertices, 1e-20 and 1e20 scales, NaN and infinite coordinates, grid points
-that stall), and check the identities its reuse rests on and the cover
-of K6a's grid.
+that stall), and check the identities its reuse rests on, the cover
+of K6a's grid, and K6b's block deal (each block's GJK lanes listed once,
+in pair order, and each run by one quad).
 """
 
 import zlib
@@ -307,3 +308,76 @@ def test_k6a_grid_covers_every_pair_once(pairs, blocks_per_sm):
         gjk, inactive = k6a_schedule(b, n_act, sms, pairs, blocks_per_sm)
         assert sorted(gjk) == list(range(min(n_act, b)))
         assert sorted(gjk + inactive) == list(range(b))
+
+
+# -- K6b's block deal ---------------------------------------------------------
+
+def k6b_block_deal(gjk, block, threads, pairs):
+    """K6b's steps 2 and 3 for block ``block`` of a batch whose GJK lanes
+    are ``gjk`` (numpy bool, B): each warp's ballot and popc, the prefix
+    over the block's warps, and the list entries each quad takes.  Returns
+    (the list, the pairs each quad ran in order)."""
+    b = gjk.shape[0]
+    warps = threads // 32
+    ballots, counts = [], []
+    for w in range(warps):
+        bits = 0
+        for lane in range(32):
+            t = 32 * w + lane
+            i = block * pairs + t
+            if t < pairs and i < b and gjk[i]:
+                bits |= 1 << lane
+        ballots.append(bits)
+        counts.append(bin(bits).count("1"))
+    total = sum(counts)
+    lanes = [None] * pairs
+    for t in range(threads):
+        w, lane = t >> 5, t & 31
+        if ballots[w] >> lane & 1:
+            base = sum(counts[:w])
+            lanes[base + bin(ballots[w] & ((1 << lane) - 1)).count("1")] = \
+                block * pairs + t
+    quads = threads // 4
+    ran = [[lanes[q] for q in range(qi, total, quads)] for qi in range(quads)]
+    return lanes[:total], ran
+
+
+@pytest.mark.parametrize("threads,pairs", [(128, 32), (128, 128), (64, 64),
+                                           (128, 64)])
+@pytest.mark.parametrize("fill", ["c3", "none", "all", "random"])
+def test_k6b_deal_lists_every_gjk_lane_once_in_pair_order(threads, pairs,
+                                                          fill):
+    """Every GJK lane of a block is in its list exactly once, in pair order,
+    and each is run by exactly one quad; B % 128 != 0 leaves a partial
+    last block whose threads past B deal no lane."""
+    b = 65533 if fill == "c3" else 1000
+    if fill == "c3":               # c3's first 65,533 pairs
+        a, bb = (ShapeBatch.from_numpy(*(x[:b] for x in side), device="cpu")
+                 for side in fixtures.c3_pairs(0, 65536))
+        retired, _ = fs.retirement(a, bb)
+        gjk = fs.cf_shapes_plain(a.packed(), bb.packed(), retired,
+                                 CFG).act.numpy()
+    elif fill == "none":
+        gjk = np.zeros(b, bool)
+    elif fill == "all":
+        gjk = np.ones(b, bool)
+    else:
+        gjk = np.random.default_rng(zlib.crc32(b"k6b")).random(b) < 0.3
+    blocks = -(-b // pairs)
+    busy = [blk for blk in range(blocks)
+            if gjk[blk * pairs:(blk + 1) * pairs].any()]
+    if fill == "c3":
+        assert gjk.sum() > 700 and b % 128 != 0
+        # the blocks that hold GJK lanes, and the partial last one
+        check = sorted(set(busy) | {blocks - 1})
+    else:
+        check = range(blocks)
+    for blk in check:
+        listed, ran = k6b_block_deal(gjk, blk, threads, pairs)
+        want = [i for i in range(blk * pairs, min((blk + 1) * pairs, b))
+                if gjk[i]]
+        assert listed == want
+        flat = sorted(i for q in ran for i in q)
+        assert flat == want
+        if pairs <= threads // 4:           # a quad a lane: one round
+            assert all(len(q) <= 1 for q in ran)

@@ -33,7 +33,10 @@ def test_import_leaves_jax_out():
             "gjkepa_tpu_torch.ops.distance, "
             "gjkepa_tpu_torch.ops.fused_distance, "
             "gjkepa_tpu_torch.ops.fused_hull_shapes, "
-            "gjkepa_tpu_torch.ops.fused_streamed; "
+            "gjkepa_tpu_torch.ops.fused_streamed, "
+            "gjkepa_tpu_torch.ops.geom, gjkepa_tpu_torch.ops.gjk, "
+            "gjkepa_tpu_torch.ops.epa, gjkepa_tpu_torch.ops.contact, "
+            "gjkepa_tpu_torch.ops.broadphase, gjkepa_tpu_torch.utils.hull; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'gjkepa_tpu.')) "
             "or m == 'gjkepa_tpu'); print(bad); sys.exit(1 if bad else 0)")
