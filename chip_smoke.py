@@ -29,7 +29,10 @@ path, ``fused_gjkepa_hull_shapes``, runs K9, GJK of a hull against an
 analytic shape, a team of threads a pair (``csrc/gjk_hull_shape.cu``),
 then K10, the capped EPA cascade with the polish, a warp a hit with the
 polytope in shared memory (``csrc/epa_hull_shape.cu``, K7's kernel in
-``csrc/epa_polish_warp.cuh``).  The script builds
+``csrc/epa_polish_warp.cuh``).  The contact manifolds and the rigid-body
+sim are torch code over the hull path: ``manifold_batch`` after
+``gjkepa_batch_fused``, and ``sim_step``, whose narrowphase on the card is
+K1 and K2 over the eight corners of each box.  The script builds
 every kernel from the sources in the checkout (one nvcc per source, all at
 once) and runs, in phases:
 
@@ -113,7 +116,33 @@ once) and runs, in phases:
      float32 and a 256-pair float64 sample of them against the oracle (no
      hit mismatch, depth within 1e-6), ``collide_shapes_batch`` at c3 and
      ``collide_hull_shape_batch`` at c3b (hits equal to the fused path's
-     on >= 99% of lanes), each timed (host wall, synchronised).
+     on >= 99% of lanes), each timed (host wall, synchronised);
+ 17. the manifolds (torch code over the hull kernels' query): c4's pairs
+     in the bench's draw order (``fixtures.c4_pairs``, 16,384 x 24)
+     through ``gjkepa_batch_fused`` and ``manifold_batch`` with the
+     kernels' counters set to 0 just before and read just after (one K1,
+     one K2), finite, depths >= 0, a point on every hit and none on a
+     miss; the first 1,024 lanes against the same call on the CPU (masks
+     on >= 99.9% of lanes; on those, the kept points as sets and the
+     depths within 1e-5, row by row on >= 99%); the stacked boxes of
+     tests/test_manifold.py through ``manifold_shapes_batch`` and through
+     ``manifold_batch`` over box corners (4 points at x, y = +-0.4, depth
+     0.1), the sphere pair's single point; ``manifold_hull_shape_batch``
+     at c3b; times (c4 manifold q/s, the median of 7);
+ 18. the sim: bench.py's scenes (1,024 boxes, ``max_pairs`` 8,192, 10
+     steps; 16,384 boxes, 65,536, 3 steps), each run with K1's and K2's
+     counters set to 0 just before and read just after (one of each a
+     step), steps/s, ``diag`` (the device launches a step: ``profile
+     c5sim1024 c5sim16k``); one step's
+     candidates of the 1,024 scene through K1/K2 on the card against their
+     plain versions on the CPU, bit for bit (hit, status, depth, normal);
+     that step against the same branch on the CPU and against the CPU's
+     portable step, at tests/test_torch_sim.py's tolerance; the 3-box
+     stack of tests/test_sim.py and the same stack moved 8, 16 and 24
+     along x, in one run of 300 steps on the card: each within that
+     test's height bounds, K2 over real hits, the lateral walk-off logged
+     (it is chaotic: the moves change only the rounding, and the
+     walk-off with them).
 
 Times are CUDA-event times.  A kernel's (``ms`` in the ``kernels`` line)
 is a device time, ``device_ms``: 10 calls queued behind a sleep kernel
@@ -186,10 +215,8 @@ def random_hulls(rng, b, n, spread=0.8):
 def deep_pairs(rng, b, n):
     """bench.py's config-4 recipe (bench.py:278-281): a small hull inside a
     big one, offset a little."""
-    big = random_hulls(rng, b, n, spread=0.0) * 2.0
-    small = random_hulls(rng, b, n, spread=0.0) * 0.5
-    small += rng.normal(size=(b, 1, 3)).astype(np.float32) * 0.2
-    return big, small
+    from gjkepa_tpu_torch.models import fixtures
+    return fixtures.deep_pairs(rng, b, n)
 
 
 def load_oracle():
@@ -1429,6 +1456,293 @@ def portable_phase(gt, dev, card, n4=16384, n3=C3, n3b=None,
         f"[{card}]")
 
 
+# -- manifolds and the sim --------------------------------------------------------
+
+def manifolds_agree(got, want, tol=1e-5):
+    """A manifold run against another of the same rows: returns (the share
+    of lanes whose masks agree, the share of those equal row by row within
+    tol); on every mask-agreeing lane the kept points must agree as sets
+    and the kept depths (sorted) within tol, since the 4-point reduction
+    takes first maxima over ties, which a last-bit difference moves."""
+    gm, wm = got.mask.cpu(), want.mask.cpu()
+    same = (gm == wm).all(1)
+    gp, wp = got.points.cpu(), want.points.cpu()
+    gd, wd = got.depths.cpu(), want.depths.cpu()
+    rows = (((gp - wp).abs().amax(2) <= tol) & ((gd - wd).abs() <= tol)
+            | ~wm).all(1) & same
+    for i in torch.nonzero(same & ~rows)[:, 0].tolist():
+        d = torch.cdist(gp[i][wm[i]].double(), wp[i][wm[i]].double())
+        check(max(float(d.amin(0).max()), float(d.amin(1).max())) <= tol
+              and torch.allclose(gd[i][wm[i]].sort().values,
+                                 wd[i][wm[i]].sort().values, rtol=0,
+                                 atol=tol),
+              f"manifold lane {i}: points or depths differ beyond {tol}")
+    return float(same.float().mean()), float(rows.sum() / same.sum())
+
+
+def manifold_phase(gt, dev, cfg, card, n_sample=1024) -> None:
+    """Phase 17: the manifolds (torch code over the hull kernels' query)
+    on the card through their entry points."""
+    from gjkepa_tpu_torch.models import fixtures
+    from gjkepa_tpu_torch.ops import fused_epa, fused_gjk
+
+    # c4's pairs in the bench's draw order (bench.py:299-317)
+    p1, p2 = (torch.from_numpy(a).to(dev) for a in fixtures.c4_pairs())
+    n4 = p1.shape[0]
+
+    def c4_manifolds():
+        r = gt.gjkepa_batch_fused(p1, p2, cfg=cfg)
+        return r, gt.manifold_batch(p1, p2, r.normal, r.depth, r.hit,
+                                    r.contact_point, cfg=cfg)
+
+    torch.cuda.synchronize()
+    fused_gjk.LAUNCHES = 0
+    fused_epa.LAUNCHES = 0
+    r, m = c4_manifolds()
+    torch.cuda.synchronize()
+    launches = {"gjk_hulls": fused_gjk.LAUNCHES,
+                "epa_hulls": fused_epa.LAUNCHES}
+    check(launches == {"gjk_hulls": 1, "epa_hulls": 1},
+          f"phase 17: c4 manifolds launched {launches}")
+    for name, t in m._asdict().items():
+        check(t.device == dev, f"phase 17: {name} on {t.device}")
+        if t.is_floating_point():
+            check(bool(torch.isfinite(t).all()),
+                  f"phase 17: {name} not finite")
+    check(bool((m.depths[m.mask] >= 0).all())
+          and not bool(m.mask[~r.hit].any())
+          and bool(m.mask[:, 0][r.hit].all()),
+          "phase 17: c4 manifolds: a negative depth, a point on a miss or "
+          "a hit without one")
+    hits = isum(r.hit)
+    per_hit = isum(m.mask) / max(hits, 1)
+    # the port's own CPU run on a sample of the same query rows
+    rows = [t[:n_sample] for t in (p1, p2, r.normal, r.depth, r.hit,
+                                   r.contact_point)]
+    want = gt.manifold_batch(*(t.cpu() for t in rows), cfg=cfg)
+    got = type(m)(*(t[:n_sample] for t in m))
+    check(torch.equal(got.overflow.cpu(), want.overflow),
+          "phase 17: overflow differs from the CPU run")
+    masks, row_share = manifolds_agree(got, want)
+    check(masks >= 0.999 and row_share >= 0.99,
+          f"phase 17: against the CPU run, masks agree on {masks} of the "
+          f"lanes, rows on {row_share} of those")
+    times = {
+        "c4_manifold": cuda_ms(c4_manifolds),
+        "c4_query": cuda_ms(lambda: gt.gjkepa_batch_fused(p1, p2, cfg=cfg)),
+        "manifold_batch_c4": cuda_ms(lambda: gt.manifold_batch(
+            p1, p2, r.normal, r.depth, r.hit, r.contact_point, cfg=cfg)),
+    }
+
+    # the fixtures of tests/test_manifold.py
+    a = gt.boxes([[0.5, 0.5, 0.5]], device=dev)
+    b = gt.boxes([[0.4, 0.4, 0.5]], pos=[[0.0, 0.0, 0.9]], device=dev)
+    q = gt.collide_shapes_batch_fused(a, b, cfg=cfg)
+    ms = gt.manifold_shapes_batch(a, b, q.normal, q.depth, q.hit,
+                                  q.contact_point, cfg=cfg)
+    corners = np.array([[x, y, z] for x in (-1, 1) for y in (-1, 1)
+                        for z in (-1, 1)], np.float32)
+    h1 = torch.from_numpy(corners * 0.5)[None].to(dev)
+    h2 = torch.from_numpy(corners * np.float32([0.4, 0.4, 0.5])
+                          + np.float32([0, 0, 0.9]))[None].to(dev)
+    qh = gt.gjkepa_batch_fused(h1, h2, cfg=cfg)
+    mh = gt.manifold_batch(h1, h2, qh.normal, qh.depth, qh.hit,
+                           qh.contact_point, cfg=cfg)
+    for what, mm in (("manifold_shapes_batch", ms), ("manifold_batch", mh)):
+        xy = mm.points[0, :, :2].cpu()
+        check(bool(mm.mask.all())
+              and float((mm.depths - 0.1).abs().max()) <= 1e-5
+              and float((xy.abs() - 0.4).abs().max()) <= 1e-4
+              and float((xy.sum(0)).abs().max()) <= 1e-4,
+              f"phase 17: stacked boxes through {what}: {mm}")
+    sa = gt.spheres([0.6], pos=[[0.0, 0.0, 0.0]], device=dev)
+    sb = gt.spheres([0.6], pos=[[0.8, 0.0, 0.0]], device=dev)
+    qs = gt.collide_shapes_batch_fused(sa, sb, cfg=cfg)
+    mp = gt.manifold_shapes_batch(sa, sb, qs.normal, qs.depth, qs.hit,
+                                  qs.contact_point, cfg=cfg)
+    check(mp.mask[0].tolist() == [True, False, False, False]
+          and torch.equal(mp.points[0, 0], qs.contact_point[0])
+          and torch.equal(mp.depths[0, 0], qs.depth[0]),
+          f"phase 17: the sphere pair's single point: {mp}")
+
+    # hulls against shapes at c3b, the fallback point A's support centroid
+    hulls, shp = fixtures.c3b_pairs()
+    h3 = torch.from_numpy(hulls).to(dev)
+    s3 = gt.ShapeBatch.from_numpy(*shp, device=dev)
+    f3 = gt.fused_gjkepa_hull_shapes(h3, s3, cfg=cfg)
+    mb = gt.manifold_hull_shape_batch(h3, s3, f3.normal, f3.depth, f3.hit,
+                                      cfg=cfg)
+    check(all(bool(torch.isfinite(t).all()) for t in (mb.points, mb.depths))
+          and bool((mb.depths[mb.mask] >= 0).all())
+          and not bool(mb.mask[~f3.hit].any())
+          and bool(mb.mask[:, 0][f3.hit].all()),
+          "phase 17: c3b manifolds not finite, negative, or off the hits")
+    times["manifold_hull_shape_batch_c3b"] = cuda_ms(
+        lambda: gt.manifold_hull_shape_batch(h3, s3, f3.normal, f3.depth,
+                                             f3.hit, cfg=cfg))
+    sizes = {"c4_manifold": n4, "c4_query": n4, "manifold_batch_c4": n4,
+             "manifold_hull_shape_batch_c3b": h3.shape[0]}
+    for key, ms_ in times.items():
+        log(f"phase 17 time {key}: {ms_:.4f} ms = "
+            f"{sizes[key] / ms_ * 1e3:,.0f} q/s [{card}]")
+    log(f"phase 17 manifolds: c4 {n4} x 24 (fixtures.c4_pairs, the bench's "
+        f"draws) gjkepa_batch_fused + manifold_batch: {hits} hits, "
+        f"{per_hit:.3f} contact points a hit, {isum(m.overflow)} overflow; "
+        f"launches {launches}; c4 manifold {n4 / times['c4_manifold'] * 1e3:,.0f}"
+        f" q/s; against the CPU on {n_sample} lanes: masks agree on "
+        f"{masks:.4f}, rows on {row_share:.4f} of those, the rest as point "
+        f"sets within 1e-5; stacked boxes 4 corners at depth 0.1 (shapes and "
+        f"hulls), spheres the single point; c3b hull-vs-shape "
+        f"{isum(f3.hit)} hits, {isum(mb.mask)} points, finite, depths >= 0 "
+        f"[{card}]")
+
+
+def sim_phase(gt, dev, cfg, card) -> None:
+    """Phase 18: the rigid-body sim on the card, its narrowphase K1 and K2
+    over box corners."""
+    from gjkepa_tpu_torch.ops import fused_epa, fused_gjk
+    from gjkepa_tpu_torch.ops.broadphase import swept_candidate_pairs
+    from gjkepa_tpu_torch.ops.geom import norm3
+    from gjkepa_tpu_torch.sim import SimConfig, SimState, rigid
+    from gjkepa_tpu_torch.sim import init_boxes, sim_step
+
+    def run(state, scfg, steps):
+        diags = []
+        for _ in range(steps):
+            state, diag = sim_step(state, scfg, cfg)
+            diags.append(diag)
+        return state, diags
+
+    def finite(state, what):
+        for name, t in state._asdict().items():
+            check(t.device == dev and bool(torch.isfinite(t).all()),
+                  f"phase 18: {what} {name} not finite or off the card")
+
+    def close(got, want, what):
+        """tests/test_torch_sim.py's tolerance; returns the max errors."""
+        errs = {}
+        for f, rtol, atol in (("pos", 0, 1e-6), ("quat", 0, 1e-6),
+                              ("vel", 1e-5, 1e-5), ("angvel", 1e-5, 1e-5)):
+            g, w = getattr(got, f).cpu(), getattr(want, f)
+            check(torch.allclose(g, w, rtol=rtol, atol=atol),
+                  f"phase 18: {what}: {f} differs by "
+                  f"{float((g - w).abs().max())}")
+            errs[f] = float((g - w).abs().max())
+        return errs
+
+    # the bench's two scenes (bench.py:340-368)
+    scenes = {
+        "c5_1024": (init_boxes(1024, height=6.0, spread=14.0, device=dev),
+                    SimConfig(max_pairs=8192), 10),
+        "c5_16k": (init_boxes(16384, height=8.0, spread=55.0, device=dev),
+                   SimConfig(max_pairs=65536), 3),
+    }
+    times, notes = {}, []
+    for name, (state, scfg, steps) in scenes.items():
+        torch.cuda.synchronize()
+        fused_gjk.LAUNCHES = 0
+        fused_epa.LAUNCHES = 0
+        end, diags = run(state, scfg, steps)
+        torch.cuda.synchronize()
+        k1, k2 = fused_gjk.LAUNCHES, fused_epa.LAUNCHES
+        check(k1 == steps and k2 == steps,
+              f"phase 18: {name}: K1 launched {k1}, K2 {k2} times in "
+              f"{steps} steps")
+        finite(end, name)
+        times[name] = cuda_ms(lambda: run(state, scfg, steps)) / steps
+        d0 = {k: v.item() for k, v in diags[0].items()}
+        dl = {k: v.item() for k, v in diags[-1].items()}
+        notes.append(f"{name} ({state.pos.shape[0]} boxes, max_pairs "
+                     f"{scfg.max_pairs}): {1e3 / times[name]:.2f} steps/s, "
+                     f"{times[name]:.3f} ms a step, K1/K2 {k1}/{k2} in "
+                     f"{steps} steps; diag step 1 {d0}, step {steps} {dl}")
+
+    # one step's candidates of the 1,024 scene: the kernels on the card
+    # against their plain versions on the CPU, bit for bit
+    state, scfg, _ = scenes["c5_1024"]
+    cpu = SimState(*(t.cpu() for t in state))
+    rot, rot_c = rigid.quat_to_mat(state.quat), rigid.quat_to_mat(cpu.quat)
+    pairs, valid, _, _ = swept_candidate_pairs(
+        state.pos, norm3(state.half), scfg.max_pairs, scfg.bp_window)
+    pairs_c, valid_c, _, _ = swept_candidate_pairs(
+        cpu.pos, norm3(cpu.half), scfg.max_pairs, scfg.bp_window)
+    check(torch.equal(pairs.cpu(), pairs_c) and torch.equal(valid.cpu(),
+                                                            valid_c),
+          "phase 18: the card's candidate pairs differ from the CPU's")
+    ins = []
+    for s, r, p, v in ((state, rot, pairs, valid), (cpu, rot_c, pairs_c,
+                                                    valid_c)):
+        c1 = rigid._corners(s, r, p[:, 0].long())
+        c2 = rigid._corners(s, r, p[:, 1].long()) + torch.where(
+            v, 0.0, 4e4)[:, None, None]
+        ins.append((c1, c2))
+    check(all(torch.equal(x.cpu(), y) for x, y in zip(*ins)),
+          "phase 18: the card's box corners differ from the CPU's")
+    fk = gt.fused_gjkepa_hulls(*ins[0], cfg=cfg)
+    fp = gt.fused_gjkepa_hulls(*ins[1], cfg=cfg)
+    for f in ("hit", "status", "depth", "normal"):
+        check(torch.equal(getattr(fk, f).cpu(), getattr(fp, f)),
+              f"phase 18: the narrowphase's {f} differs from K1/K2's plain "
+              "versions")
+    # the whole step against the same branch on the CPU and the CPU's own
+    got, gd = sim_step(state, scfg, cfg)
+    want, wd = rigid._step(cpu, scfg, cfg, rigid._pair_contacts_fused)
+    portable, pd = sim_step(cpu, scfg, cfg)
+    for d in (wd, pd):
+        check(all(torch.equal(gd[k].cpu(), v) for k, v in d.items()),
+              f"phase 18: diag {gd} against the CPU's {d}")
+    err_fused = close(got, want, "a step against the CPU's K1/K2 branch")
+    err_port = close(got, portable, "a step against the CPU's portable step")
+
+    # the 3-box stack of tests/test_sim.py:67-87, where K2 sees real hits,
+    # and the same stack moved 8, 16 and 24 along x in the same run (too
+    # far apart to meet): a stack's walk-off is chaotic, and the moves
+    # change only the rounding
+    shifts = (0.0, 8.0, 16.0, 24.0)
+    z0 = torch.tensor([0.55, 1.6, 2.65])
+    pos0 = torch.stack([torch.stack([torch.full((3,), x), torch.zeros(3), z0],
+                                    1) for x in shifts]).reshape(-1, 3)
+    n = pos0.shape[0]
+    stack = SimState(pos0.to(dev),
+                     torch.tensor([[1.0, 0, 0, 0]] * n, device=dev),
+                     torch.zeros((n, 3), device=dev),
+                     torch.zeros((n, 3), device=dev),
+                     torch.full((n, 3), 0.5, device=dev))
+    torch.cuda.synchronize()
+    fused_gjk.LAUNCHES = 0
+    fused_epa.LAUNCHES = 0
+    t0 = time.perf_counter()
+    end, diags = run(stack, SimConfig(max_pairs=16 * len(shifts)), 300)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2 = fused_gjk.LAUNCHES, fused_epa.LAUNCHES
+    contacts = torch.stack([d["n_contacts"] for d in diags]).cpu()
+    finite(end, "the 3-box stacks")
+    pos = (end.pos.cpu() - pos0 * torch.tensor([1.0, 0, 0])).reshape(
+        len(shifts), 3, 3)
+    check(k1 == 300 and k2 == 300 and int((contacts > 0).sum()) > 100,
+          f"phase 18: the stacks: K1 {k1}, K2 {k2} launches, "
+          f"{int((contacts > 0).sum())} steps with box contacts")
+    # test_sim.py's bounds on the heights: each stack stands, in order
+    check(bool(((pos[:, :, 2] - torch.tensor([0.5, 1.5, 2.5])).abs()
+                < torch.tensor([0.15, 0.25, 0.35])).all()),
+          f"phase 18: a 3-box stack left test_sim.py's height bounds: {pos}")
+    walk = [round(float(p[:, :2].abs().max()), 4) for p in pos]
+    for note in notes:
+        log(f"phase 18 sim {note} [{card}]")
+    log(f"phase 18 sim: one step of c5_1024's candidates ({pairs.shape[0]} "
+        f"pairs, {isum(valid)} valid, {isum(fk.hit & valid)} hits): K1/K2 on "
+        f"the card = their plain versions on the CPU bit for bit (hit, "
+        f"status, depth, normal); the step against the CPU's K1/K2 branch "
+        f"{err_fused}, against the CPU's portable step {err_port}; the 3-box "
+        f"stack and its copies moved {shifts[1:]} along x, 300 steps on the "
+        f"card: {wall * 1e3 / 300:.3f} ms a step, K1/K2 {k1}/{k2}, box "
+        f"contacts in {int((contacts > 0).sum())} steps, final z "
+        f"{[[round(float(z), 4) for z in p[:, 2]] for p in pos]} (within "
+        f"test_sim.py's height bounds), walk-off max |x|, |y| {walk} "
+        f"(test_sim.py bounds it by 0.3) [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1717,6 +2031,8 @@ def main() -> int:
     kernels += distance_and_mixed_phases(gt, dev, cfg, card)
     kernels += big_phases(gt, dev, cfg, card)
     portable_phase(gt, dev, card)
+    manifold_phase(gt, dev, cfg, card)
+    sim_phase(gt, dev, cfg, card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

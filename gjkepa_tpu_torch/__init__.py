@@ -36,7 +36,13 @@ queries:
     (``csrc/epa_hull_shape.cu``), over the hit lanes;
   * the portable distance queries :func:`gjk_distance_batch` and
     :func:`gjk_distance_shapes_batch` (``api``): torch code over the hull or
-    shape support (``ops.distance``), float32 or float64.
+    shape support (``ops.distance``), float32 or float64;
+  * contact manifolds of up to 4 points a pair from any of those queries'
+    normals (``ops.manifold``, torch code): :func:`manifold_batch` over
+    hull pairs, :func:`manifold_shapes_batch` over shape pairs and
+    :func:`manifold_hull_shape_batch` over hull-vs-shape pairs;
+  * the rigid-body sim of falling boxes (``sim``): :func:`sim.sim_step`,
+    whose narrowphase on the card is K1 and K2 over the boxes' corners.
 
 ``ShapeBatch.from_numpy`` and the shape constructors put their tensors on
 the card unless the caller names another device (``device="cpu"``).
@@ -60,6 +66,8 @@ from .ops.distance import DistanceResult
 from .ops.fused import (FusedResult, fused_gjk_distance_hulls,
                         fused_gjkepa_hull_shapes, fused_gjkepa_hulls,
                         fused_gjkepa_shapes)
+from .ops.manifold import (ManifoldResult, manifold_batch,
+                           manifold_hull_shape_batch, manifold_shapes_batch)
 from .types import CollisionResult, Status
 
 __all__ = ["gjkepa", "gjkepa_batch", "derive_contact", "collide_supports",
@@ -70,5 +78,6 @@ __all__ = ["gjkepa", "gjkepa_batch", "derive_contact", "collide_supports",
            "fused_gjkepa_hull_shapes", "gjk_distance_batch",
            "gjk_distance_shapes_batch", "DistanceResult", "ShapeBatch",
            "spheres", "boxes", "capsules", "cylinders", "concat_shapes",
-           "FusedResult",
+           "FusedResult", "ManifoldResult", "manifold_batch",
+           "manifold_shapes_batch", "manifold_hull_shape_batch",
            "GJKEPAConfig", "DEFAULT_CONFIG", "CollisionResult", "Status"]

@@ -107,9 +107,12 @@ def _zeroed(hit, npts, normal, cpoint, depth, ctype, distance, status,
 
 
 def _chunks(b: int, chunk_size: int | None):
-    step = b if chunk_size is None else chunk_size
-    if step < 1:
+    """Slices of ``chunk_size`` pairs over a batch of b (all of it when
+    None); one empty slice at b = 0, so that the result has its fields at
+    batch size 0."""
+    if chunk_size is not None and chunk_size < 1:
         raise ValueError(f"chunk_size must be positive, got {chunk_size}")
+    step = max(b, 1) if chunk_size is None else chunk_size
     return [slice(i, min(i + step, b)) for i in range(0, max(b, 1), step)]
 
 
@@ -169,8 +172,9 @@ def gjkepa(p1: torch.Tensor, p2: torch.Tensor,
 
 def collide_supports(support: Callable, cfg: GJKEPAConfig = DEFAULT_CONFIG,
                      dtype: torch.dtype = torch.float32,
-                     active: torch.Tensor | None = None,
-                     hint: torch.Tensor | None = None) -> CollisionResult:
+                     active: torch.Tensor | bool = True,
+                     hint: torch.Tensor | None = None,
+                     device: torch.device | str = "cuda") -> CollisionResult:
     """The query over any Minkowski support map: ``support(d)`` takes (B, 3)
     directions (or one (1, 3) direction, which it broadcasts) and returns a
     :class:`SupportResult` of (B, 3) tensors.
@@ -179,11 +183,14 @@ def collide_supports(support: Callable, cfg: GJKEPAConfig = DEFAULT_CONFIG,
     (exact supports); ``hint`` (B, 3), typically the centre-to-centre
     direction, starts a second descent and the better wins.  The contact
     point is the midpoint of the witnesses along the normal, contact type 1
-    on a hit.  ``active`` (B,) bool names the lanes and the device; without
-    it every lane runs and the first probe is a (1, 3) CPU direction."""
-    if active is None:
-        r0 = support(torch.tensor([[1.0, 0.0, 0.0]], dtype=dtype))
-        active = torch.ones(r0.w.shape[0], dtype=torch.bool,
+    on a hit.  ``active`` is a (B,) bool tensor, which names the lanes and
+    the device, or a Python bool for every lane, as in the JAX package;
+    then a first probe, a (1, 3) direction on ``device`` (the card unless
+    the caller names another), gives the batch size."""
+    if isinstance(active, bool):
+        r0 = support(torch.tensor([[1.0, 0.0, 0.0]], dtype=dtype,
+                                  device=device))
+        active = torch.full((r0.w.shape[0],), active, dtype=torch.bool,
                             device=r0.w.device)
     g = run_gjk(support, cfg, active, dtype=dtype)
     e = run_epa(support, g.simplex, g.hit, cfg)

@@ -15,8 +15,10 @@ JAX package builds from the same seed:
   * :func:`random_hulls`: ``bench.py``'s hull generator (:112-116), and
     with it :func:`c2_hulls` (config 2, 65,536 pairs of 64-vertex hulls,
     :164-194) and :func:`c3b_pairs` (config 3b, 16,384 24-vertex hulls
-    against the four analytic kinds, :252-275), drawn in the bench's order
-    from its one generator so the arrays equal the bench's;
+    against the four analytic kinds, :252-275) and :func:`c4_pairs`
+    (config 4, 16,384 deep pairs of 24-vertex hulls, :277-317, with
+    :func:`deep_pairs` its recipe), drawn in the bench's order from its one
+    generator so the arrays equal the bench's;
   * the large-hull path (n1 + n2 > 4096): :func:`big_pairs_8192` and
     :func:`big_subhull_pairs` (``tests/test_fused_tpu.py:248-273``),
     :func:`big_c2_pairs` (4,096 pairs of 2,600-vertex hulls),
@@ -29,7 +31,8 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["c3_pairs", "c3_shuffled", "mixed16_pairs", "kind_batch", "concat",
-           "permute", "random_hulls", "c2_hulls", "c3b_pairs",
+           "permute", "random_hulls", "c2_hulls", "c3b_pairs", "deep_pairs",
+           "c4_pairs",
            "hull_kind_pairs",
            "big_pairs_8192", "big_subhull_pairs", "big_c2_pairs",
            "large_hulls", "tie_pairs"]
@@ -166,17 +169,40 @@ def _four_kinds(rng, q: int, spread: float):
     return concat(sph, box, cap, cyl)
 
 
+def _c3b_draws(rng):
+    """Config 2's draws, then config 3b's (the bench's order)."""
+    _c2_draws(rng, 65536, 64)
+    b = 16384
+    hulls = random_hulls(rng, b, 24)
+    return hulls, _four_kinds(rng, b // 4, 0.8)
+
+
 def c3b_pairs(seed: int = 0):
     """bench.py's config 3b (:252-268): 16,384 24-vertex hulls and a quarter
     each of spheres, boxes, capsules and cylinders at positions ~ N(0,
     0.8^2), identity rotations.  Drawn after config 2's hulls from the same
     generator, as the bench does.  Returns (hulls, (kind, params, pos,
     rot))."""
+    return _c3b_draws(np.random.default_rng(seed))
+
+
+def deep_pairs(rng, b: int, n: int):
+    """bench.py's config-4 recipe (:277-281): a small hull inside a big one,
+    offset a little.  Returns (big, small), (b, n, 3) float32 each."""
+    big = random_hulls(rng, b, n, spread=0.0) * 2.0
+    small = random_hulls(rng, b, n, spread=0.0) * 0.5
+    small += rng.normal(size=(b, 1, 3)).astype(np.float32) * 0.2
+    return big, small
+
+
+def c4_pairs(seed: int = 0):
+    """bench.py's config 4 (and its manifolds): 16,384 deep pairs of
+    24-vertex hulls, drawn as the bench draws them when every config runs,
+    after config 2's and config 3b's draws from the same generator
+    (:141, :172-173, :258-268, :277-281).  Returns (big, small)."""
     rng = np.random.default_rng(seed)
-    _c2_draws(rng, 65536, 64)
-    b = 16384
-    hulls = random_hulls(rng, b, 24)
-    return hulls, _four_kinds(rng, b // 4, 0.8)
+    _c3b_draws(rng)
+    return deep_pairs(rng, 16384, 24)
 
 
 def hull_kind_pairs(seed: int, b: int, n: int, spread: float = 0.8):

@@ -19,7 +19,17 @@ Paths, each at its bench.py configuration (``models/fixtures.py``):
   big2600   ``fused_gjkepa_hulls``, 4,096 x 2,600 hull pairs (K12, K13);
   c1        ``gjkepa``, the portable path (torch code, no kernel of its
             own), one unit cube against the same at +0.5 in x, float32;
-  c4portable  ``gjkepa_batch``, the portable path, c4's pairs, float32.
+  c4portable  ``gjkepa_batch``, the portable path, c4's pairs, float32;
+  c4manifold  ``gjkepa_batch_fused`` then ``manifold_batch`` over
+            ``fixtures.c4_pairs`` (16,384 x 24, the bench's draws);
+  c5sim1024 one ``sim_step`` of 1,024 falling boxes (bench.py's config 5:
+            ``init_boxes(1024, height=6, spread=14)``, ``max_pairs`` 8,192);
+  c5sim16k  one ``sim_step`` of 16,384 boxes (``init_boxes(16384,
+            height=8, spread=55)``, ``max_pairs`` 65,536).
+
+c4 and c4portable take the first draws of ``default_rng(0)`` (the recipe
+alone, as chip_smoke's phases 5, 6 and 16 do); c4manifold takes the pairs
+the bench draws after its configs 2 and 3b.
 
 Without arguments it profiles them all; named paths run in the order given,
 repeats included (``c3b c3b_unsorted c3b_unsorted c3b`` compares two in
@@ -35,6 +45,7 @@ the card and its power limit.  Without a CUDA device it exits non-zero.
 
 from __future__ import annotations
 
+import functools
 import statistics
 import subprocess
 import sys
@@ -46,7 +57,7 @@ import torch
 from . import (GJKEPAConfig, ShapeBatch, derive_contact_batch,
                fused_gjk_distance_hulls, fused_gjkepa_hull_shapes,
                fused_gjkepa_hulls, fused_gjkepa_shapes, gjkepa,
-               gjkepa_batch, gjkepa_batch_fused)
+               gjkepa_batch, gjkepa_batch_fused, manifold_batch)
 from .models import fixtures
 from .ops import fused_distance as fd
 from .ops import fused_hull_shapes as fh
@@ -209,7 +220,8 @@ def main(argv) -> int:
                           text=True, check=True).stdout.strip()
     cfg = GJKEPAConfig.for_f32()
     order = argv or ["c2", "c2dist", "c2dist1", "c3", "c3b", "c3b_unsorted",
-                     "c4", "big8192", "big2600", "c1", "c4portable"]
+                     "c4", "big8192", "big2600", "c1", "c4portable",
+                     "c4manifold", "c5sim1024", "c5sim16k"]
     want = set(order)
 
     def on_dev(*arrays):
@@ -240,13 +252,27 @@ def main(argv) -> int:
         c1, c2 = on_dev(corners, corners + np.float32([0.5, 0.0, 0.0]))
         paths["c1"] = lambda: gjkepa(c1, c2, cfg=cfg)
     if want & {"c4", "c4portable"}:
-        rng = np.random.default_rng(0)        # bench.py:278-281's recipe
-        big = fixtures.random_hulls(rng, 16384, 24, spread=0.0) * 2.0
-        small = fixtures.random_hulls(rng, 16384, 24, spread=0.0) * 0.5
-        small += rng.normal(size=(16384, 1, 3)).astype(np.float32) * 0.2
-        m1, m2 = on_dev(big, small)
+        m1, m2 = on_dev(*fixtures.deep_pairs(np.random.default_rng(0),
+                                             16384, 24))
         paths["c4"] = lambda: gjkepa_batch_fused(m1, m2, cfg=cfg)
         paths["c4portable"] = lambda: gjkepa_batch(m1, m2, cfg=cfg)
+    if "c4manifold" in want:
+        q1, q2 = on_dev(*fixtures.c4_pairs())
+
+        def c4manifold():
+            r = gjkepa_batch_fused(q1, q2, cfg=cfg)
+            return manifold_batch(q1, q2, r.normal, r.depth, r.hit,
+                                  r.contact_point, cfg=cfg)
+        paths["c4manifold"] = c4manifold
+    for name, n, height, spread, max_pairs in (
+            ("c5sim1024", 1024, 6.0, 14.0, 8192),
+            ("c5sim16k", 16384, 8.0, 55.0, 65536)):
+        if name in want:
+            from .sim import SimConfig, init_boxes, sim_step
+            paths[name] = functools.partial(
+                sim_step, init_boxes(n, height=height, spread=spread,
+                                     device=dev),
+                SimConfig(max_pairs=max_pairs), cfg)
     if "big8192" in want:
         g1, g2 = on_dev(*fixtures.big_pairs_8192())
         paths["big8192"] = lambda: gjkepa_batch_fused(g1, g2, cfg=cfg)

@@ -195,3 +195,64 @@ def test_known_shape_depths(dtype):
     r = collide_shapes_batch(a, b, cfg=cfg)
     assert r.hit.all() and float(r.depth[0]) == 0.5
     np.testing.assert_allclose(r.depth.numpy(), [0.5, 0.1, 0.3], atol=2e-5)
+
+
+def _shape_rows(side, dtype):
+    return ShapeBatch.from_numpy(*side, device="cpu", dtype=dtype)
+
+
+@pytest.mark.parametrize("entry", ["gjkepa_batch", "collide_shapes_batch",
+                                   "collide_hull_shape_batch"])
+def test_empty_batch_matches_jax(entry):
+    """B = 0: every field at batch size 0 with JAX's trailing shape and
+    dtype (float64)."""
+    from gjkepa_tpu.api import gjkepa_batch as jax_gjkepa_batch
+    from gjkepa_tpu_torch import gjkepa_batch
+    hulls = np.zeros((0, 8, 3))
+    side = (np.zeros(0, np.int32), np.zeros((0, 3)), np.zeros((0, 3)),
+            np.zeros((0, 3, 3)))
+    jshapes = JaxShapes(*(jnp.asarray(x) for x in side))
+    tshapes = _shape_rows(side, torch.float64)
+    ref, got = {
+        "gjkepa_batch": lambda: (
+            jax_gjkepa_batch(jnp.asarray(hulls), jnp.asarray(hulls)),
+            gjkepa_batch(torch.from_numpy(hulls), torch.from_numpy(hulls))),
+        "collide_shapes_batch": lambda: (
+            jax_shapes(jshapes, jshapes),
+            collide_shapes_batch(tshapes, tshapes)),
+        "collide_hull_shape_batch": lambda: (
+            jax_hull_shape(jnp.asarray(hulls), jshapes),
+            collide_hull_shape_batch(torch.from_numpy(hulls), tshapes)),
+    }[entry]()
+    for f, r in _fields(ref).items():
+        g = getattr(got, f)
+        assert tuple(g.shape) == r.shape and r.shape[0] == 0, f
+        assert str(g.dtype).removeprefix("torch.") == str(r.dtype), f
+
+
+def test_collide_supports_without_active_on_cpu():
+    """No ``active``: the batch size comes from a probe on the device the
+    caller names, and the rows equal those of an explicit all-True mask;
+    ``active=False`` retires every lane, as in the JAX package."""
+    rng = np.random.default_rng(6)
+    b = 32
+    t1, t2 = (torch.from_numpy(x) for x in rng.normal(size=(2, b, 3)) * 0.6)
+    s1, s2 = (torch.from_numpy(x) for x in 0.3 + 0.5 * rng.random((2, b)))
+
+    def support(d):
+        n = torch.sqrt((d * d).sum(1, keepdim=True))
+        u = d / torch.clamp(n, min=1e-300)
+        a, bb = t1 + s1[:, None] * u, t2 - s2[:, None] * u
+        return SupportResult(a - bb, a, bb)
+
+    cfg = GJKEPAConfig()
+    want = collide_supports(support, cfg, torch.float64,
+                            torch.ones(b, dtype=torch.bool))
+    got = collide_supports(support, cfg, torch.float64, device="cpu")
+    assert 0 < int(want.hit.sum()) < b
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    off = collide_supports(support, cfg, torch.float64, active=False,
+                           device="cpu")
+    assert not off.hit.any() and (off.status == 0).all()
+    assert off.status.shape == (b,)

@@ -26,7 +26,15 @@ K13 over a tier ladder forced to overflow into their retries, at vertex
 counts with each remainder mod 4: bit for bit.  The portable path (torch
 code, no kernel): ``gjkepa_batch`` and ``collide_shapes_batch`` on the
 card against their CPU runs, with the tolerances of their comparison with
-the JAX package.
+the JAX package; ``collide_supports`` without ``active`` on the card.  The
+manifolds (torch code) on the card against their CPU run: masks on >=
+99.9% of lanes, and on those lanes the kept points as sets and the depths
+within 1e-5, row by row on >= 99% of them (the 4-point reduction's first
+maxima over ties, which a last-bit difference of the centroid sums and
+atan2 between the devices can move).  One sim step on the card (K1/K2
+over box corners) against the same branch on the CPU through their
+plain versions and against the CPU's portable step, at
+``tests/test_torch_sim.py``'s tolerance.
 """
 
 import ctypes
@@ -763,3 +771,88 @@ def test_portable_collide_shapes_on_card(dev):
     got = collide_shapes_batch(ga, gb, cfg=cfg)
     assert torch.equal(got.hit.cpu(), want.hit) and int(want.hit.sum()) > 10
     assert float((got.depth.cpu() - want.depth).abs().max()) <= 2e-5
+
+
+def test_collide_supports_without_active_on_card(dev):
+    """No ``active``: the probe runs on the card (the default device), and
+    the rows equal those of an explicit all-True mask."""
+    from gjkepa_tpu_torch import collide_supports
+    from gjkepa_tpu_torch.ops.support import SupportResult
+    rng = np.random.default_rng(6)
+    c1, c2 = (torch.from_numpy(x).to(dev)
+              for x in rng.normal(size=(2, 64, 3)).astype(np.float32) * 0.6)
+    r1, r2 = (torch.from_numpy(x).to(dev) for x in
+              (0.3 + 0.5 * rng.random((2, 64))).astype(np.float32))
+
+    def support(d):
+        u = d / torch.clamp(torch.linalg.norm(d, dim=1, keepdim=True),
+                            min=1e-30)
+        a, b = c1 + r1[:, None] * u, c2 - r2[:, None] * u
+        return SupportResult(a - b, a, b)
+
+    cfg = GJKEPAConfig.for_f32()
+    got = collide_supports(support, cfg)
+    want = collide_supports(support, cfg, active=torch.ones(
+        64, dtype=torch.bool, device=dev))
+    assert got.hit.device.type == "cuda" and int(got.hit.sum()) > 0
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def manifolds_agree(got, want, tol=1e-5):
+    """The card's manifold rule (module docstring): returns (the share of
+    lanes whose masks agree, the share of those equal row by row)."""
+    gm, wm = got.mask.cpu(), want.mask.cpu()
+    same = (gm == wm).all(1)
+    gp, wp = got.points.cpu(), want.points.cpu()
+    gd, wd = got.depths.cpu(), want.depths.cpu()
+    rows = (((gp - wp).abs().amax(2) <= tol) & ((gd - wd).abs() <= tol)
+            | ~wm).all(1) & same
+    for i in torch.nonzero(same & ~rows)[:, 0].tolist():
+        d = torch.cdist(gp[i][wm[i]].double(), wp[i][wm[i]].double())
+        assert max(float(d.amin(0).max()), float(d.amin(1).max())) <= tol, i
+        assert torch.allclose(gd[i][wm[i]].sort().values,
+                              wd[i][wm[i]].sort().values, rtol=0, atol=tol)
+    return float(same.float().mean()), float(rows.sum() / same.sum())
+
+
+def test_manifold_batch_on_card_matches_cpu(dev):
+    """c4's deep pairs (1,024 of them) through gjkepa_batch_fused on the
+    CPU, then manifold_batch on the card and on the CPU."""
+    from gjkepa_tpu_torch import manifold_batch
+    p1, p2 = (torch.from_numpy(x[:1024]) for x in fixtures.c4_pairs())
+    r = gjkepa_batch_fused(p1, p2)
+    args = (p1, p2, r.normal, r.depth, r.hit, r.contact_point)
+    want = manifold_batch(*args)
+    got = manifold_batch(*(t.to(dev) for t in args))
+    assert got.points.device.type == "cuda"
+    assert torch.equal(got.overflow.cpu(), want.overflow)
+    masks, rows = manifolds_agree(got, want)
+    assert masks >= 0.999 and rows >= 0.99, (masks, rows)
+
+
+def _close_states(got, want):
+    for f, rtol, atol in (("pos", 0, 1e-6), ("quat", 0, 1e-6),
+                          ("vel", 1e-5, 1e-5), ("angvel", 1e-5, 1e-5)):
+        torch.testing.assert_close(getattr(got, f).cpu(), getattr(want, f),
+                                   rtol=rtol, atol=atol, msg=f)
+
+
+def test_sim_step_on_card_matches_cpu(dev):
+    """The packed 64-box scene of tests/test_torch_sim.py: one step on the
+    card launches K1 and K2 and agrees with the same branch on the CPU
+    (their plain versions; diag exact) and with the CPU's portable step."""
+    from gjkepa_tpu_torch.sim import SimConfig, init_boxes, rigid, sim_step
+    state = init_boxes(64, height=0.55, spread=4.0, device="cpu")
+    scfg, cfg = SimConfig(max_pairs=512), GJKEPAConfig.for_f32()
+    n1, n2 = fused_gjk.LAUNCHES, fused_epa.LAUNCHES
+    got, gd = sim_step(rigid.SimState(*(t.to(dev) for t in state)), scfg)
+    torch.cuda.synchronize()
+    assert fused_gjk.LAUNCHES > n1 and fused_epa.LAUNCHES > n2
+    assert got.pos.device.type == "cuda"
+    want, wd = rigid._step(state, scfg, cfg, rigid._pair_contacts_fused)
+    portable, _ = sim_step(state, scfg)
+    for k, v in wd.items():
+        assert torch.equal(gd[k].cpu(), v), k
+    assert int(wd["n_contacts"]) >= 100
+    _close_states(got, want)
+    _close_states(got, portable)

@@ -36,7 +36,14 @@ def test_import_leaves_jax_out():
             "gjkepa_tpu_torch.ops.fused_streamed, "
             "gjkepa_tpu_torch.ops.geom, gjkepa_tpu_torch.ops.gjk, "
             "gjkepa_tpu_torch.ops.epa, gjkepa_tpu_torch.ops.contact, "
-            "gjkepa_tpu_torch.ops.broadphase, gjkepa_tpu_torch.utils.hull; "
+            "gjkepa_tpu_torch.ops.broadphase, gjkepa_tpu_torch.utils.hull, "
+            "gjkepa_tpu_torch.ops.manifold, gjkepa_tpu_torch.sim, "
+            "gjkepa_tpu_torch.sim.rigid; "
+            "from gjkepa_tpu_torch import (manifold_batch, "
+            "manifold_shapes_batch, manifold_hull_shape_batch, "
+            "ManifoldResult); "
+            "from gjkepa_tpu_torch.sim import (SimState, SimConfig, "
+            "init_boxes, sim_step); "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'gjkepa_tpu.')) "
             "or m == 'gjkepa_tpu'); print(bad); sys.exit(1 if bad else 0)")
