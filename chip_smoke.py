@@ -32,7 +32,10 @@ polytope in shared memory (``csrc/epa_hull_shape.cu``, K7's kernel in
 ``csrc/epa_polish_warp.cuh``).  The contact manifolds and the rigid-body
 sim are torch code over the hull path: ``manifold_batch`` after
 ``gjkepa_batch_fused``, and ``sim_step``, whose narrowphase on the card is
-K1 and K2 over the eight corners of each box.  The script builds
+K1 and K2 over the eight corners of each box.  Sharding splits the
+pair axis over a list of devices (K1 and K2 a shard), the sanitizer
+checks the fused and portable queries' results on the card, and the
+entry points drive the sharded pipeline.  The script builds
 every kernel from the sources in the checkout (one nvcc per source, all at
 once) and runs, in phases:
 
@@ -142,7 +145,34 @@ once) and runs, in phases:
      along x, in one run of 300 steps on the card: each within that
      test's height bounds, K2 over real hits, the lateral walk-off logged
      (it is chaotic: the moves change only the rounding, and the
-     walk-off with them).
+     walk-off with them);
+ 19. sharding (``gjkepa_tpu_torch.parallel``) at c4 (``fixtures.c4_pairs``):
+     ``gjkepa_batch_fused_sharded`` over ``pair_mesh()`` (every card) and
+     over 4 entries of this card, each call with K1's and K2's counters
+     set to 0 just before and read just after (one of each a shard) and
+     its host reads counted (none: every shard's kernels go out before
+     any read), gathered bit for bit against the unsharded
+     ``gjkepa_batch_fused``; ``contact_count_sharded`` over the 4 entries
+     equal to the unsharded portable query's hit sum; q/s sharded and
+     unsharded;
+ 20. the sanitizer (``gjkepa_tpu_torch.debug``) at full width: the checked
+     fused hulls at c4, fused shapes at c3, manifolds at c4 and on c3's
+     query, the portable query on a 1,024-pair float64 sample of c4, each
+     with its kernels' counters set to 0 just before (one K1 and K2, one
+     K5, K6a and K7, none) and bit for bit against the unchecked call
+     with one host read more; then NaN/Inf planted at known lanes (and a
+     float32 NaN, whose coordinate-range check comes first) raise the
+     check and lanes the same call names on the CPU; checked and
+     unchecked ms;
+ 21. the entry points (``gjkepa_tpu_torch.entry``): ``entry()``'s call
+     once on the card against its CPU run, ``dryrun_multichip`` over the
+     cards and over 4 entries of this card (one K1 and one K2 a shard);
+ 22. the portable distance (torch code, ``ops.distance``):
+     ``gjk_distance_batch`` at c2 (65,536 x 64) and
+     ``gjk_distance_shapes_batch`` at c3, each against its CPU run on 1,024
+     lanes (intersecting exact, distance within 1e-5), the first also
+     against K8 on every lane; ms and host reads a call (device launches
+     and busy share: ``profile c2distportable c3distportable``).
 
 Times are CUDA-event times.  A kernel's (``ms`` in the ``kernels`` line)
 is a device time, ``device_ms``: 10 calls queued behind a sleep kernel
@@ -171,6 +201,7 @@ import subprocess
 import sys
 import time
 import types
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -1743,6 +1774,283 @@ def sim_phase(gt, dev, cfg, card) -> None:
         f"(test_sim.py bounds it by 0.3) [{card}]")
 
 
+# -- sharding, the sanitizer, the entry points, the portable distance -----------
+
+def host_reads(fn):
+    """``fn()``'s result and the host reads it made: the synchronizing CUDA
+    operations that torch's sync debug mode warns on, one warning each
+    (torch calls the mode a prototype that does not see every such
+    operation)."""
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("called a synchronizing CUDA operation" in str(w.message)
+                    for w in seen)
+
+
+def zero_launches():
+    """Set every kernel's launch counter to 0 (after a synchronise)."""
+    from gjkepa_tpu_torch.ops import fused_epa, fused_gjk
+    from gjkepa_tpu_torch.ops import fused_shapes as fs
+    torch.cuda.synchronize()
+    fused_gjk.LAUNCHES = 0
+    fused_epa.LAUNCHES = 0
+    for k in fs.LAUNCHES:
+        fs.LAUNCHES[k] = 0
+
+
+def read_launches() -> dict:
+    """The launch counters of K1, K2 and K5-K7 (after a synchronise)."""
+    from gjkepa_tpu_torch.ops import fused_epa, fused_gjk
+    from gjkepa_tpu_torch.ops import fused_shapes as fs
+    torch.cuda.synchronize()
+    return {"gjk_hulls": fused_gjk.LAUNCHES, "epa_hulls": fused_epa.LAUNCHES,
+            **fs.LAUNCHES}
+
+
+def launched(**want) -> dict:
+    """The counters of ``want``'s kernels and of no other, zeros dropped."""
+    return {k: v for k, v in read_launches().items() if v or k in want}
+
+
+def fields_equal(x, y) -> bool:
+    return all(torch.equal(a, b) for a, b in zip(x, y))
+
+
+def sharding_phase(gt, dev, cfg, card) -> None:
+    """Phase 19: the fused hull query with the pair axis sharded over the
+    cards (``pair_mesh()``) and over 4 entries of this card, at c4."""
+    from gjkepa_tpu_torch.models import fixtures
+    from gjkepa_tpu_torch.parallel import (contact_count_sharded,
+                                           gjkepa_batch_fused_sharded,
+                                           pair_mesh, shard_pairs)
+    p1, p2 = (torch.from_numpy(a).to(dev) for a in fixtures.c4_pairs())
+    n4 = p1.shape[0]
+    want = gt.gjkepa_batch_fused(p1, p2, cfg=cfg)
+    times = {"unsharded": cuda_ms(
+        lambda: gt.gjkepa_batch_fused(p1, p2, cfg=cfg))}
+    notes = []
+    for name, mesh in (("cards", pair_mesh()),
+                       ("cuda:0 x 4", pair_mesh(4, device=dev))):
+        s1, s2 = shard_pairs(mesh, p1, p2)
+        zero_launches()
+        r, reads = host_reads(
+            lambda: gjkepa_batch_fused_sharded(mesh, s1, s2, cfg=cfg))
+        launches = launched(gjk_hulls=1, epa_hulls=1)
+        check(launches == {"gjk_hulls": mesh.size, "epa_hulls": mesh.size},
+              f"phase 19: {name}: launched {launches} over {mesh.size} "
+              "shards, expected one K1 and one K2 a shard")
+        # every shard's K1 and K2 issued before any host read: none at all
+        check(reads == 0, f"phase 19: {name}: {reads} host reads")
+        check([s.depth.device for s in r.shards] == mesh.devices,
+              f"phase 19: {name}: shards off their devices")
+        check(fields_equal(r.gather(), want),
+              f"phase 19: {name}: the gathered result differs from the "
+              "unsharded query")
+        if all(d == dev for d in mesh.devices):
+            times[name] = cuda_ms(
+                lambda: gjkepa_batch_fused_sharded(mesh, s1, s2, cfg=cfg))
+        notes.append(f"{name} ({mesh.size} shards of {n4 // mesh.size}): "
+                     f"bit for bit, launches {launches}, {reads} host reads")
+    # the contact count over the 4-entry mesh against the unsharded
+    # portable query
+    mesh = pair_mesh(4, device=dev)
+    cnt = contact_count_sharded(mesh, *shard_pairs(mesh, p1, p2), cfg=cfg)
+    ref = isum(gt.gjkepa_batch(p1, p2, cfg=cfg).hit)
+    check(cnt.device == dev and cnt.dtype == torch.int32 and int(cnt) == ref,
+          f"phase 19: contact count {int(cnt)}, unsharded portable {ref}")
+    for key, ms in times.items():
+        log(f"phase 19 time {key}: {ms:.4f} ms = {n4 / ms * 1e3:,.0f} q/s "
+            f"[{card}]")
+    log(f"phase 19 sharding: gjkepa_batch_fused_sharded at c4 "
+        f"({n4} x 24, fixtures.c4_pairs): " + "; ".join(notes)
+        + f"; contact_count_sharded over 4 shards {int(cnt)} = the "
+        f"unsharded portable hit sum [{card}]")
+
+
+def sanitizer_phase(gt, dev, cfg, card) -> None:
+    """Phase 20: the five checkers on the card at full width: clean inputs
+    bit for bit against the unchecked call with one host read more, a
+    poison at known lanes named as the CPU names it."""
+    from gjkepa_tpu_torch import debug
+    from gjkepa_tpu_torch.models import fixtures
+
+    c4 = [torch.from_numpy(a) for a in fixtures.c4_pairs()]
+    c3 = [gt.ShapeBatch.from_numpy(*s, device="cpu")
+          for s in fixtures.c3_pairs()]
+    q4 = gt.gjkepa_batch_fused(*(t.to(dev) for t in c4), cfg=cfg)
+    q3 = gt.collide_shapes_batch_fused(
+        *(gt.ShapeBatch(*(t.to(dev) for t in s)) for s in c3), cfg=cfg)
+    rows4 = [t.cpu() for t in (q4.normal, q4.depth, q4.hit,
+                               q4.contact_point)]
+    rows3 = [t.cpu() for t in (q3.normal, q3.depth, q3.hit,
+                               q3.contact_point)]
+    s64 = [t[:1024].double() for t in c4]
+
+    def poison(t, lanes, value=float("nan")):
+        """A copy of ``t`` with one entry of each lane set to ``value``."""
+        t = t.clone()
+        t.view(t.shape[0], -1)[lanes, -1] = value
+        return t
+
+    def shapes(s, params=None, rot=None):
+        return gt.ShapeBatch(s.kind, s.params if params is None else params,
+                             s.pos, s.rot if rot is None else rot)
+
+    hull_k = {"gjk_hulls": 1, "epa_hulls": 1}
+    shape_k = {"cf_shapes": 1, "gjk_sub_shapes": 1, "epa_shapes": 1}
+    lanes = [5, 1000, 4097, 16000]
+    # (name, checked, unchecked, clean args, poisoned args, the kernels a
+    # call launches); args on the CPU, moved to the card for its run
+    cases = [
+        ("checked_fused_gjkepa_hulls c4", debug.checked_fused_gjkepa_hulls,
+         gt.fused_gjkepa_hulls, c4,
+         [poison(c4[0], lanes[:2]), poison(c4[1], lanes[2:], float("inf"))],
+         hull_k),
+        ("checked_fused_gjkepa_shapes c3", debug.checked_fused_gjkepa_shapes,
+         gt.fused_gjkepa_shapes, c3,
+         [shapes(c3[0], params=poison(c3[0].params, [2, 30000],
+                                      float("inf"))),
+          shapes(c3[1], rot=poison(c3[1].rot, [60000]))], shape_k),
+        ("checked_manifold_batch c4", debug.checked_manifold_batch,
+         gt.manifold_batch, c4 + rows4,
+         c4 + [poison(rows4[0], lanes)] + rows4[1:], {}),
+        ("checked_manifold_shapes_batch c3",
+         debug.checked_manifold_shapes_batch, gt.manifold_shapes_batch,
+         c3 + rows3, c3 + [poison(rows3[0], [7, 40000])] + rows3[1:], {}),
+        ("checked_gjkepa_batch c4 float64 sample",
+         debug.checked_gjkepa_batch, gt.gjkepa_batch, s64,
+         [poison(s64[0], [17]), poison(s64[1], [700], float("inf"))], {}),
+        ("checked_gjkepa_batch c4 float32 sample (NaN precedence)",
+         lambda *a: debug.checked_gjkepa_batch(*a, cfg=cfg), None,
+         [t.float() for t in s64], [poison(s64[0].float(), [17]),
+                                    s64[1].float()], {}),
+    ]
+
+    def on(device, args):
+        return [gt.ShapeBatch(*(x.to(device) for x in a))
+                if isinstance(a, gt.ShapeBatch) else a.to(device)
+                for a in args]
+
+    def message(fn, args):
+        try:
+            fn(*args)
+        except debug.DebugCheckError as e:
+            return str(e)
+        raise AssertionError("phase 20: a poisoned call did not raise")
+
+    for name, checked, unchecked, clean, bad, kernels in cases:
+        args = on(dev, clean)
+        if unchecked is not None:
+            want, reads_u = host_reads(lambda: unchecked(*args))
+            zero_launches()
+            got, reads_c = host_reads(lambda: checked(*args))
+            counts = launched(**kernels)
+            check(counts == kernels,
+                  f"phase 20: {name} launched {counts}, expected {kernels}")
+            check(fields_equal(got, want),
+                  f"phase 20: {name}: the checked result differs from the "
+                  "unchecked call's")
+            check(reads_c == reads_u + 1, f"phase 20: {name}: {reads_c} "
+                  f"host reads, the unchecked call {reads_u}")
+            t_c = cuda_ms(lambda: checked(*args), calls=3, warmup=1)
+            t_u = cuda_ms(lambda: unchecked(*args), calls=3, warmup=1)
+            log(f"phase 20 time {name}: checked {t_c:.4f} ms, unchecked "
+                f"{t_u:.4f} ms; host reads a call {reads_c} against "
+                f"{reads_u} (one more), launches {counts} [{card}]")
+        on_card = message(checked, on(dev, bad))
+        on_cpu = message(checked, bad)
+        check(on_card == on_cpu, f"phase 20: {name}: the card says "
+              f"{on_card!r}, the CPU {on_cpu!r}")
+        log(f"phase 20 sanitizer {name}: poisoned -> {on_card} (the CPU "
+            f"run's) [{card}]")
+
+
+def entry_phase(gt, dev, card) -> None:
+    """Phase 21: the entry points: ``entry()``'s flagship call once
+    on the card, and ``dryrun_multichip`` over the cards and over 4
+    entries of this card."""
+    from gjkepa_tpu_torch import entry as port_entry
+    fn, args = port_entry.entry(device=dev)
+    check(all(a.device == dev for a in args), "phase 21: entry() inputs "
+          "off the card")
+    t0 = time.perf_counter()
+    r = fn(*args)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    want = fn(*(a.cpu() for a in args))
+    check(all(torch.equal(getattr(r, f).cpu(), getattr(want, f))
+              for f in ("hit", "status", "colli_type"))
+          and float((r.depth.cpu() - want.depth).abs().max()) <= 1e-5,
+          "phase 21: entry()'s fn on the card differs from its CPU run")
+    notes = []
+    for n, device in ((torch.cuda.device_count(), None), (4, dev)):
+        zero_launches()
+        t0 = time.perf_counter()
+        port_entry.dryrun_multichip(n, device=device)
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = launched(gjk_hulls=1, epa_hulls=1)
+        check(counts == {"gjk_hulls": n, "epa_hulls": n},
+              f"phase 21: dryrun_multichip({n}) launched {counts}")
+        notes.append(f"dryrun_multichip({n}, device={device}) passed in "
+                     f"{ms:.1f} ms, launches {counts}")
+    log(f"phase 21 entry: entry()'s fn (gjkepa_batch, 256 x 16 float32) "
+        f"once on the card in {wall:.1f} ms, {isum(r.hit)} hits, = its CPU "
+        f"run; " + "; ".join(notes) + f" [{card}]")
+
+
+def portable_distance_phase(gt, dev, cfg, card, n_sample=1024) -> None:
+    """Phase 22: the portable distance (torch code, ``ops.distance``) at
+    full width: ``gjk_distance_batch`` at c2, ``gjk_distance_shapes_batch``
+    at c3; against their CPU runs on a sample and against K8."""
+    from gjkepa_tpu_torch.models import fixtures
+    d1, d2 = (torch.from_numpy(a) for a in fixtures.c2_hulls())
+    a3, b3 = (gt.ShapeBatch.from_numpy(*s, device="cpu")
+              for s in fixtures.c3_pairs())
+    calls = {
+        "gjk_distance_batch c2": (
+            gt.gjk_distance_batch, [d1.to(dev), d2.to(dev)],
+            [d1[:n_sample], d2[:n_sample]]),
+        "gjk_distance_shapes_batch c3": (
+            gt.gjk_distance_shapes_batch,
+            [gt.ShapeBatch(*(t.to(dev) for t in s)) for s in (a3, b3)],
+            [gt.ShapeBatch(*(t[:n_sample] for t in s)) for s in (a3, b3)]),
+    }
+    for name, (fn, args, cpu_args) in calls.items():
+        r, reads = host_reads(lambda: fn(*args, cfg=cfg))
+        for f, t in r._asdict().items():
+            check(t.device == dev and (not t.is_floating_point()
+                                       or bool(torch.isfinite(t).all())),
+                  f"phase 22: {name} {f} not finite or off the card")
+        w = fn(*cpu_args, cfg=cfg)
+        err = float((r.distance[:n_sample].cpu() - w.distance).abs().max())
+        same = torch.equal(r.intersecting[:n_sample].cpu(), w.intersecting)
+        check(same and err <= 1e-5, f"phase 22: {name} against its CPU run "
+              f"on {n_sample} lanes: intersecting equal {same}, distance "
+              f"error {err}")
+        ms = cuda_ms(lambda: fn(*args, cfg=cfg), calls=3, warmup=1)
+        n = r.distance.shape[0]
+        log(f"phase 22 time {name}: {ms:.4f} ms = {n / ms * 1e3:,.0f} q/s, "
+            f"{reads} host reads a call, max {int(r.iters.max())} "
+            f"iterations, {isum(r.intersecting)} intersecting; the CPU run "
+            f"on {n_sample} lanes: intersecting equal, distance error "
+            f"{err:.3g} [{card}]")
+        if name.startswith("gjk_distance_batch"):
+            k8 = gt.fused_gjk_distance_hulls(*args, cfg=cfg)
+            k8_err = float((r.distance - k8.distance).abs().max())
+            k8_same = isum(r.intersecting != k8.intersecting)
+            check(k8_same == 0 and k8_err <= 1e-5, f"phase 22: {name} "
+                  f"against K8: intersecting differs on {k8_same} lanes, "
+                  f"distance by {k8_err}")
+            log(f"phase 22 {name} against K8 (fused_gjk_distance_hulls) on "
+                f"all {n} lanes: intersecting equal, distance error "
+                f"{k8_err:.3g} [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2033,6 +2341,10 @@ def main() -> int:
     portable_phase(gt, dev, card)
     manifold_phase(gt, dev, cfg, card)
     sim_phase(gt, dev, cfg, card)
+    sharding_phase(gt, dev, cfg, card)
+    sanitizer_phase(gt, dev, cfg, card)
+    entry_phase(gt, dev, card)
+    portable_distance_phase(gt, dev, cfg, card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -42,7 +42,17 @@ queries:
     hull pairs, :func:`manifold_shapes_batch` over shape pairs and
     :func:`manifold_hull_shape_batch` over hull-vs-shape pairs;
   * the rigid-body sim of falling boxes (``sim``): :func:`sim.sim_step`,
-    whose narrowphase on the card is K1 and K2 over the boxes' corners.
+    whose narrowphase on the card is K1 and K2 over the boxes' corners;
+  * the pair axis split over a list of devices (``parallel``):
+    ``pair_mesh``, ``shard_pairs``, the sharded portable and fused hull
+    queries and the summed contact count;
+  * the sanitizer (``debug``): the portable, fused and manifold queries
+    under JAX's numerics checks, read back in one copy a call;
+  * the entry points (``entry``): the flagship query with its
+    inputs, and the sharded pipeline's dry run.
+
+Like the JAX package's, the package does not export the last three; import
+them by module.
 
 ``ShapeBatch.from_numpy`` and the shape constructors put their tensors on
 the card unless the caller names another device (``device="cpu"``).

@@ -25,7 +25,14 @@ Paths, each at its bench.py configuration (``models/fixtures.py``):
   c5sim1024 one ``sim_step`` of 1,024 falling boxes (bench.py's config 5:
             ``init_boxes(1024, height=6, spread=14)``, ``max_pairs`` 8,192);
   c5sim16k  one ``sim_step`` of 16,384 boxes (``init_boxes(16384,
-            height=8, spread=55)``, ``max_pairs`` 65,536).
+            height=8, spread=55)``, ``max_pairs`` 65,536);
+  c2distportable  ``gjk_distance_batch``, the portable distance (torch
+            code), c2's pairs, float32;
+  c3distportable  ``gjk_distance_shapes_batch``, the same over c3's pairs;
+  c4sharded4  ``gjkepa_batch_fused_sharded`` over 4 entries of the card
+            (``pair_mesh(4, device="cuda:0")``), ``fixtures.c4_pairs``;
+  c4checked  ``checked_fused_gjkepa_hulls`` (the sanitizer over K1/K2),
+            ``fixtures.c4_pairs``.
 
 c4 and c4portable take the first draws of ``default_rng(0)`` (the recipe
 alone, as chip_smoke's phases 5, 6 and 16 do); c4manifold takes the pairs
@@ -56,8 +63,9 @@ import torch
 
 from . import (GJKEPAConfig, ShapeBatch, derive_contact_batch,
                fused_gjk_distance_hulls, fused_gjkepa_hull_shapes,
-               fused_gjkepa_hulls, fused_gjkepa_shapes, gjkepa,
-               gjkepa_batch, gjkepa_batch_fused, manifold_batch)
+               fused_gjkepa_hulls, fused_gjkepa_shapes, gjk_distance_batch,
+               gjk_distance_shapes_batch, gjkepa, gjkepa_batch,
+               gjkepa_batch_fused, manifold_batch)
 from .models import fixtures
 from .ops import fused_distance as fd
 from .ops import fused_hull_shapes as fh
@@ -221,24 +229,30 @@ def main(argv) -> int:
     cfg = GJKEPAConfig.for_f32()
     order = argv or ["c2", "c2dist", "c2dist1", "c3", "c3b", "c3b_unsorted",
                      "c4", "big8192", "big2600", "c1", "c4portable",
-                     "c4manifold", "c5sim1024", "c5sim16k"]
+                     "c4manifold", "c5sim1024", "c5sim16k",
+                     "c2distportable", "c3distportable", "c4sharded4",
+                     "c4checked"]
     want = set(order)
 
     def on_dev(*arrays):
         return tuple(torch.from_numpy(a).to(dev) for a in arrays)
 
     paths = {}
-    if want & {"c2", "c2dist", "c2dist1"}:
+    if want & {"c2", "c2dist", "c2dist1", "c2distportable"}:
         d1, d2 = on_dev(*fixtures.c2_hulls())
+        paths["c2distportable"] = lambda: gjk_distance_batch(d1, d2,
+                                                             cfg=cfg)
         bool_cfg = cfg.replace(epa_max_iters=0)
         paths["c2"] = lambda: fused_gjkepa_hulls(d1, d2, cfg=bool_cfg)
         paths["c2dist"] = lambda: fused_gjk_distance_hulls(d1, d2, cfg=cfg)
         paths["c2dist1"] = lambda: fused_gjk_distance_hulls(
             d1, d2, cfg=cfg, two_phase=False)
-    if "c3" in want:
+    if want & {"c3", "c3distportable"}:
         a3, b3 = (ShapeBatch.from_numpy(*p, device=dev)
                   for p in fixtures.c3_pairs())
         paths["c3"] = lambda: fused_gjkepa_shapes(a3, b3, cfg=cfg)
+        paths["c3distportable"] = lambda: gjk_distance_shapes_batch(
+            a3, b3, cfg=cfg)
     if want & {"c3b", "c3b_unsorted"}:
         hulls, shp = fixtures.c3b_pairs()
         (h3,) = on_dev(hulls)
@@ -256,8 +270,17 @@ def main(argv) -> int:
                                              16384, 24))
         paths["c4"] = lambda: gjkepa_batch_fused(m1, m2, cfg=cfg)
         paths["c4portable"] = lambda: gjkepa_batch(m1, m2, cfg=cfg)
-    if "c4manifold" in want:
+    if want & {"c4manifold", "c4sharded4", "c4checked"}:
+        from .debug import checked_fused_gjkepa_hulls
+        from .parallel import (gjkepa_batch_fused_sharded, pair_mesh,
+                               shard_pairs)
         q1, q2 = on_dev(*fixtures.c4_pairs())
+        mesh = pair_mesh(4, device=dev)
+        s1, s2 = shard_pairs(mesh, q1, q2)
+        paths["c4sharded4"] = lambda: gjkepa_batch_fused_sharded(
+            mesh, s1, s2, cfg=cfg)
+        paths["c4checked"] = lambda: checked_fused_gjkepa_hulls(q1, q2,
+                                                                 cfg=cfg)
 
         def c4manifold():
             r = gjkepa_batch_fused(q1, q2, cfg=cfg)

@@ -34,7 +34,11 @@ maxima over ties, which a last-bit difference of the centroid sums and
 atan2 between the devices can move).  One sim step on the card (K1/K2
 over box corners) against the same branch on the CPU through their
 plain versions and against the CPU's portable step, at
-``tests/test_torch_sim.py``'s tolerance.
+``tests/test_torch_sim.py``'s tolerance.  Sharding and the sanitizer: the
+fused query over 4 entries of the card bit for bit against the unsharded
+query, one K1 and one K2 a shard; the checked fused query bit for bit
+against the unchecked one, and a poisoned input named with the CPU's
+check and lanes.
 """
 
 import ctypes
@@ -856,3 +860,53 @@ def test_sim_step_on_card_matches_cpu(dev):
     assert int(wd["n_contacts"]) >= 100
     _close_states(got, want)
     _close_states(got, portable)
+
+
+def test_fused_sharded_on_a_cuda0_mesh_equals_unsharded(dev):
+    """The fused query over 4 entries of the card: every field bit for
+    bit against the unsharded query, one K1 and one K2 a shard."""
+    from gjkepa_tpu_torch.parallel import (gjkepa_batch_fused_sharded,
+                                           pair_mesh, shard_pairs)
+    rng = np.random.default_rng(0)
+    p1, p2 = (torch.from_numpy(x).to(dev) for x in fixtures.deep_pairs(
+        rng, 4096, 24))
+    cfg = GJKEPAConfig.for_f32()
+    mesh = pair_mesh(4, device=dev)
+    s1, s2 = shard_pairs(mesh, p1, p2)
+    torch.cuda.synchronize()
+    fused_gjk.LAUNCHES = 0
+    fused_epa.LAUNCHES = 0
+    r = gjkepa_batch_fused_sharded(mesh, s1, s2, cfg=cfg)
+    torch.cuda.synchronize()
+    assert (fused_gjk.LAUNCHES, fused_epa.LAUNCHES) == (4, 4)
+    assert [s.depth.device for s in r.shards] == [dev] * 4
+    g = r.gather()
+    for name, x, y in zip(g._fields, g, gjkepa_batch_fused(p1, p2, cfg=cfg)):
+        assert torch.equal(x, y), name
+
+
+def test_checked_fused_hulls_raises_on_a_poisoned_lane_on_card(dev):
+    """The sanitizer over K1/K2 on the card: clean rows bit for bit
+    against the unchecked call, a NaN vertex named with its lanes as on
+    the CPU."""
+    from gjkepa_tpu_torch.debug import (DebugCheckError,
+                                        checked_fused_gjkepa_hulls)
+    from gjkepa_tpu_torch.ops.fused import fused_gjkepa_hulls
+    rng = np.random.default_rng(0)
+    p1, p2 = (torch.from_numpy(x) for x in fixtures.deep_pairs(rng, 2048,
+                                                               24))
+    cfg = GJKEPAConfig.for_f32()
+    r = checked_fused_gjkepa_hulls(p1.to(dev), p2.to(dev), cfg=cfg)
+    for name, x, y in zip(r._fields, r, fused_gjkepa_hulls(
+            p1.to(dev), p2.to(dev), cfg=cfg)):
+        assert torch.equal(x, y), name
+    p1[[7, 1500], 3, 1] = float("nan")
+    p2[900, 0, 0] = float("inf")
+    msg = []
+    for d in (dev, torch.device("cpu")):
+        with pytest.raises(DebugCheckError) as e:
+            checked_fused_gjkepa_hulls(p1.to(d), p2.to(d), cfg=cfg)
+        msg.append(str(e.value))
+    assert msg[0] == msg[1] == (
+        "sanitizer check failed: non-finite input vertex (NaN/Inf in p1 or "
+        "p2) (lanes [7, 900, 1500])")

@@ -38,7 +38,9 @@ def test_import_leaves_jax_out():
             "gjkepa_tpu_torch.ops.epa, gjkepa_tpu_torch.ops.contact, "
             "gjkepa_tpu_torch.ops.broadphase, gjkepa_tpu_torch.utils.hull, "
             "gjkepa_tpu_torch.ops.manifold, gjkepa_tpu_torch.sim, "
-            "gjkepa_tpu_torch.sim.rigid; "
+            "gjkepa_tpu_torch.sim.rigid, gjkepa_tpu_torch.parallel, "
+            "gjkepa_tpu_torch.parallel.sharding, gjkepa_tpu_torch.debug, "
+            "gjkepa_tpu_torch.entry; "
             "from gjkepa_tpu_torch import (manifold_batch, "
             "manifold_shapes_batch, manifold_hull_shape_batch, "
             "ManifoldResult); "
