@@ -35,7 +35,10 @@ sim are torch code over the hull path: ``manifold_batch`` after
 K1 and K2 over the eight corners of each box.  Sharding splits the
 pair axis over a list of devices (K1 and K2 a shard), the sanitizer
 checks the fused and portable queries' results on the card, and the
-entry points drive the sharded pipeline.  The script builds
+entry points drive the sharded pipeline.  The hull queries also run
+without the broadphase (``use_broadphase=False``, K1 or K12 over every
+pair), and K13 keeps a tier whose polytope does not fit in shared memory
+in a store in device memory, as K2 does.  The script builds
 every kernel from the sources in the checkout (one nvcc per source, all at
 once) and runs, in phases:
 
@@ -172,7 +175,22 @@ once) and runs, in phases:
      ``gjk_distance_shapes_batch`` at c3, each against its CPU run on 1,024
      lanes (intersecting exact, distance within 1e-5), the first also
      against K8 on every lane; ms and host reads a call (device launches
-     and busy share: ``profile c2distportable c3distportable``).
+     and busy share: ``profile c2distportable c3distportable``);
+ 23. the calls the JAX package answers that the port once refused: K1
+     without the broadphase (``use_broadphase=False``, every pair in GJK)
+     bit for bit against its plain version at c2 (``fixtures.c2_hulls``, at
+     every team size), c4 and 4,096 x 63, one launch a call; the large-hull
+     path without the broadphase at big2600 (K12 over every lane, K13, the
+     path bit for bit against the plain path); K13 over a ladder whose last
+     tier (4,096 faces) is past a block's shared memory, on every hit of
+     big8192, bit for bit against its plain version, with its device
+     store's bytes and its one host read, and 0 host reads at the default
+     ladder; ``fused_gjkepa_hulls(use_broadphase=False)`` at c2 with its
+     launches counted (one K1, one K2), its first 1,024 lanes against the
+     same call on the CPU (discrete fields exact, depth and distance within
+     1e-5); ``gjk_distance_batch`` at c2 in chunks of 8,192 bit for bit
+     against the unchunked call, the wall of each; K1's device time with
+     and without the broadphase at c2.
 
 Times are CUDA-event times.  A kernel's (``ms`` in the ``kernels`` line)
 is a device time, ``device_ms``: 10 calls queued behind a sleep kernel
@@ -314,8 +332,10 @@ def ptxas_report(log_text: str) -> list[str]:
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"([a-z_]+_kernel)(?:IL[a-z](\d+)E)?", m.group(1))
-            name = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
+            k = re.search(r"([a-z_]+_kernel)(?:IL[a-z](\d+)E(?:Lb([01])E)?)?",
+                          m.group(1))
+            args = [a for a in (k.group(2), k.group(3)) if a] if k else []
+            name = (k.group(1) + (f"<{', '.join(args)}>" if args else "")
                     if k else m.group(1))
         elif "spill stores" in line:
             frame = line.strip()
@@ -2051,6 +2071,206 @@ def portable_distance_phase(gt, dev, cfg, card, n_sample=1024) -> None:
                 f"{k8_err:.3g} [{card}]")
 
 
+def parity_phase(gt, dev, cfg, card) -> list[dict]:
+    """Phase 23: the calls the JAX package answers that the port once
+    refused.  K1 and the large-hull path without the broadphase, K13 past
+    shared memory, ``fused_gjkepa_hulls(use_broadphase=False)`` at c2
+    against its CPU run, the chunked portable distance at c2; returns the
+    ``kernels`` entry of K1 without the broadphase at c2."""
+    from gjkepa_tpu_torch import _build
+    from gjkepa_tpu_torch.models import fixtures
+    from gjkepa_tpu_torch.ops import fused_epa, fused_gjk
+    from gjkepa_tpu_torch.ops import fused_streamed as fst
+    from gjkepa_tpu_torch.ops.fused import (cascade_plan, hit_first_order,
+                                            hulls_result)
+
+    def on_dev(*arrays):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in arrays)
+
+    def k1_off(p1, p2, what, team=None):
+        """K1 without the broadphase, one launch, its rows bit for bit
+        against the plain version's (every lane runs GJK)."""
+        zero_launches()
+        gk = (fused_gjk.gjk_hulls(p1, p2, cfg, use_broadphase=False)
+              if team is None else fused_gjk._gjk_hulls_cuda(
+                  p1, p2, cfg, team, use_broadphase=False))
+        n = read_launches()["gjk_hulls"]
+        gp = fused_gjk.gjk_hulls_plain(p1, p2, cfg, use_broadphase=False)
+        torch.cuda.synchronize()
+        check(n == 1, f"phase 23: {what}: K1 launched {n} times")
+        check(bool((gp.status != 0).all()), f"phase 23: {what}: a lane "
+              "missed on a broadphase that is off")
+        d = isum(gk.iters != gp.iters)
+        check(rows_equal(gk, gp), f"phase 23: {what}: K1 without the "
+              f"broadphase differs from plain (status equal "
+              f"{torch.equal(gk.status, gp.status)}, gjk_iters on {d} "
+              "lanes)")
+        return gk
+
+    # -- K1 without the broadphase: c2, c4, 4096 x 63, each team at c2 --------
+    c1, c2 = on_dev(*fixtures.c2_hulls())
+    m1, m2 = on_dev(*fixtures.deep_pairs(np.random.default_rng(0), 16384,
+                                         24))
+    o1, o2 = on_dev(*(fixtures.random_hulls(np.random.default_rng(23), 4096,
+                                            63) for _ in range(2)))
+    g_on = fused_gjk.gjk_hulls(c1, c2, cfg)
+    g_off = k1_off(c1, c2, "c2")
+    for team in fused_gjk.TEAMS:
+        k1_off(c1, c2, f"c2 at a team of {team}", team)
+    for what, p1, p2 in (("c4", m1, m2), ("c2's generator at 63", o1, o2)):
+        k1_off(p1, p2, what)
+    log(f"phase 23 K1 without the broadphase vs plain, rows bit for bit, "
+        f"one launch a call: c2 {tuple(c1.shape[:2])} (every team "
+        f"{fused_gjk.TEAMS}; "
+        f"{isum(g_on.status == 0)} broadphase misses with it on, "
+        f"{isum(g_off.status == gt.Status.MISS_GJK)} MISS_GJK and "
+        f"{isum(g_off.hit)} hits with it off, mean gjk_iters "
+        f"{float(g_off.iters.float().mean()):.3f} against "
+        f"{float(g_on.iters.float().mean()):.3f}), c4 {tuple(m1.shape[:2])}, "
+        f"{tuple(o1.shape[:2])} (K11's scalar scan)")
+
+    # -- the large-hull path without the broadphase at big2600 ----------------
+    h1, h2 = on_dev(*fixtures.big_c2_pairs())
+    ones = torch.ones(h1.shape[0], dtype=torch.bool, device=dev)
+    stages = cascade_plan(cfg)
+    gk = fst.gjk_hulls_big(h1, h2, ones, cfg)
+    gp = fst.gjk_hulls_big_plain(h1, h2, ones, cfg)
+    check(rows_equal(gk, gp), "phase 23: K12 over every big2600 lane "
+          "differs from plain")
+    order, n_act = hit_first_order(gp.hit)
+    args = (h1, h2, gp.simplex, gp.status, order, n_act, stages)
+    check(rows_equal(fst.epa_hulls_big(*args), fst.epa_hulls_big_plain(*args)),
+          "phase 23: K13 after K12 without the broadphase differs from plain")
+    per_call = {}
+    torch.cuda.synchronize()
+    for k in fst.LAUNCHES:
+        fst.LAUNCHES[k] = 0
+    zero_launches()
+    big = gt.fused_gjkepa_hulls(h1, h2, cfg=cfg, use_broadphase=False)
+    torch.cuda.synchronize()
+    per_call["big2600"] = {**launched(), **fst.LAUNCHES}
+    check(per_call["big2600"] == {"gjk_hulls_big": 1, "epa_hulls_big": 1},
+          f"phase 23: big2600 without the broadphase launched "
+          f"{per_call['big2600']}")
+    plain_big = hulls_result(gp, stages, lambda *a: fst.epa_hulls_big_plain(
+        h1, h2, gp.simplex, gp.status, *a))
+    check(fields_equal(big, plain_big), "phase 23: big2600 without the "
+          "broadphase differs from the plain path")
+    on_big = gt.fused_gjkepa_hulls(h1, h2, cfg=cfg)
+    log(f"phase 23 large-hull path without the broadphase at big2600 "
+        f"{tuple(h1.shape[:2])}: K12 over all lanes, K13 over {int(n_act)} "
+        f"hits, every "
+        f"field bit for bit against the plain path; "
+        f"{isum(on_big.status == 0)} broadphase misses with it on become "
+        f"{isum((on_big.status == 0) & (big.status == gt.Status.MISS_GJK))}"
+        f" MISS_GJK; launches {per_call['big2600']}")
+
+    # -- K13 past shared memory, and no host read at the default ladder -------
+    b1, b2 = on_dev(*fixtures.big_pairs_8192())
+    lib, limit = _build.load(), _build.smem_limit(dev)
+    wide = cfg.replace(epa_max_faces=4096, epa_max_verts=2050)
+    ladder = cascade_plan(wide)
+    near = fused_epa.near_store_faces(ladder, lib.epa_hulls_big_smem_bytes,
+                                      limit)
+    far = fused_epa.far_store_faces(ladder, near)
+    check(lib.epa_hulls_big_smem_bytes(far) > limit and far == 4096,
+          f"phase 23: the 4096-face tier fits in shared memory ({far})")
+    a8 = fst.streamed_broadphase(b1, b2, cfg.broadphase_tol)
+    g8 = fst.gjk_hulls_big(b1, b2, a8, cfg)
+    o8, n8 = hit_first_order(g8.hit)
+    wargs = (b1, b2, g8.simplex, g8.status, o8, n8, ladder)
+    dargs = (b1, b2, g8.simplex, g8.status, o8, n8, stages)
+    zero_launches()
+    ek, reads_wide = host_reads(lambda: fst.epa_hulls_big(*wargs))
+    _, reads_default = host_reads(lambda: fst.epa_hulls_big(*dargs))
+    t0 = time.perf_counter()
+    ep = fst.epa_hulls_big_plain(*wargs)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    check(rows_equal(ek, ep), "phase 23: K13 past shared memory differs "
+          "from plain")
+    check(reads_wide == 1 and reads_default == 0,
+          f"phase 23: K13 host reads {reads_wide} past shared memory, "
+          f"{reads_default} at the default ladder")
+    default_rows = fst.epa_hulls_big(*dargs)
+    third = isum(default_rows.status == gt.Status.HIT_EPA_DEGENERATE)
+    store = max(int(n8), 1) * lib.epa_scratch_words_per_face() * far * 4
+    t_wide = cuda_ms(lambda: fst.epa_hulls_big(*wargs), calls=3, warmup=1)
+    t_default = device_ms(lambda: fst.epa_hulls_big(*dargs))
+    log(f"phase 23 K13 past shared memory: ladder "
+        f"{[c.epa_max_faces for c, _ in ladder]} on big8192's {int(n8)} "
+        f"hits (every lane compared, plain in {t_plain:.2f} s), tiers up to "
+        f"{near} faces in shared memory ({lib.epa_hulls_big_smem_bytes(near)}"
+        f" B a block of {limit}), the {far}-face tier in a device store of "
+        f"{store} B; rows bit for bit, max epa_iters {int(ek.iters.max())}; "
+        f"host reads: {reads_wide} past shared memory, {reads_default} at "
+        f"the default ladder ({third} final-tier degenerate there); ms "
+        f"{t_wide:.4f} (wide: one call with its host read, median of 3) "
+        f"against {t_default:.4f} (default ladder, device_ms) [{card}]")
+
+    # -- fused_gjkepa_hulls(use_broadphase=False) at c2 against the CPU -------
+    zero_launches()
+    r = gt.fused_gjkepa_hulls(c1, c2, cfg=cfg, use_broadphase=False)
+    per_call["c2"] = launched(gjk_hulls=1, epa_hulls=1)
+    check(per_call["c2"] == {"gjk_hulls": 1, "epa_hulls": 1},
+          f"phase 23: c2 without the broadphase launched {per_call['c2']}")
+    n = 1024
+    w = gt.fused_gjkepa_hulls(c1[:n].cpu(), c2[:n].cpu(), cfg=cfg,
+                              use_broadphase=False)
+    for f in ("hit", "status", "gjk_iters", "epa_iters"):
+        check(torch.equal(getattr(r, f)[:n].cpu(), getattr(w, f)),
+              f"phase 23: c2 without the broadphase: {f} differs from the "
+              "CPU run")
+    err = maxerr(*((getattr(r, f)[:n].cpu(), getattr(w, f))
+                   for f in ("depth", "distance")))
+    check(err <= 1e-5, f"phase 23: c2 without the broadphase: depth/"
+          f"distance differ from the CPU run by {err}")
+    path_ms = cuda_ms(lambda: gt.fused_gjkepa_hulls(c1, c2, cfg=cfg,
+                                                    use_broadphase=False))
+    path_on_ms = cuda_ms(lambda: gt.fused_gjkepa_hulls(c1, c2, cfg=cfg))
+    log(f"phase 23 fused_gjkepa_hulls(use_broadphase=False) at c2 "
+        f"{tuple(c1.shape[:2])} with EPA: {isum(r.hit)} hits, launches "
+        f"{per_call['c2']}; the first {n} lanes against the CPU run: "
+        f"discrete fields equal, depth/distance error {err:.3g} (tol "
+        f"1e-5); {path_ms:.4f} ms = {c1.shape[0] / path_ms * 1e3:,.0f} q/s "
+        f"against {path_on_ms:.4f} ms with the broadphase [{card}]")
+
+    # -- the chunked portable distance at c2 ----------------------------------
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    whole, t_whole = wall(lambda: gt.gjk_distance_batch(c1, c2, cfg=cfg))
+    parts, t_parts = wall(lambda: gt.gjk_distance_batch(c1, c2, cfg=cfg,
+                                                        chunk_size=8192))
+    check(fields_equal(whole, parts), "phase 23: the chunked portable "
+          "distance differs from the unchunked call")
+    log(f"phase 23 gjk_distance_batch at c2 in chunks of 8192: bit for bit "
+        f"against the unchunked call; wall {t_parts:.1f} ms chunked, "
+        f"{t_whole:.1f} ms unchunked (one call each) [{card}]")
+
+    # -- times and the kernels entry of K1 without the broadphase at c2 -------
+    t_off = device_ms(lambda: fused_gjk.gjk_hulls(c1, c2, cfg,
+                                                  use_broadphase=False))
+    t_on = device_ms(lambda: fused_gjk.gjk_hulls(c1, c2, cfg))
+    t_plain_off = cuda_ms(lambda: fused_gjk.gjk_hulls_plain(
+        c1, c2, cfg, use_broadphase=False), PLAIN_CALLS, 1)
+    nv = c1.shape[1] + c2.shape[1]
+    b = c1.shape[0]
+    bound = work(b, nv * 12 + 61, gjk_ops(b, isum(g_off.iters),
+                                          VERTEX_OPS * nv))
+    log(f"phase 23 time K1 at c2: without the broadphase {t_off:.4f} ms "
+        f"(plain {t_plain_off:.4f}), with it {t_on:.4f} ms; bound without "
+        f"{bound[0]:.4f} ms ({bound[1]}) [{card}]")
+    return [{**entry("gjk_hulls_no_broadphase", "gjk_hulls.cu", 1099,
+                     per_call["c2"]["gjk_hulls"], 0.0, t_off, t_plain_off,
+                     bound)}]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2159,11 +2379,11 @@ def main() -> int:
     k2_err = compare_k2(*deep, "phase 2")
     # K2's stores by the size rule over the kernel's own byte count
     lib, limit = _build.load(), _build.smem_limit(dev)
-    near = fused_epa.k2_near_faces(stages, lib.epa_hulls_smem_bytes, limit)
+    near = fused_epa.near_store_faces(stages, lib.epa_hulls_smem_bytes, limit)
     log(f"phase 2 K2 stores: the tiers {[c.epa_max_faces for c, _ in stages]}"
         f" in shared memory up to {near} faces "
         f"({lib.epa_hulls_smem_bytes(near)} B a block of {limit}), device "
-        f"store {fused_epa.k2_far_faces(stages, near)} faces")
+        f"store {fused_epa.far_store_faces(stages, near)} faces")
     # a ladder whose first tiers overflow, its tiers in shared memory (the
     # rule), the last in device memory, all in device memory; then a face
     # capacity past shared memory, which takes the device store
@@ -2345,6 +2565,7 @@ def main() -> int:
     sanitizer_phase(gt, dev, cfg, card)
     entry_phase(gt, dev, card)
     portable_distance_phase(gt, dev, cfg, card)
+    kernels += parity_phase(gt, dev, cfg, card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

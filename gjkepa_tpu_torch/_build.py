@@ -45,7 +45,7 @@ _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ip = ctypes.POINTER(ctypes.c_int)
 # C entry points: name -> (source, argument types); each returns an int.
 ENTRY_POINTS = {
-    "gjk_hulls_launch": ("gjk_hulls.cu", [_vp] * 8 + [_ci] * 4
+    "gjk_hulls_launch": ("gjk_hulls.cu", [_vp] * 8 + [_ci] * 5
                          + [_cf] * 4 + [_ci, _vp]),
     "epa_hulls_launch": ("epa_hulls.cu", [_vp] * 10 + [_ci] * 4
                          + [_ip, _ip] + [_ci] * 2 + [_cf, _cf, _ci, _vp]),
@@ -54,8 +54,8 @@ ENTRY_POINTS = {
     "gjk_hulls_big_launch": ("gjk_hulls_big.cu", [_vp] * 9 + [_ci] * 3
                              + [_cf] * 4 + [_ci, _vp]),
     "gjk_hulls_big_staged": ("gjk_hulls_big.cu", [_ci, _ci]),
-    "epa_hulls_big_launch": ("epa_hulls_big.cu", [_vp] * 9 + [_ci] * 4
-                             + [_ip, _ip, _ci, _cf, _cf, _ci, _vp]),
+    "epa_hulls_big_launch": ("epa_hulls_big.cu", [_vp] * 10 + [_ci] * 4
+                             + [_ip, _ip, _ci, _ci, _cf, _cf, _ci, _vp]),
     "epa_hulls_big_smem_bytes": ("epa_hulls_big.cu", [_ci]),
     "epa_hulls_big_smem_limit": ("epa_hulls_big.cu", []),
     "cf_shapes_launch": ("cf_shapes.cu", [_vp] * 9 + [_ci, _cf, _vp]),

@@ -40,7 +40,7 @@ from .models.shapes import (SPHERE, ShapeBatch, make_shape_pair_support,
                             shape_support_world)
 from .ops import broadphase, contact
 from .ops.contact_rows import derive_contact_rows
-from .ops.contact_shapes import derive_contact_shapes
+from .ops.contact_shapes import derive_contact_shapes_batch
 from .ops.distance import DistanceResult, gjk_distance
 from .ops.epa import polish_support_descent, run_epa
 from .ops.fused import FusedResult, fused_gjkepa_hulls, fused_gjkepa_shapes
@@ -116,8 +116,10 @@ def _chunks(b: int, chunk_size: int | None):
     return [slice(i, min(i + step, b)) for i in range(0, max(b, 1), step)]
 
 
-def _cat(results) -> CollisionResult:
-    return CollisionResult(*(torch.cat(f) for f in zip(*results)))
+def _cat(results):
+    """The chunks' results (at least one, of one NamedTuple type) joined
+    along the batch axis."""
+    return type(results[0])(*(torch.cat(f) for f in zip(*results)))
 
 
 def _gjkepa_rows(p1, p2, mask1, mask2, cfg, use_broadphase):
@@ -228,7 +230,8 @@ def _shape_rows(a: ShapeBatch, b: ShapeBatch, cfg) -> CollisionResult:
     exact = both & (depth_exact > 0.0) & res.hit & (dist > 1e-9)
     depth = torch.where(exact, depth_exact, res.depth)
     normal = torch.where(exact[:, None], n_exact, res.normal)
-    npts, cpoint, normal, ctype = derive_contact_shapes(a, b, normal, cfg)
+    npts, cpoint, normal, ctype = derive_contact_shapes_batch(a, b, normal,
+                                                              cfg)
     return _zeroed(res.hit, npts, normal, cpoint, depth, ctype, res.distance,
                    res.status, res.gjk_iters, res.epa_iters)
 
@@ -325,35 +328,50 @@ def collide_shapes_batch_fused(a: ShapeBatch, b: ShapeBatch,
     if cfg is None:
         cfg = GJKEPAConfig.for_f32()
     r = fused_gjkepa_shapes(a, b, cfg=cfg)
-    npts, cpoint, normal, ctype = derive_contact_shapes(a, b, r.normal, cfg)
+    npts, cpoint, normal, ctype = derive_contact_shapes_batch(a, b, r.normal,
+                                                              cfg)
     return _zeroed(r.hit, npts, normal, cpoint, r.depth, ctype, r.distance,
                    r.status, r.gjk_iters, r.epa_iters)
+
+
+def _distance_rows(support, n: int, cfg, dtype, dev) -> DistanceResult:
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    return gjk_distance(support, cfg, dtype=dtype, active=active)
 
 
 def gjk_distance_batch(p1: torch.Tensor, p2: torch.Tensor,
                        mask1: torch.Tensor | None = None,
                        mask2: torch.Tensor | None = None,
-                       cfg: GJKEPAConfig = DEFAULT_CONFIG) -> DistanceResult:
+                       cfg: GJKEPAConfig = DEFAULT_CONFIG,
+                       chunk_size: int | None = None) -> DistanceResult:
     """Closest distance and witness points over (B, N, 3) hull pairs, 0 for
     intersecting pairs, in the hulls' dtype (float32 or float64); optional
-    (B, N) bool masks drop padded vertices."""
+    (B, N) bool masks drop padded vertices.  ``chunk_size`` runs the batch
+    in chunks of that many pairs, which bounds the working memory; every
+    pair is independent, so the result is the same."""
     _same_device(p1, p2=p2, mask1=mask1, mask2=mask2)
-    active = torch.ones(p1.shape[0], dtype=torch.bool, device=p1.device)
-    return gjk_distance(make_hull_support(p1, p2, mask1, mask2), cfg,
-                        dtype=p1.dtype, active=active)
+    return _cat([
+        _distance_rows(make_hull_support(
+            p1[c], p2[c], None if mask1 is None else mask1[c],
+            None if mask2 is None else mask2[c]),
+            p1[c].shape[0], cfg, p1.dtype, p1.device)
+        for c in _chunks(p1.shape[0], chunk_size)])
 
 
 def gjk_distance_shapes_batch(a: ShapeBatch, b: ShapeBatch,
-                              cfg: GJKEPAConfig = DEFAULT_CONFIG
+                              cfg: GJKEPAConfig = DEFAULT_CONFIG,
+                              chunk_size: int | None = None
                               ) -> DistanceResult:
     """Closest distance and witness points over analytic shape pairs, in
     the dtype of ``a.params``: the shapes twin of
-    :func:`gjk_distance_batch`."""
+    :func:`gjk_distance_batch`, ``chunk_size`` included."""
     _same_device(a.kind, "a.kind",
                  **{f"{s}.{f}": t for s, x in (("a", a), ("b", b))
                     for f, t in zip(x._fields, x)})
-    active = torch.ones(a.kind.shape[0], dtype=torch.bool,
-                        device=a.kind.device)
-    return gjk_distance(make_shape_pair_support(a, b), cfg,
-                        dtype=a.params.dtype, active=active)
+    return _cat([
+        _distance_rows(make_shape_pair_support(ShapeBatch(*(t[c] for t in a)),
+                                               ShapeBatch(*(t[c] for t in b))),
+                       a.kind[c].shape[0], cfg, a.params.dtype,
+                       a.kind.device)
+        for c in _chunks(len(a), chunk_size)])
 

@@ -28,6 +28,11 @@
 // splits the probes of a large hull and fills the card with few pairs.
 // Iteration counts differ between pairs, so the teams of one warp diverge;
 // each team's shuffles name only its own lanes.
+//
+// Without the broadphase (fused_gjkepa_hulls(..., use_broadphase=False),
+// the TPU kernel's use_broadphase=False branch, :1105-1108) every pair runs
+// GJK as active and no team computes a sphere.  The mode is a template
+// parameter, so the broadphase's instantiations compile as before.
 #include "gjk_core.cuh"
 #include "hull_stream.cuh"
 
@@ -36,7 +41,7 @@ namespace {
 
 constexpr int kThreads = 128;
 
-template <int T>
+template <int T, bool kBroadphase>
 __global__ void __launch_bounds__(kThreads)
 gjk_hulls_kernel(const float* __restrict__ p1, const float* __restrict__ p2, InitDirs dirs,
                  bool* __restrict__ hit_out, int* __restrict__ status_out,
@@ -47,11 +52,14 @@ gjk_hulls_kernel(const float* __restrict__ p1, const float* __restrict__ p2, Ini
   const float* v1 = p1 + (size_t)b * n1 * 3;
   const float* v2 = p2 + (size_t)b * n2 * 3;
 
-  P3 c1, c2;
-  float r1, r2;
-  team_bounding_sphere<T>(v1, n1, &c1, &r1);
-  team_bounding_sphere<T>(v2, n2, &c2, &r2);
-  const bool active = norm(sub(c1, c2)) <= r1 + r2 + prm.bp_tol;
+  bool active = true;
+  if constexpr (kBroadphase) {
+    P3 c1, c2;
+    float r1, r2;
+    team_bounding_sphere<T>(v1, n1, &c1, &r1);
+    team_bounding_sphere<T>(v2, n2, &c2, &r2);
+    active = norm(sub(c1, c2)) <= r1 + r2 + prm.bp_tol;
+  }
 
   const TeamHullSupport<T> support = {v1, n1, v2, n2};
   const GjkOut g = gjk_phase(support, active, dirs, prm);
@@ -68,37 +76,46 @@ gjk_hulls_kernel(const float* __restrict__ p1, const float* __restrict__ p2, Ini
   }
 }
 
-template <int T>
+template <int T, bool kBroadphase>
 void launch(const float* p1, const float* p2, const InitDirs& dirs, bool* hit, int* status,
             int* iters, float* sep, float* simplex, int B, int n1, int n2,
             const GjkParams& prm, cudaStream_t stream) {
   const int blocks = (int)(((long long)B * T + kThreads - 1) / kThreads);
-  gjk_hulls_kernel<T><<<blocks, kThreads, 0, stream>>>(p1, p2, dirs, hit, status, iters, sep,
-                                                       simplex, B, n1, n2, prm);
+  gjk_hulls_kernel<T, kBroadphase><<<blocks, kThreads, 0, stream>>>(
+      p1, p2, dirs, hit, status, iters, sep, simplex, B, n1, n2, prm);
+}
+
+using Launch = void (*)(const float*, const float*, const InitDirs&, bool*, int*, int*, float*,
+                        float*, int, int, int, const GjkParams&, cudaStream_t);
+
+template <bool kBroadphase>
+Launch launcher(int team) {
+  return team == 4    ? &launch<4, kBroadphase>
+         : team == 8  ? &launch<8, kBroadphase>
+         : team == 16 ? &launch<16, kBroadphase>
+         : team == 32 ? &launch<32, kBroadphase>
+                      : nullptr;
 }
 
 }  // namespace
 }  // namespace gjkepa
 
 // C interface, bound with ctypes.  `team` is the threads per pair (4, 8, 16
-// or 32; any other value returns cudaErrorInvalidValue).  Returns
-// cudaGetLastError() after the launch; the launch is asynchronous on
-// `stream`.
+// or 32; any other value returns cudaErrorInvalidValue); `use_broadphase`
+// 0 runs GJK on every pair.  Returns cudaGetLastError() after the launch;
+// the launch is asynchronous on `stream`.
 extern "C" int gjk_hulls_launch(const void* p1, const void* p2, const void* init_dirs_host,
                                 void* hit, void* status, void* iters, void* sep,
                                 void* simplex, int B, int n1, int n2, int team,
-                                float eps_coincide, float eps_zero, float eps_sq,
-                                float broadphase_tol, int gjk_max_iters, void* stream) {
+                                int use_broadphase, float eps_coincide, float eps_zero,
+                                float eps_sq, float broadphase_tol, int gjk_max_iters,
+                                void* stream) {
   using namespace gjkepa;
   if (B <= 0) return 0;
   const InitDirs dirs = make_init_dirs(static_cast<const float*>(init_dirs_host));
   const GjkParams prm =
       make_gjk_params(eps_coincide, eps_zero, eps_sq, broadphase_tol, gjk_max_iters);
-  auto* fn = team == 4    ? &launch<4>
-             : team == 8  ? &launch<8>
-             : team == 16 ? &launch<16>
-             : team == 32 ? &launch<32>
-                          : nullptr;
+  const Launch fn = use_broadphase ? launcher<true>(team) : launcher<false>(team);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   fn(static_cast<const float*>(p1), static_cast<const float*>(p2), dirs,
      static_cast<bool*>(hit), static_cast<int*>(status), static_cast<int*>(iters),

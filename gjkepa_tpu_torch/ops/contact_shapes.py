@@ -36,7 +36,7 @@ from .contact import _centroid, collision_point_v2_sets
 from .lane_geom import fsqrt
 from .manifold import shape_support_polygon
 
-__all__ = ["derive_contact_shapes", "collision_point_v2_sets"]
+__all__ = ["derive_contact_shapes_batch", "collision_point_v2_sets"]
 
 _K = 8  # candidate-set capacity (box face = 4, cylinder cap rim = 8)
 
@@ -49,8 +49,8 @@ def _support_first(kind, params, pos, rot, d):
     return torch.where((kind == BOX)[:, None], wbox, w)
 
 
-def derive_contact_shapes(a: ShapeBatch, b: ShapeBatch, normal,
-                          cfg: GJKEPAConfig):
+def derive_contact_shapes_batch(a: ShapeBatch, b: ShapeBatch, normal,
+                                cfg: GJKEPAConfig):
     """Contact derivation for (B,) analytic shape pairs from (B, 3) normals
     (A -> B): (nearest_points (B, 2, 3), contact_point (B, 3), normal
     (B, 3), colli_type (B,) int32), meaningful on hit lanes only."""

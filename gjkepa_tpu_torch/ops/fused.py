@@ -28,11 +28,16 @@ import torch
 from ..config import GJKEPAConfig
 from .fused_epa import epa_cascade
 from .fused_gjk import GJKRows, gjk_hulls
+# The JAX module's lane-vector helpers (fused.py:99-133), here from
+# lane_geom, so that each has its counterpart under the same name.
+from .lane_geom import (pcoincide, pcross, pdot, pnorm, pscale,  # noqa: F401
+                        putz, pwhere)
 
 __all__ = ["FusedResult", "fused_gjkepa_hulls", "fused_gjkepa_shapes",
            "fused_gjk_distance_hulls", "fused_gjkepa_hull_shapes",
            "cascade_plan", "round_cfg", "mask_to_padding", "hit_first_order",
-           "hulls_result"]
+           "hulls_result", "pdot", "pcross", "pscale", "pnorm", "putz",
+           "pwhere", "pcoincide"]
 
 
 class FusedResult(NamedTuple):
@@ -128,7 +133,8 @@ def hulls_result(g: GJKRows, stages, epa) -> FusedResult:
 def fused_gjkepa_hulls(p1: torch.Tensor, p2: torch.Tensor,
                        mask1: torch.Tensor | None = None,
                        mask2: torch.Tensor | None = None,
-                       cfg: GJKEPAConfig | None = None) -> FusedResult:
+                       cfg: GJKEPAConfig | None = None,
+                       use_broadphase: bool = True) -> FusedResult:
     """Batch query over hull pairs: hit/status/depth/normal, iteration
     counters and the miss-distance lower bound.
 
@@ -136,9 +142,13 @@ def fused_gjkepa_hulls(p1: torch.Tensor, p2: torch.Tensor,
       p1, p2: (B, N, 3) float32 vertex buffers on one device.
       mask1, mask2: optional (B, N) bool validity masks; equivalent to
         padding by repeating a real vertex.
+      use_broadphase: False skips the bounding-sphere test, so every pair
+        runs GJK and a miss gets GJK's verdict and separation bound.
 
     Pairs with n1 + n2 > 4096 vertices take the large-hull path (K12, K13;
     :func:`.fused_streamed.fused_hulls_streamed`), the rest K1 and K2.
+    The JAX package's ``sort_hits`` orders lanes only (the result is the
+    same either way): the port always moves the hits first.
     """
     cfg = round_cfg(cfg)
     if p1.shape[0] == 0:
@@ -146,8 +156,9 @@ def fused_gjkepa_hulls(p1: torch.Tensor, p2: torch.Tensor,
     p1 = mask_to_padding(p1, mask1).contiguous()
     p2 = mask_to_padding(p2, mask2).contiguous()
     if streams(p1.shape[1], p2.shape[1]):
-        return fused_hulls_streamed(p1, p2, cfg)
-    g = gjk_hulls(p1, p2, cfg)
+        return fused_hulls_streamed(p1, p2, cfg,
+                                    use_broadphase=use_broadphase)
+    g = gjk_hulls(p1, p2, cfg, use_broadphase)
     return hulls_result(g, cascade_plan(cfg), lambda *a: epa_cascade(
         p1, p2, g.simplex, g.status, *a))
 

@@ -11,10 +11,11 @@ other lane passes its GJK status through with zero depth, normal and
 iteration count.
 
 The kernel runs a warp per hit, each with its polytope in shared memory
-where it fits: :func:`k2_near_faces` picks the largest tier capacity whose
-store fits in a block's shared memory, and a larger tier keeps its faces
-in a store in device memory, allocated only when some tier needs it
-(:func:`k2_far_faces`).
+where it fits: :func:`near_store_faces` picks the largest tier capacity
+whose store fits in a block's shared memory, and a larger tier keeps its
+faces in a store in device memory, allocated only when some tier needs it
+(:func:`far_store_faces`).  K13 (``fused_streamed.epa_hulls_big``) takes
+the same rule.
 
 :func:`epa_cascade` takes the plain version only for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises.
@@ -34,8 +35,8 @@ from .fused_gjk import check_hulls, make_hull_support
 from .lane_geom import P3, fsqrt, pdot, pmean4, pwhere, pzero_like
 
 __all__ = ["EPARows", "epa_cascade", "epa_cascade_plain", "epa_phase",
-           "run_cascade", "check_stages", "check_tensors", "k2_near_faces",
-           "k2_far_faces", "LAUNCHES"]
+           "run_cascade", "check_stages", "check_tensors", "near_store_faces",
+           "far_store_faces", "face_stores", "LAUNCHES"]
 
 # Kernel launches made by epa_cascade (CUDA tensors only).
 LAUNCHES = 0
@@ -46,20 +47,41 @@ K_MAX = 16              # largest visible-set bound the kernel holds
 MAX_TIERS = 4
 
 
-def k2_near_faces(stages, smem_bytes, limit: int) -> int:
-    """The face capacity of K2's shared-memory store: the largest tier's
-    whose block, ``smem_bytes(faces)`` bytes (``epa_hulls_smem_bytes`` on
-    the card), fits in ``limit`` bytes of shared memory (0 when none does).
-    Every tier up to it keeps its faces in shared memory."""
+def near_store_faces(stages, smem_bytes, limit: int) -> int:
+    """The face capacity of K2's or K13's shared-memory store: the largest
+    tier's whose block, ``smem_bytes(faces)`` bytes
+    (``epa_hulls_smem_bytes`` or ``epa_hulls_big_smem_bytes`` on the card),
+    fits in ``limit`` bytes of shared memory (0 when none does).  Every
+    tier up to it keeps its faces in shared memory."""
     return max((c.epa_max_faces for c, _ in stages
                 if smem_bytes(c.epa_max_faces) <= limit), default=0)
 
 
-def k2_far_faces(stages, near_faces: int) -> int:
-    """The face capacity of K2's store in device memory: the largest tier's
-    above ``near_faces`` (0 when every tier fits in shared memory)."""
+def far_store_faces(stages, near_faces: int) -> int:
+    """The face capacity of K2's or K13's store in device memory: the
+    largest tier's above ``near_faces`` (0 when every tier fits in shared
+    memory)."""
     return max((c.epa_max_faces for c, _ in stages
                 if c.epa_max_faces > near_faces), default=0)
+
+
+def face_stores(stages, smem_bytes, n_act: torch.Tensor, dev: torch.device,
+                near_faces: int | None = None):
+    """K2's or K13's face stores: (near_faces, far_faces, the device store
+    or None).  ``near_faces`` defaults to :func:`near_store_faces` over the
+    kernel's block bytes ``smem_bytes``; the device store, one a hit,
+    [rank][field][face], is sized by the hit count, the one host read of
+    these paths, taken only where a tier needs it."""
+    if near_faces is None:
+        near_faces = near_store_faces(stages, smem_bytes,
+                                      _build.smem_limit(dev))
+    far_faces = far_store_faces(stages, near_faces)
+    if not far_faces:
+        return near_faces, 0, None
+    far = torch.empty((max(int(n_act), 1),
+                       _build.load().epa_scratch_words_per_face(), far_faces),
+                      dtype=torch.float32, device=dev)
+    return near_faces, far_faces, far
 
 
 class EPARows(NamedTuple):
@@ -349,28 +371,19 @@ def epa_cascade_plain(p1, p2, simplex, gjk_status, order, n_act,
 
 def _epa_cascade_cuda(p1, p2, simplex, gjk_status, order, n_act, stages,
                       near_faces: int | None = None) -> EPARows:
-    """K2 with a shared-memory store of ``near_faces`` faces a warp
-    (:func:`k2_near_faces` when None) and, if a tier needs one, a device
-    store a hit."""
+    """K2 with a shared-memory store of ``near_faces`` faces a warp (the
+    size rule when None) and, if a tier needs one, a device store a hit
+    (:func:`face_stores`)."""
     global LAUNCHES
     lib = _build.load()
     b, n1, n2 = p1.shape[0], p1.shape[1], p2.shape[1]
     dev = p1.device
     cfg = stages[0][0]
-    if near_faces is None:
-        near_faces = k2_near_faces(stages, lib.epa_hulls_smem_bytes,
-                                   _build.smem_limit(dev))
-    far_faces = k2_far_faces(stages, near_faces)
+    near_faces, far_faces, far = face_stores(
+        stages, lib.epa_hulls_smem_bytes, n_act, dev, near_faces)
     tier_f = (ctypes.c_int * MAX_TIERS)(*[c.epa_max_faces for c, _ in stages])
     tier_k = (ctypes.c_int * MAX_TIERS)(*[k for _, k in stages])
     out = _passthrough(gjk_status, b, dev)
-    far = None
-    if far_faces:
-        # one store a hit, [rank][field][face]: sized by the hit count, the
-        # one host read of this path, taken only where a tier needs it
-        far = torch.empty((max(int(n_act), 1),
-                           lib.epa_scratch_words_per_face(), far_faces),
-                          dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         ptr = _build.ptr

@@ -3,7 +3,8 @@
 Ports ``gjkepa_tpu/ops/fused.py``: ``_hull_broadphase`` (:876),
 ``_make_hull_support`` (:237), ``_gjk_phase`` (:262-453) and the kernel
 ``_gjk_kernel_hulls`` (:1099) with its output rows ``_write_gjk_out``
-(:903).  The CUDA kernel is ``csrc/gjk_hulls.cu``.
+(:903).  The CUDA kernel is ``csrc/gjk_hulls.cu``; both versions take
+the kernel's ``use_broadphase`` mode (:1099-1109).
 
 :func:`gjk_hulls` takes the plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.
@@ -267,11 +268,16 @@ def gjk_rows(p1: torch.Tensor, p2: torch.Tensor, active: torch.Tensor,
     return GJKRows(status == Status.HIT, status, it, sep, simplex)
 
 
-def gjk_hulls_plain(p1: torch.Tensor, p2: torch.Tensor,
-                    cfg: GJKEPAConfig) -> GJKRows:
-    """Plain PyTorch version of K1 (lane-vectorised masked tensor code)."""
+def gjk_hulls_plain(p1: torch.Tensor, p2: torch.Tensor, cfg: GJKEPAConfig,
+                    use_broadphase: bool = True) -> GJKRows:
+    """Plain PyTorch version of K1 (lane-vectorised masked tensor code);
+    without the broadphase every pair runs GJK (fused.py:1105-1108)."""
     check_hulls(p1, p2)
-    return gjk_rows(p1, p2, hull_broadphase(p1, p2, cfg.broadphase_tol), cfg)
+    if use_broadphase:
+        active = hull_broadphase(p1, p2, cfg.broadphase_tol)
+    else:
+        active = torch.ones(p1.shape[0], dtype=torch.bool, device=p1.device)
+    return gjk_rows(p1, p2, active, cfg)
 
 
 def team_size(n1: int, n2: int) -> int:
@@ -283,8 +289,8 @@ def team_size(n1: int, n2: int) -> int:
                 TEAMS[-1])
 
 
-def _gjk_hulls_cuda(p1, p2, cfg: GJKEPAConfig, team: int | None = None
-                    ) -> GJKRows:
+def _gjk_hulls_cuda(p1, p2, cfg: GJKEPAConfig, team: int | None = None,
+                    use_broadphase: bool = True) -> GJKRows:
     """K1 on the card; ``team`` (threads a pair, one of TEAMS) defaults to
     :func:`team_size`."""
     global LAUNCHES
@@ -306,7 +312,7 @@ def _gjk_hulls_cuda(p1, p2, cfg: GJKEPAConfig, team: int | None = None
         rc = lib.gjk_hulls_launch(
             ptr(p1), ptr(p2), INIT_DIRS.ctypes.data_as(ctypes.c_void_p),
             ptr(out.hit), ptr(out.status), ptr(out.iters), ptr(out.sep),
-            ptr(out.simplex), b, n1, n2, team,
+            ptr(out.simplex), b, n1, n2, team, int(use_broadphase),
             cfg.eps_coincide, cfg.eps_zero,
             cfg.eps_coincide * cfg.eps_coincide,  # rounded once, as gjk_phase
             cfg.broadphase_tol, cfg.gjk_max_iters, ctypes.c_void_p(stream))
@@ -316,15 +322,16 @@ def _gjk_hulls_cuda(p1, p2, cfg: GJKEPAConfig, team: int | None = None
     return out
 
 
-def gjk_hulls(p1: torch.Tensor, p2: torch.Tensor,
-              cfg: GJKEPAConfig) -> GJKRows:
-    """K1 over (B, N, 3) float32 hull pairs.
+def gjk_hulls(p1: torch.Tensor, p2: torch.Tensor, cfg: GJKEPAConfig,
+              use_broadphase: bool = True) -> GJKRows:
+    """K1 over (B, N, 3) float32 hull pairs; ``use_broadphase=False`` skips
+    the bounding spheres and runs GJK on every pair.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (``csrc/gjk_hulls.cu``), which raises if it cannot build or launch."""
     check_hulls(p1, p2)
     if p1.device.type == "cpu":
-        return gjk_hulls_plain(p1, p2, cfg)
+        return gjk_hulls_plain(p1, p2, cfg, use_broadphase)
     if p1.device.type != "cuda":
         raise ValueError(f"no K1 kernel for device {p1.device}")
-    return _gjk_hulls_cuda(p1, p2, cfg)
+    return _gjk_hulls_cuda(p1, p2, cfg, use_broadphase=use_broadphase)

@@ -25,7 +25,8 @@ reduction keeps the first maximum (:func:`warp_first_max_plain` is that
 reduction in torch, :func:`block_first_max_plain` its fold over a block's
 warps).  K12 copies both hulls of a pair into shared memory once and
 probes them there while they fit (its launcher's choice).  K13 keeps each
-pair's polytope in shared memory and splits its face scans across a warp
+pair's polytope in shared memory where its store fits, in device memory
+otherwise (K2's rule), and splits its face scans across a warp
 (``csrc/epa_warp.cuh``): :func:`warp_first_min_plain` and
 :func:`ballot_rank_plain` are its reductions in torch.
 """
@@ -40,7 +41,8 @@ from .. import _build
 from ..config import GJKEPAConfig
 from .fused import FusedResult, cascade_plan, hulls_result, round_cfg
 from .fused_epa import (MAX_TIERS, EPARows, _check_inputs, _passthrough,
-                        check_stages, check_tensors, epa_cascade_plain)
+                        check_stages, check_tensors, epa_cascade_plain,
+                        face_stores)
 from .fused_gjk import (INIT_DIRS, GJKRows, check_hulls, gjk_rows,
                         hull_broadphase)
 from .fused_shapes import empty_gjk_rows, gjk_args
@@ -233,45 +235,61 @@ def gjk_hulls_big(p1, p2, active, cfg: GJKEPAConfig) -> GJKRows:
 epa_hulls_big_plain = epa_cascade_plain
 
 
+def _epa_hulls_big_cuda(p1, p2, simplex, gjk_status, order, n_act, stages,
+                        near_faces: int | None = None) -> EPARows:
+    """K13 with a shared-memory store of ``near_faces`` faces (the size
+    rule when None) and, if a tier needs one, a device store a hit
+    (:func:`.fused_epa.face_stores`)."""
+    b, n1, n2, dev = p1.shape[0], p1.shape[1], p2.shape[1], p1.device
+    cfg = stages[0][0]
+    lib = _build.load()
+    near_faces, far_faces, far = face_stores(
+        stages, lib.epa_hulls_big_smem_bytes, n_act, dev, near_faces)
+    tier_f = (ctypes.c_int * MAX_TIERS)(*[c.epa_max_faces for c, _ in stages])
+    tier_k = (ctypes.c_int * MAX_TIERS)(*[k for _, k in stages])
+    out = _passthrough(gjk_status, b, dev)
+    ptr = _build.ptr
+    _build.launch("epa_hulls_big", dev, LAUNCHES, ptr(p1), ptr(p2),
+                  ptr(simplex), ptr(order), ptr(n_act), *(ptr(t) for t in out),
+                  None if far is None else ptr(far), b, n1, n2, len(stages),
+                  tier_f, tier_k, near_faces, far_faces, cfg.eps_coincide,
+                  cfg.eps_zero, cfg.epa_max_iters,
+                  explain=_build.smem_refusal(lib.epa_hulls_big_smem_bytes,
+                                              near_faces, dev))
+    return out
+
+
 def epa_hulls_big(p1, p2, simplex, gjk_status, order, n_act,
                   stages: list[tuple[GJKEPAConfig, int]]) -> EPARows:
     """K13: the EPA tier ladder over pairs ``order[:n_act]`` (``n_act`` a
     device scalar), a block of warps a pair with the polytope in shared
-    memory.  Raises, naming the bytes, for a face capacity whose store does
-    not fit in a block's shared memory."""
+    memory where its store fits and in device memory otherwise (K2's rule:
+    no face capacity is refused; only the device store reads ``n_act``)."""
     _check_inputs(p1, p2, simplex, gjk_status, order, n_act)
     check_stages(stages)
     if not _build.on_card(p1, "K13"):
         return epa_hulls_big_plain(p1, p2, simplex, gjk_status, order, n_act,
                                    stages)
-    b, n1, n2, dev = p1.shape[0], p1.shape[1], p2.shape[1], p1.device
-    cfg = stages[0][0]
-    f_max = max(c.epa_max_faces for c, _ in stages)
-    tier_f = (ctypes.c_int * MAX_TIERS)(*[c.epa_max_faces for c, _ in stages])
-    tier_k = (ctypes.c_int * MAX_TIERS)(*[k for _, k in stages])
-    out = _passthrough(gjk_status, b, dev)
-    lib = _build.load()
-    ptr = _build.ptr
-    _build.launch("epa_hulls_big", dev, LAUNCHES, ptr(p1), ptr(p2),
-                  ptr(simplex), ptr(order), ptr(n_act), *(ptr(t) for t in out),
-                  b, n1, n2, len(stages), tier_f, tier_k, f_max,
-                  cfg.eps_coincide, cfg.eps_zero, cfg.epa_max_iters,
-                  explain=_build.smem_refusal(lib.epa_hulls_big_smem_bytes,
-                                              f_max, dev))
-    return out
+    return _epa_hulls_big_cuda(p1, p2, simplex, gjk_status, order, n_act,
+                               stages)
 
 
 # -- dispatch -----------------------------------------------------------------
 
 def fused_hulls_streamed(p1: torch.Tensor, p2: torch.Tensor,
                          cfg: GJKEPAConfig | None = None,
-                         tile: int = TILE) -> FusedResult:
+                         tile: int = TILE,
+                         use_broadphase: bool = True) -> FusedResult:
     """The large-hull pipeline over (B, N, 3) float32 hull pairs (masks
-    already turned into padding): the broadphase on the tile-padded hulls,
-    K12 over every pair, a hit-first order with the count on the device,
-    then K13 over the hits.  ``epa_max_iters == 0`` runs no EPA."""
+    already turned into padding): the broadphase on the tile-padded hulls
+    (every pair active with ``use_broadphase=False``, :1468-1476), K12 over
+    every pair, a hit-first order with the count on the device, then K13
+    over the hits.  ``epa_max_iters == 0`` runs no EPA."""
     cfg = round_cfg(cfg)
-    active = streamed_broadphase(p1, p2, cfg.broadphase_tol, tile)
+    if use_broadphase:
+        active = streamed_broadphase(p1, p2, cfg.broadphase_tol, tile)
+    else:
+        active = torch.ones(p1.shape[0], dtype=torch.bool, device=p1.device)
     g = gjk_hulls_big(p1, p2, active, cfg)
     return hulls_result(g, cascade_plan(cfg), lambda *a: epa_hulls_big(
         p1, p2, g.simplex, g.status, *a))

@@ -375,7 +375,7 @@ def k2(cs, dev, card) -> None:
         row = {"case": what, "hits": int(n_act),
                "mean_epa_iters": float(want.iters[g.hit].float().mean()),
                "max_epa_iters": int(want.iters.max()),
-               "rule_near_faces": fused_epa.k2_near_faces(
+               "rule_near_faces": fused_epa.near_store_faces(
                    st, _build.load().epa_hulls_smem_bytes,
                    _build.smem_limit(dev))}
         for pairs, ns in builds.items():

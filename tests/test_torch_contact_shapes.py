@@ -26,12 +26,13 @@ import torch
 from gjkepa_tpu import GJKEPAConfig as JaxConfig
 from gjkepa_tpu import collide_shapes_batch_fused as jax_collide
 from gjkepa_tpu.models.shapes import ShapeBatch as JaxShapes
-from gjkepa_tpu.ops.contact_shapes import derive_contact_shapes_batch
+from gjkepa_tpu.ops.contact_shapes import (
+    derive_contact_shapes_batch as jax_derive_contact_shapes_batch)
 from gjkepa_tpu.ops.manifold import _first_k, _shape_support_polygon
 from gjkepa_tpu_torch import (GJKEPAConfig, ShapeBatch,
                               collide_shapes_batch_fused)
 from gjkepa_tpu_torch.models import fixtures
-from gjkepa_tpu_torch.ops.contact_shapes import derive_contact_shapes
+from gjkepa_tpu_torch.ops.contact_shapes import derive_contact_shapes_batch
 from gjkepa_tpu_torch.ops.manifold import first_k, shape_support_polygon
 from gjkepa_tpu_torch.ops.shape_geom import cf_kind_mask
 
@@ -92,12 +93,11 @@ def test_derive_contact_shapes_matches_jax(version):
     """Both sides from the same normals (c3 pairs, identity rotations)."""
     pairs = fixtures.c3_pairs(2, 256)
     normal = _normals(pairs, 256)
-    ref = derive_contact_shapes_batch(*_jax(pairs), jnp.asarray(normal),
-                                      JAX_CFG.replace(version=version))
-    got = derive_contact_shapes(*(ShapeBatch.from_numpy(*p, device="cpu")
-                                  for p in pairs),
-                                torch.from_numpy(normal),
-                                CFG.replace(version=version))
+    ref = jax_derive_contact_shapes_batch(*_jax(pairs), jnp.asarray(normal),
+                                          JAX_CFG.replace(version=version))
+    got = derive_contact_shapes_batch(
+        *(ShapeBatch.from_numpy(*p, device="cpu") for p in pairs),
+        torch.from_numpy(normal), CFG.replace(version=version))
     for name, x, y in zip(("nearest_points", "contact_point", "normal"),
                           got, ref):
         np.testing.assert_allclose(x.numpy(), np.asarray(y), rtol=0, atol=1e-6,

@@ -23,7 +23,12 @@ kernels over K11's support): rows bit for bit against their plain
 versions on every input, the tie fixture, both of K2's face stores and
 both of K12's hull sources included.  K1 at each team size and K2 and
 K13 over a tier ladder forced to overflow into their retries, at vertex
-counts with each remainder mod 4: bit for bit.  The portable path (torch
+counts with each remainder mod 4: bit for bit; K1 without the broadphase
+at each team size, K13 with its tiers in shared memory, device memory or
+both, and past shared memory: bit for bit.  ``fused_gjkepa_hulls`` without
+the broadphase on both routes against its CPU run (discrete fields exact,
+depth, normal and distance within 1e-5); the portable distance in chunks
+equal to the unchunked call, bit for bit.  The portable path (torch
 code, no kernel): ``gjkepa_batch`` and ``collide_shapes_batch`` on the
 card against their CPU runs, with the tolerances of their comparison with
 the JAX package; ``collide_supports`` without ``active`` on the card.  The
@@ -50,8 +55,9 @@ import torch
 from gjkepa_tpu_torch import _build
 from gjkepa_tpu_torch import (GJKEPAConfig, ShapeBatch,
                               fused_gjk_distance_hulls,
-                              fused_gjkepa_hull_shapes, fused_gjkepa_shapes,
-                              gjkepa_batch_fused)
+                              fused_gjkepa_hull_shapes, fused_gjkepa_hulls,
+                              fused_gjkepa_shapes, gjk_distance_batch,
+                              gjk_distance_shapes_batch, gjkepa_batch_fused)
 from gjkepa_tpu_torch.models import fixtures
 from gjkepa_tpu_torch.ops import fused_distance as fd
 from gjkepa_tpu_torch.ops import fused_epa, fused_gjk
@@ -377,6 +383,79 @@ def test_k1_teams_are_bit_equal_to_plain(dev, case, team):
     assert _rows_equal(gk, gp, gp.status != 0)
 
 
+@pytest.mark.parametrize("team", fused_gjk.TEAMS)
+@pytest.mark.parametrize("case", [("c2", 4096, 64), ("deep", 2048, 24),
+                                  ("c2", 4096, 63)],
+                         ids=lambda c: f"{c[0]} {c[1]} x {c[2]}")
+def test_k1_without_the_broadphase_is_bit_equal_to_plain(dev, case, team):
+    """K1 with the broadphase off at every team size: every pair runs GJK,
+    rows bit for bit against the plain version (the simplex on every
+    lane); at 63 vertices K11 takes its scalar scan."""
+    kind, b, n = case
+    rng = np.random.default_rng(16)
+    cfg = GJKEPAConfig.for_f32()
+    if kind == "c2":
+        p1, p2 = (torch.from_numpy(_hulls(rng, b, n, 1.5)).to(dev)
+                  for _ in range(2))
+    else:
+        p1, p2 = (t.to(dev) for t in _deep(rng, b, n))
+    n0 = fused_gjk.LAUNCHES
+    gk = fused_gjk._gjk_hulls_cuda(p1, p2, cfg, team, use_broadphase=False)
+    gp = fused_gjk.gjk_hulls_plain(p1, p2, cfg, use_broadphase=False)
+    assert fused_gjk.LAUNCHES == n0 + 1
+    assert bool((gp.status != 0).all()) and int(gp.hit.sum()) > 0
+    assert _rows_equal(gk, gp)
+    on = fused_gjk.gjk_hulls_plain(p1, p2, cfg)
+    if kind == "c2":
+        assert int((on.status == 0).sum()) > 100
+
+
+def test_fused_hulls_without_the_broadphase_on_card(dev):
+    """fused_gjkepa_hulls(use_broadphase=False) on both routes launches K1
+    and K2, or K12 and K13, once each, and equals the same call through the
+    plain versions on the CPU: discrete fields exact, depth and distance
+    within 1e-5 (PERF.md's rule for the fused paths)."""
+    rng = np.random.default_rng(17)
+    for b, n in ((2048, 32), (64, 2049)):
+        p1, p2 = (torch.from_numpy(_hulls(rng, b, n, 1.5)) for _ in range(2))
+        n0 = {"gjk_hulls": fused_gjk.LAUNCHES, "epa_hulls": fused_epa.LAUNCHES,
+              **fst.LAUNCHES}
+        r = fused_gjkepa_hulls(p1.to(dev), p2.to(dev), use_broadphase=False)
+        n1 = {"gjk_hulls": fused_gjk.LAUNCHES, "epa_hulls": fused_epa.LAUNCHES,
+              **fst.LAUNCHES}
+        route = (("gjk_hulls_big", "epa_hulls_big") if fst.streams(n, n)
+                 else ("gjk_hulls", "epa_hulls"))
+        assert {k: n1[k] - n0[k] for k in n0} == {k: int(k in route)
+                                                   for k in n0}
+        w = fused_gjkepa_hulls(p1, p2, use_broadphase=False)
+        assert int((w.status == 0).sum()) == 0 and int(w.hit.sum()) > 0
+        for f in ("hit", "status", "gjk_iters", "epa_iters"):
+            assert torch.equal(getattr(r, f).cpu(), getattr(w, f)), f
+        for f in ("depth", "distance", "normal"):
+            assert float((getattr(r, f).cpu() - getattr(w, f)).abs().max()) \
+                <= 1e-5, f
+
+
+@pytest.mark.parametrize("chunk", [1000, 4096])
+def test_chunked_distance_on_card(dev, chunk):
+    """gjk_distance_batch and gjk_distance_shapes_batch in chunks equal the
+    unchunked call on the card, bit for bit."""
+    rng = np.random.default_rng(18)
+    p1, p2 = (torch.from_numpy(_hulls(rng, 4096, 24, 1.5)).to(dev)
+              for _ in range(2))
+    want = gjk_distance_batch(p1, p2, cfg=GJKEPAConfig.for_f32())
+    got = gjk_distance_batch(p1, p2, cfg=GJKEPAConfig.for_f32(),
+                             chunk_size=chunk)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert int((~want.intersecting).sum()) > 100
+    a, b = (ShapeBatch.from_numpy(*p, device=dev)
+            for p in fixtures.mixed16_pairs(64, 3))
+    want = gjk_distance_shapes_batch(a, b, cfg=GJKEPAConfig.for_f32())
+    got = gjk_distance_shapes_batch(a, b, cfg=GJKEPAConfig.for_f32(),
+                                    chunk_size=chunk // 4)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
 @pytest.mark.parametrize("n", [2600, 2601, 2602, 2603])
 def test_k13_overflow_ladder_is_bit_equal_to_plain(dev, n):
     """K13 over a ladder whose first tiers overflow (F=8, K=2; F=16, K=4;
@@ -401,26 +480,52 @@ def test_k13_overflow_ladder_is_bit_equal_to_plain(dev, n):
     assert _rows_equal(ek, ep)
 
 
-def test_k13_refuses_a_polytope_past_shared_memory(dev):
+def test_k13_takes_a_polytope_past_shared_memory(dev):
     """A face capacity whose store does not fit in a block's shared memory
-    raises, naming the bytes; nothing falls back to global memory."""
+    (F = 4096) runs in K13's device store, bit for bit: no refusal; the
+    default ladder's tiers stay in shared memory."""
     from gjkepa_tpu_torch import _build
     lib = _build.load()
     rng = np.random.default_rng(10)
-    p1, p2 = (torch.from_numpy(_hulls(rng, 8, 2600, 0.1)).to(dev)
+    p1, p2 = (torch.from_numpy(_hulls(rng, 64, 2600, 0.3)).to(dev)
               for _ in range(2))
     cfg = GJKEPAConfig.for_f32()
-    f_big = 4096
-    need = lib.epa_hulls_big_smem_bytes(f_big)
-    assert need > lib.epa_hulls_big_smem_limit() > 48 * 1024
+    assert lib.epa_hulls_big_smem_bytes(4096) > _build.smem_limit(dev)
+    assert fused_epa.near_store_faces(cascade_plan(cfg),
+                                      lib.epa_hulls_big_smem_bytes,
+                                      _build.smem_limit(dev)) == 208
     active = fst.streamed_broadphase(p1, p2, cfg.broadphase_tol)
     g = fst.gjk_hulls_big_plain(p1, p2, active, cfg)
     order, n_act = hit_first_order(g.hit)
-    ladder = [(cfg.replace(epa_max_faces=f_big), 16)]
-    n0 = fst.LAUNCHES["epa_hulls_big"]
-    with pytest.raises(RuntimeError, match=f"{need} bytes of shared memory"):
-        fst.epa_hulls_big(p1, p2, g.simplex, g.status, order, n_act, ladder)
-    assert fst.LAUNCHES["epa_hulls_big"] == n0
+    for ladder in ([(cfg.replace(epa_max_faces=4096), 16)],
+                   cascade_plan(cfg.replace(epa_max_faces=4096))):
+        args = (p1, p2, g.simplex, g.status, order, n_act, ladder)
+        n0 = fst.LAUNCHES["epa_hulls_big"]
+        ek = fst.epa_hulls_big(*args)
+        assert fst.LAUNCHES["epa_hulls_big"] == n0 + 1
+        assert int(n_act) > 10
+        assert _rows_equal(ek, fst.epa_hulls_big_plain(*args))
+
+
+@pytest.mark.parametrize("near", [None, 16, 0],
+                         ids=["rule", "near16", "device"])
+def test_k13_store_splits_are_bit_equal_to_plain(dev, near):
+    """K13 over the overflow ladder (F=8, K=2; F=16, K=4; F=208, K=16)
+    with its tiers in shared memory (the rule), the first two there and
+    the last in device memory, or all in device memory: bit for bit."""
+    rng = np.random.default_rng(9)
+    p1, p2 = (torch.from_numpy(_hulls(rng, 512, 2600, 0.3)).to(dev)
+              for _ in range(2))
+    cfg = GJKEPAConfig.for_f32()
+    ladder = [(cfg.replace(epa_max_faces=f), k)
+              for f, k in ((8, 2), (16, 4), (208, 16))]
+    active = fst.streamed_broadphase(p1, p2, cfg.broadphase_tol)
+    g = fst.gjk_hulls_big_plain(p1, p2, active, cfg)
+    order, n_act = hit_first_order(g.hit)
+    args = (p1, p2, g.simplex, g.status, order, n_act, ladder)
+    ek = fst._epa_hulls_big_cuda(*args, near_faces=near)
+    assert int(n_act) > 100
+    assert _rows_equal(ek, fst.epa_hulls_big_plain(*args))
 
 
 def test_k13_takes_a_polytope_past_48_kb(dev):
@@ -451,8 +556,8 @@ def test_kernel_byte_counts_are_the_rules(dev):
     limit = _build.smem_limit(dev)
     assert limit == lib.epa_hulls_big_smem_limit() > 48 * 1024
     stages = cascade_plan(GJKEPAConfig.for_f32())
-    assert fused_epa.k2_near_faces(stages, lib.epa_hulls_smem_bytes,
-                                   limit) == 208
+    assert fused_epa.near_store_faces(stages, lib.epa_hulls_smem_bytes,
+                                      limit) == 208
     assert lib.epa_hulls_smem_bytes(208) <= limit < lib.epa_hulls_smem_bytes(4096)
     with torch.cuda.device(dev):
         assert lib.gjk_hulls_big_staged(2600, 2600)

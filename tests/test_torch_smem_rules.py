@@ -1,12 +1,15 @@
-"""K2's face stores by size, in plain Python, at their byte boundaries,
-and K7's and K10's store, which always fits.
+"""K2's and K13's face stores by size, in plain Python, at their byte
+boundaries, and K7's and K10's store, which always fits.
 
 K2 (csrc/epa_hulls.cu) keeps a tier's polytope in shared memory where its
-store fits, and in device memory otherwise (``fused_epa.k2_near_faces``,
-``k2_far_faces``).  The rule takes the kernel's byte count as a function
+store fits, and in device memory otherwise (``fused_epa.near_store_faces``,
+``far_store_faces``).  The rule takes the kernel's byte count as a function
 (``epa_hulls_smem_bytes`` on the card) and the limit as an argument, so it
 is held here without a card, against stand-ins of that count: a block of
-P warps, each 1,152 B of scratch and 68 B a face.  K7 (csrc/epa_shapes.cu)
+P warps, each 1,152 B of scratch and 68 B a face.  K13
+(csrc/epa_hulls_big.cu) takes the same rule over its own block: one
+polytope a block of 8 warps, the probe exchange and one warp's scratch
+beside the faces (``epa_hulls_big_smem_bytes`` on the card).  K7 (csrc/epa_shapes.cu)
 keeps its one store in shared memory and has no device store: the shape
 ladder (``fused_shapes.shape_stages``) is 48 faces at every
 ``epa_max_iters``, so a block of W warps takes W * (1,152 + 68 * 48) B
@@ -32,8 +35,8 @@ def k2_bytes(pairs):
 
 
 def _stores(stages, smem_bytes, limit):
-    near = fused_epa.k2_near_faces(stages, smem_bytes, limit)
-    far = fused_epa.k2_far_faces(stages, near)
+    near = fused_epa.near_store_faces(stages, smem_bytes, limit)
+    far = fused_epa.far_store_faces(stages, near)
     return near, far, ["shared" if c.epa_max_faces <= near else "device"
                        for c, _ in stages]
 
@@ -133,3 +136,55 @@ def test_k10_block_fits_shared_memory(warps):
     need = k7_bytes(warps)(f_max)       # the same kernel and layout as K7
     assert need == warps * 4416
     assert need <= 48 * 1024 < H100_LIMIT
+
+
+# K13's block: the probe exchange of 8 warps (144 B), one warp's scratch
+# (1,152 B) and 68 B a face of its near store.
+K13_FIXED = 144 + 1152
+
+
+def k13_bytes(faces):
+    """A stand-in of K13's block bytes (``epa_hulls_big_smem_bytes``)."""
+    return K13_FIXED + 68 * faces
+
+
+def test_k13_default_ladder_needs_no_device_store():
+    """At an H100's limit the default ladder (F = 48, 88, 208) keeps every
+    tier in K13's shared memory: no device store, so no host read of
+    n_act."""
+    stages = cascade_plan(GJKEPAConfig.for_f32())
+    near = fused_epa.near_store_faces(stages, k13_bytes, H100_LIMIT)
+    assert near == 208 and fused_epa.far_store_faces(stages, near) == 0
+    assert k13_bytes(208) == 15_440
+
+
+@pytest.mark.parametrize("faces", [48, 208, 3392])
+def test_k13_store_split_at_the_byte_boundary(faces):
+    """A last tier of ``faces`` faces is shared at its block's bytes and one
+    face's bytes more, and goes to device memory one face's bytes below
+    (the earlier tiers stay shared while they fit)."""
+    cfg = GJKEPAConfig.for_f32()
+    stages = cascade_plan(cfg.replace(epa_max_faces=faces))
+    last = stages[-1][0].epa_max_faces
+    assert last == max(208, faces)
+    need = k13_bytes(last)
+    for limit, where in ((need, "shared"), (need + 68, "shared"),
+                         (need - 68, "device"), (need - 1, "device")):
+        near, far, placed = _stores(stages, k13_bytes, limit)
+        assert placed[-1] == where
+        assert far == (last if where == "device" else 0)
+        assert near == max((c.epa_max_faces for c, _ in stages
+                            if k13_bytes(c.epa_max_faces) <= limit),
+                           default=0)
+
+
+def test_k13_tiers_past_shared_memory_take_the_device_store():
+    """The largest face capacity whose K13 block fits an H100 is 3,399; a
+    ladder whose last tier is 3,400 or 4,096 faces keeps 48 and 88 in
+    shared memory and the last tier in device memory."""
+    assert k13_bytes(3399) <= H100_LIMIT < k13_bytes(3400)
+    cfg = GJKEPAConfig.for_f32()
+    for faces in (3400, 4096):
+        stages = cascade_plan(cfg.replace(epa_max_faces=faces))
+        assert _stores(stages, k13_bytes, H100_LIMIT) == (
+            88, stages[-1][0].epa_max_faces, ["shared", "shared", "device"])
