@@ -190,7 +190,20 @@ once) and runs, in phases:
      same call on the CPU (discrete fields exact, depth and distance within
      1e-5); ``gjk_distance_batch`` at c2 in chunks of 8,192 bit for bit
      against the unchunked call, the wall of each; K1's device time with
-     and without the broadphase at c2.
+     and without the broadphase at c2;
+ 24. the bench (``gjkepa_tpu_torch.bench``): each config function once on
+     the bench's inputs with a timer that makes each query once, every
+     kernel's counter set to 0 just before and read just after (c2: one
+     K1 a boolean query, two K8 a distance query; c3: one K5, K6a and K7
+     a query; c3b: one K9 and K10; c4: one K1 and K2 a query; c6: one of
+     each a shard; c5: one of each a step; c1: none), the fused queries'
+     host reads (none), c3's hits and c4's contact points a hit against
+     the JAX bench's logged run (BENCH_r05.json); then ``python3 -m
+     gjkepa_tpu_torch.bench`` in a subprocess over every config: rc 0,
+     exactly bench.py's 20 keys in its order, every rate finite and
+     positive, c4's hit fraction >= 0.99, ``c6_n_devices`` the card
+     count, the same hits and points a hit in its detail lines; the line
+     and its seconds logged.
 
 Times are CUDA-event times.  A kernel's (``ms`` in the ``kernels`` line)
 is a device time, ``device_ms``: 10 calls queued behind a sleep kernel
@@ -215,6 +228,7 @@ it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -1812,24 +1826,33 @@ def host_reads(fn):
                     for w in seen)
 
 
+def _counter_dicts() -> tuple:
+    from gjkepa_tpu_torch.ops import fused_distance as fd
+    from gjkepa_tpu_torch.ops import fused_hull_shapes as fh
+    from gjkepa_tpu_torch.ops import fused_shapes as fs
+    from gjkepa_tpu_torch.ops import fused_streamed as fst
+    return fs.LAUNCHES, fd.LAUNCHES, fh.LAUNCHES, fst.LAUNCHES
+
+
 def zero_launches():
     """Set every kernel's launch counter to 0 (after a synchronise)."""
     from gjkepa_tpu_torch.ops import fused_epa, fused_gjk
-    from gjkepa_tpu_torch.ops import fused_shapes as fs
     torch.cuda.synchronize()
     fused_gjk.LAUNCHES = 0
     fused_epa.LAUNCHES = 0
-    for k in fs.LAUNCHES:
-        fs.LAUNCHES[k] = 0
+    for counts in _counter_dicts():
+        for k in counts:
+            counts[k] = 0
 
 
 def read_launches() -> dict:
-    """The launch counters of K1, K2 and K5-K7 (after a synchronise)."""
+    """Every kernel's launch counter (after a synchronise)."""
     from gjkepa_tpu_torch.ops import fused_epa, fused_gjk
-    from gjkepa_tpu_torch.ops import fused_shapes as fs
     torch.cuda.synchronize()
-    return {"gjk_hulls": fused_gjk.LAUNCHES, "epa_hulls": fused_epa.LAUNCHES,
-            **fs.LAUNCHES}
+    out = {"gjk_hulls": fused_gjk.LAUNCHES, "epa_hulls": fused_epa.LAUNCHES}
+    for counts in _counter_dicts():
+        out.update(counts)
+    return out
 
 
 def launched(**want) -> dict:
@@ -2143,13 +2166,9 @@ def parity_phase(gt, dev, cfg, card) -> list[dict]:
     check(rows_equal(fst.epa_hulls_big(*args), fst.epa_hulls_big_plain(*args)),
           "phase 23: K13 after K12 without the broadphase differs from plain")
     per_call = {}
-    torch.cuda.synchronize()
-    for k in fst.LAUNCHES:
-        fst.LAUNCHES[k] = 0
     zero_launches()
     big = gt.fused_gjkepa_hulls(h1, h2, cfg=cfg, use_broadphase=False)
-    torch.cuda.synchronize()
-    per_call["big2600"] = {**launched(), **fst.LAUNCHES}
+    per_call["big2600"] = launched()
     check(per_call["big2600"] == {"gjk_hulls_big": 1, "epa_hulls_big": 1},
           f"phase 23: big2600 without the broadphase launched "
           f"{per_call['big2600']}")
@@ -2269,6 +2288,137 @@ def parity_phase(gt, dev, cfg, card) -> list[dict]:
     return [{**entry("gjk_hulls_no_broadphase", "gjk_hulls.cu", 1099,
                      per_call["c2"]["gjk_hulls"], 0.0, t_off, t_plain_off,
                      bound)}]
+
+
+# -- phase 24: the bench ------------------------------------------------------
+
+# The JAX bench's logged hits and contact points a hit (BENCH_r05.json
+# ``tail``): data of the same inputs, not speeds.
+BENCH_C3_HITS = {"seed0": 3870, "seed1": 3886, "seed2": 3866}
+BENCH_C4_POINTS_PER_HIT = 3.05
+
+
+class OneCallTimer:
+    """``bench.Timer``'s interface with each query called once: its host
+    reads counted (``host_reads``), then the probe read back."""
+
+    def __init__(self):
+        self.calls = 0
+        self.reads = []
+
+    def time(self, fn, probe, **policy):
+        t0 = time.perf_counter()
+        r, reads = host_reads(fn)
+        probe(r).sum().item()
+        self.calls += 1
+        self.reads.append(reads)
+        return time.perf_counter() - t0, r
+
+    def sync_latency(self, fn, probe):
+        return self.time(fn, probe)[0]
+
+    def profile(self, name, fn, probe, calls=5):
+        pass
+
+
+def bench_phase(gt, dev, cfg, card) -> None:
+    """Phase 24: ``gjkepa_tpu_torch.bench``: (a) each config function
+    once on the bench's inputs, a query a call, its kernels' launches
+    counted and the fused queries' host reads; (b) ``python3 -m
+    gjkepa_tpu_torch.bench`` in a subprocess over every config, its
+    output line checked."""
+    from gjkepa_tpu_torch import bench
+    from gjkepa_tpu_torch.parallel import pair_mesh
+    mesh = pair_mesh()
+    deep = bench.c4_inputs(dev)
+    # config: (its call, its launches over n queries, how many of its first
+    # queries must read nothing back: None for all)
+    configs = {
+        "c1": (lambda t: bench.c1(t, *bench.c1_inputs(dev), cfg),
+               lambda n: {}, 0),
+        "c2": (lambda t: bench.c2(t, bench.c2_inputs(dev), cfg),
+               lambda n: {"gjk_hulls": n // 2, "distance_hulls": n}, None),
+        "c3": (lambda t: bench.c3(t, bench.c3_inputs(dev), cfg),
+               lambda n: {"cf_shapes": n, "gjk_sub_shapes": n,
+                          "epa_shapes": n}, None),
+        "c3b": (lambda t: bench.c3b(t, *bench.c3b_inputs(dev), cfg),
+                lambda n: {"gjk_hull_shape": n, "epa_hull_shape": n}, None),
+        "c4": (lambda t: bench.c4(t, *deep, cfg),
+               lambda n: {"gjk_hulls": n, "epa_hulls": n}, 1),
+        "c6": (lambda t: bench.c6(t, mesh, *deep, cfg),
+               lambda n: {"gjk_hulls": mesh.size * n,
+                          "epa_hulls": mesh.size * n}, None),
+        "c5": (lambda t: bench.c5(t, *bench.c5_inputs(dev)),
+               lambda n: {"gjk_hulls": 10 + 3, "epa_hulls": 10 + 3}, 0),
+    }
+    notes = []
+    diags = {}
+    for name, (run, launches, quiet) in configs.items():
+        timer = OneCallTimer()
+        zero_launches()
+        results, diags[name] = run(timer)
+        got = launched()
+        want = launches(timer.calls)
+        check(got == want, f"phase 24: bench.{name} launched {got} over "
+              f"{timer.calls} queries, expected {want}")
+        check(not any(timer.reads[:quiet]), f"phase 24: bench.{name}'s "
+              f"fused queries made host reads: {timer.reads}")
+        check(set(results) <= set(bench.KEYS), f"phase 24: bench.{name} "
+              f"keys {sorted(results)}")
+        notes.append(f"{name}: {timer.calls} queries, launches {got}, host "
+                     f"reads a query {timer.reads}")
+    check(set(diags["c3"]) == {"seed0", "seed1", "seed2", "shuffled"}
+          and diags["c3"]["shuffled"] == diags["c3"]["seed0"],
+          f"phase 24: c3 diagnostics {diags['c3']}")
+    for seed, hits in BENCH_C3_HITS.items():
+        got = diags["c3"][seed]["hits"]
+        check(abs(got - hits) <= 0.01 * hits, f"phase 24: c3 {seed} has "
+              f"{got} hits, the JAX bench's {hits}")
+    c4 = diags["c4"]
+    check(c4["hit_fraction"] >= 0.99 and abs(
+        c4["points_per_hit"] - BENCH_C4_POINTS_PER_HIT)
+        <= 0.02 * BENCH_C4_POINTS_PER_HIT, f"phase 24: c4 diagnostics {c4}")
+    log("phase 24 bench configs, a query a call: " + "; ".join(notes)
+        + f"; c3 {diags['c3']}; c4 {c4} [{card}]")
+
+    # -- (b) the entry point as a user runs it --------------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "gjkepa_tpu_torch.bench"],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    seconds = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        log(f"phase 24 bench stderr: {line}")
+    check(proc.returncode == 0, f"phase 24: the bench exited "
+          f"{proc.returncode}")
+    out = json.loads(proc.stdout.splitlines()[-1])
+    keys = list(out["configs"])
+    check(keys == list(bench.KEYS), f"phase 24: the bench's keys {keys}")
+    vals = out["configs"]
+    rates = {k: v for k, v in vals.items()
+             if k.endswith(("_qps", "_steps_per_sec", "_us"))}
+    check(all(np.isfinite(v) and v > 0 for v in rates.values()),
+          f"phase 24: a rate is not finite and positive: {rates}")
+    check(out["metric"] == bench.METRIC and out["unit"] == "queries/s"
+          and abs(out["value"] - vals["c3_analytic64k_qps"]) <= 1e-3
+          and out["vs_baseline"] == out["value"] / 50e6,
+          f"phase 24: the bench's line {out}")
+    check(0 <= vals["c3_seed_spread"] < 1 and vals["c4_hit_fraction"] >= 0.99
+          and vals["c6_n_devices"] == torch.cuda.device_count(),
+          f"phase 24: the bench's configs {vals}")
+    hits = {f"seed{s}": int(h) for s, h in re.findall(
+        r"seed (\d): .*?\((\d+) hits", proc.stderr)}
+    check(set(hits) == set(BENCH_C3_HITS) and all(
+        abs(hits[s] - h) <= 0.01 * h for s, h in BENCH_C3_HITS.items()),
+        f"phase 24: the bench's c3 hits {hits}")
+    pts = [float(x) for x in re.findall(r"\(([0-9.]+) contact points/hit\)",
+                                        proc.stderr)]
+    check(len(pts) == 1 and abs(pts[0] - BENCH_C4_POINTS_PER_HIT)
+          <= 0.02 * BENCH_C4_POINTS_PER_HIT,
+          f"phase 24: the bench's c4 points a hit {pts}")
+    log(f"phase 24 bench line ({seconds:.1f} s, python3 -m "
+        f"gjkepa_tpu_torch.bench) [{card}]: {json.dumps(out)}")
 
 
 def main() -> int:
@@ -2566,6 +2716,7 @@ def main() -> int:
     entry_phase(gt, dev, card)
     portable_distance_phase(gt, dev, cfg, card)
     kernels += parity_phase(gt, dev, cfg, card)
+    bench_phase(gt, dev, cfg, card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,9 +13,10 @@ JAX package builds from the same seed:
   * :func:`kind_batch`: one kind (``_batch_of_kind``), e.g. the dense
     all-cylinder batch of ``tests/test_shapes.py:317-319``;
   * :func:`random_hulls`: ``bench.py``'s hull generator (:112-116), and
-    with it :func:`c2_hulls` (config 2, 65,536 pairs of 64-vertex hulls,
-    :164-194) and :func:`c3b_pairs` (config 3b, 16,384 24-vertex hulls
-    against the four analytic kinds, :252-275) and :func:`c4_pairs`
+    with it :func:`c2_hulls_4k` and :func:`c2_hulls` (config 2, 4,096 and
+    65,536 pairs of 64-vertex hulls, :164-194) and :func:`c3b_pairs`
+    (config 3b, 16,384 24-vertex hulls against the four analytic kinds,
+    :252-275) and :func:`c4_pairs`
     (config 4, 16,384 deep pairs of 24-vertex hulls, :277-317, with
     :func:`deep_pairs` its recipe), drawn in the bench's order from its one
     generator so the arrays equal the bench's;
@@ -31,7 +32,8 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["c3_pairs", "c3_shuffled", "mixed16_pairs", "kind_batch", "concat",
-           "permute", "random_hulls", "c2_hulls", "c3b_pairs", "deep_pairs",
+           "permute", "random_hulls", "c2_hulls_4k", "c2_hulls", "c3b_pairs",
+           "deep_pairs",
            "c4_pairs",
            "hull_kind_pairs",
            "big_pairs_8192", "big_subhull_pairs", "big_c2_pairs",
@@ -137,16 +139,26 @@ def random_hulls(rng, b: int, n: int, spread: float = 0.8):
     return (v + rng.normal(size=(b, 1, 3)) * spread).astype(np.float32)
 
 
+def _hull4k(rng, verts: int):
+    return random_hulls(rng, 4096, verts), random_hulls(rng, 4096, verts)
+
+
 def _c2_draws(rng, n: int, verts: int):
     """Config 2's four hull draws: the 4096-pair cell, then the n-pair one
     (bench.py:171-174); returns the latter."""
-    for _ in range(2):
-        random_hulls(rng, 4096, verts)
+    _hull4k(rng, verts)
     return random_hulls(rng, n, verts), random_hulls(rng, n, verts)
 
 
+def c2_hulls_4k(seed: int = 0, verts: int = 64):
+    """bench.py's config-2 hull4k pairs, the generator's first two draws:
+    (p1, p2), 4,096 pairs each."""
+    return _hull4k(np.random.default_rng(seed), verts)
+
+
 def c2_hulls(seed: int = 0, n: int = 65536, verts: int = 64):
-    """bench.py's config-2 hull pairs (boolean and distance): (p1, p2)."""
+    """bench.py's config-2 hull64k pairs (boolean and distance), drawn
+    after the hull4k pairs: (p1, p2)."""
     return _c2_draws(np.random.default_rng(seed), n, verts)
 
 

@@ -43,7 +43,8 @@ plain versions and against the CPU's portable step, at
 fused query over 4 entries of the card bit for bit against the unsharded
 query, one K1 and one K2 a shard; the checked fused query bit for bit
 against the unchecked one, and a poisoned input named with the CPU's
-check and lanes.
+check and lanes.  The bench's c3 config (seed 0) through its timer on the
+card: its keys and c3's hits.
 """
 
 import ctypes
@@ -1015,3 +1016,17 @@ def test_checked_fused_hulls_raises_on_a_poisoned_lane_on_card(dev):
     assert msg[0] == msg[1] == (
         "sanitizer check failed: non-finite input vertex (NaN/Inf in p1 or "
         "p2) (lanes [7, 900, 1500])")
+
+
+def test_bench_c3_seed0_on_card(dev):
+    """The bench's c3 config through its timer on the card, seed 0 alone:
+    its keys, a positive rate and the JAX bench's 3,870 hits within 1%."""
+    from gjkepa_tpu_torch import bench
+    tag, a, b = next(bench.c3_inputs(dev))
+    results, diag = bench.c3(bench.Timer(dev), [(tag, a, b)],
+                             GJKEPAConfig.for_f32())
+    assert set(results) == {"c3_seed0_qps", "c3_analytic64k_qps",
+                            "c3_seed_spread"}
+    assert results["c3_seed0_qps"] == results["c3_analytic64k_qps"] > 0
+    assert results["c3_seed_spread"] == 0
+    assert abs(diag["seed0"]["hits"] - 3870) <= 0.01 * 3870
