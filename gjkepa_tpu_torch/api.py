@@ -47,6 +47,7 @@ from .ops.fused import FusedResult, fused_gjkepa_hulls, fused_gjkepa_shapes
 from .ops.geom import norm3
 from .ops.gjk import run_gjk
 from .ops.support import SupportResult, hull_support_point, make_hull_support
+from .spans import span, spanned
 from .types import CollisionResult, Status
 
 __all__ = ["gjkepa", "gjkepa_batch", "derive_contact", "collide_supports",
@@ -282,6 +283,7 @@ def collide_hull_shape_batch(p1: torch.Tensor, shapes: ShapeBatch,
 
 # -- the fused path -------------------------------------------------------------
 
+@spanned("gjkepa.gjkepa_batch_fused")
 def gjkepa_batch_fused(p1: torch.Tensor, p2: torch.Tensor,
                        mask1: torch.Tensor | None = None,
                        mask2: torch.Tensor | None = None,
@@ -311,8 +313,9 @@ def derive_contact_batch(p1: torch.Tensor, p2: torch.Tensor, r: FusedResult,
         mask1 = mask1[None, :].expand(p1.shape[0], -1)
     if mask2 is not None and mask2.ndim == 1:
         mask2 = mask2[None, :].expand(p2.shape[0], -1)
-    npts, cpoint, normal, ctype = derive_contact_rows(p1, p2, r.normal, cfg,
-                                                      mask1, mask2)
+    with span("gjkepa.contact_rows"):
+        npts, cpoint, normal, ctype = derive_contact_rows(p1, p2, r.normal,
+                                                          cfg, mask1, mask2)
     return _zeroed(r.hit, npts, normal, cpoint, r.depth, ctype, r.distance,
                    r.status, r.gjk_iters, r.epa_iters)
 

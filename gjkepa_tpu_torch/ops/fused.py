@@ -26,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import GJKEPAConfig
+from ..spans import span, spanned
 from .fused_epa import epa_cascade
 from .fused_gjk import GJKRows, gjk_hulls
 # The JAX module's lane-vector helpers (fused.py:99-133), here from
@@ -99,6 +100,7 @@ def mask_to_padding(p: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
     return torch.where(mask[:, :, None], p, fv)
 
 
+@spanned("gjkepa.order")
 def hit_first_order(act: torch.Tensor):
     """Stable permutation putting the `act` lanes first, and their count.
 
@@ -119,10 +121,12 @@ def hulls_result(g: GJKRows, stages, epa) -> FusedResult:
     stages)`` (K2 or K13) over the hit lanes, or no EPA at all in the
     boolean-only mode (no stages)."""
     if not stages:           # boolean-only: the miss path never enters EPA
-        zero = torch.zeros_like(g.sep)
-        return FusedResult(g.hit, g.status, zero,
-                           torch.zeros_like(g.simplex[:, 0]), g.iters,
-                           torch.zeros_like(g.iters), g.sep)
+        with span("gjkepa.fill"):
+            zero = torch.zeros_like(g.sep)
+            normal = torch.zeros_like(g.simplex[:, 0])
+            epa_iters = torch.zeros_like(g.iters)
+        return FusedResult(g.hit, g.status, zero, normal, g.iters, epa_iters,
+                           g.sep)
     # hull pairs have no closed-form lanes, so every hit enters EPA
     order, n_act = hit_first_order(g.hit)
     e = epa(order, n_act, stages)
@@ -130,6 +134,7 @@ def hulls_result(g: GJKRows, stages, epa) -> FusedResult:
                        g.sep)
 
 
+@spanned("gjkepa.fused_gjkepa_hulls")
 def fused_gjkepa_hulls(p1: torch.Tensor, p2: torch.Tensor,
                        mask1: torch.Tensor | None = None,
                        mask2: torch.Tensor | None = None,

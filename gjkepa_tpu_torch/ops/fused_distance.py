@@ -32,6 +32,7 @@ import torch
 
 from .. import _build
 from ..config import GJKEPAConfig
+from ..spans import spanned
 from .distance import SUBSETS, DistanceResult
 from .fused import hit_first_order, mask_to_padding
 from .fused_epa import check_tensors
@@ -322,6 +323,7 @@ def _distance_hulls_cuda(p1, p2, cfg: GJKEPAConfig, max_iters: int,
     return out
 
 
+@spanned("gjkepa.k8")
 def distance_hulls(p1, p2, cfg: GJKEPAConfig, max_iters: int, order=None,
                    n_act=None, out: DistanceRows | None = None
                    ) -> DistanceRows:
@@ -340,6 +342,7 @@ def distance_hulls(p1, p2, cfg: GJKEPAConfig, max_iters: int, order=None,
     return _distance_hulls_cuda(p1, p2, cfg, max_iters, order, n_act, out)
 
 
+@spanned("gjkepa.fused_gjk_distance_hulls")
 def fused_gjk_distance_hulls(p1: torch.Tensor, p2: torch.Tensor,
                              mask1: torch.Tensor | None = None,
                              mask2: torch.Tensor | None = None,

@@ -30,6 +30,7 @@ import torch
 
 from .. import _build
 from ..config import GJKEPAConfig
+from ..spans import spanned
 from ..types import Status
 from .fused_gjk import check_hulls, make_hull_support
 from .lane_geom import P3, fsqrt, pdot, pmean4, pwhere, pzero_like
@@ -399,6 +400,7 @@ def _epa_cascade_cuda(p1, p2, simplex, gjk_status, order, n_act, stages,
     return out
 
 
+@spanned("gjkepa.k2")
 def epa_cascade(p1, p2, simplex, gjk_status, order, n_act,
                 stages: list[tuple[GJKEPAConfig, int]]) -> EPARows:
     """K2: the EPA tier ladder over the first ``n_act`` lanes of ``order``.

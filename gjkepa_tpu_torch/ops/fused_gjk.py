@@ -20,6 +20,7 @@ import torch
 
 from .. import _build
 from ..config import GJKEPAConfig
+from ..spans import spanned
 from ..types import Status
 from .directions import DIRECTION_TABLE
 from .lane_geom import (FACE_IDX, P3, dist_pf_sign, fsqrt, is_inside_tri,
@@ -322,6 +323,7 @@ def _gjk_hulls_cuda(p1, p2, cfg: GJKEPAConfig, team: int | None = None,
     return out
 
 
+@spanned("gjkepa.k1")
 def gjk_hulls(p1: torch.Tensor, p2: torch.Tensor, cfg: GJKEPAConfig,
               use_broadphase: bool = True) -> GJKRows:
     """K1 over (B, N, 3) float32 hull pairs; ``use_broadphase=False`` skips

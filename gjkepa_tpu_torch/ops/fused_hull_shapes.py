@@ -40,6 +40,7 @@ import torch
 
 from .. import _build
 from ..config import GJKEPAConfig
+from ..spans import spanned
 from ..models.shapes import ShapeBatch
 from ..types import Status
 from .fused import FusedResult, hit_first_order, mask_to_padding, round_cfg
@@ -89,6 +90,7 @@ class Envelope(NamedTuple):
     radius: torch.Tensor    # (B,) f32 largest centroid-vertex distance
 
 
+@spanned("gjkepa.broadphase")
 def hull_shape_retirement(p1: torch.Tensor, sb: torch.Tensor,
                           cfg: GJKEPAConfig) -> Envelope:
     """The sphere-envelope retirement (fused.py:2656-2681).
@@ -193,6 +195,7 @@ def _gjk_hull_shape_cuda(p1, sb, retired, order, cfg: GJKEPAConfig,
     return out
 
 
+@spanned("gjkepa.k9")
 def gjk_hull_shape(p1, sb, retired, order, cfg: GJKEPAConfig) -> GJKRows:
     """K9: GJK over every hull-shape pair, team j taking pair
     ``order[j]``."""
@@ -243,6 +246,7 @@ def epa_hull_shape_plain(p1, sb, simplex, status, order, n_act,
     return out
 
 
+@spanned("gjkepa.k10")
 def epa_hull_shape(p1, sb, simplex, status, order, n_act, stages) -> EPARows:
     """K10 over pairs ``order[:n_act]`` (``n_act`` a device scalar), a warp
     a hit with its polytope in shared memory.  Raises, naming the bytes,
@@ -272,6 +276,7 @@ def epa_hull_shape(p1, sb, simplex, status, order, n_act, stages) -> EPARows:
 
 # -- dispatch -----------------------------------------------------------------
 
+@spanned("gjkepa.fused_gjkepa_hull_shapes")
 def fused_gjkepa_hull_shapes(p1: torch.Tensor, shapes: ShapeBatch,
                              mask1: torch.Tensor | None = None,
                              cfg: GJKEPAConfig | None = None,

@@ -42,6 +42,7 @@ import torch
 
 from .. import _build
 from ..config import GJKEPAConfig
+from ..spans import spanned
 from ..models.shapes import ShapeBatch
 from ..types import Status
 from .fused import FusedResult, hit_first_order, round_cfg, rup8
@@ -154,6 +155,7 @@ def cf_shapes_plain(sa, sb, retired, cfg: GJKEPAConfig) -> CFRows:
                   ~fin & ~retired & shape_broadphase(A, B, cfg.broadphase_tol))
 
 
+@spanned("gjkepa.k5")
 def cf_shapes(sa, sb, retired, cfg: GJKEPAConfig) -> CFRows:
     """K5 over (B, 16) packed shape rows, in the caller's order."""
     _check_rows(sa, sb, retired)
@@ -210,6 +212,7 @@ def _unwritten_gjk_rows(b, dev) -> GJKRows:
                    torch.empty((b, 4, 3), dtype=torch.float32, device=dev))
 
 
+@spanned("gjkepa.k6a")
 def gjk_sub_shapes(sa, sb, retired, order, n_act,
                    cfg: GJKEPAConfig) -> GJKRows:
     """K6a: GJK over the compacted lanes ``order[:n_act]`` (``n_act`` a
@@ -244,6 +247,7 @@ def gjk_shapes_plain(sa, sb, retired, cfg: GJKEPAConfig) -> ShapeGJKRows:
                         cf.depth, _stack(cf.normal))
 
 
+@spanned("gjkepa.k6b")
 def gjk_shapes(sa, sb, retired, cfg: GJKEPAConfig) -> ShapeGJKRows:
     """K6b: closed forms and GJK over every pair, in the caller's order."""
     _check_rows(sa, sb, retired)
@@ -358,6 +362,7 @@ def epa_shapes_plain(sa, sb, simplex, status, depth, normal, order, n_act,
     return out
 
 
+@spanned("gjkepa.k7")
 def epa_shapes(sa, sb, simplex, status, depth, normal, order, n_act,
                stages) -> EPARows:
     """K7 over pairs ``order[:n_act]`` (``n_act`` a device scalar), a warp
@@ -392,6 +397,7 @@ def _dot3(u, v):
     return u[:, 0] * v[:, 0] + u[:, 1] * v[:, 1] + u[:, 2] * v[:, 2]
 
 
+@spanned("gjkepa.broadphase")
 def retirement(a: ShapeBatch, b: ShapeBatch):
     """The capsule-envelope retirement (fused.py:2304-2350).
 
@@ -436,6 +442,7 @@ def apply_retired(res: FusedResult, retired, env_dist) -> FusedResult:
         distance=torch.where(retired, env_dist, res.distance))
 
 
+@spanned("gjkepa.fused_gjkepa_shapes")
 def fused_gjkepa_shapes(a: ShapeBatch, b: ShapeBatch,
                         cfg: GJKEPAConfig | None = None,
                         sort_hits: bool = True) -> FusedResult:

@@ -39,6 +39,7 @@ import torch
 
 from .. import _build
 from ..config import GJKEPAConfig
+from ..spans import spanned
 from .fused import FusedResult, cascade_plan, hulls_result, round_cfg
 from .fused_epa import (MAX_TIERS, EPARows, _check_inputs, _passthrough,
                         check_stages, check_tensors, epa_cascade_plain,
@@ -79,6 +80,7 @@ def pad_tile(p: torch.Tensor, tile: int = TILE) -> torch.Tensor:
     return torch.cat([p, p[:, :1].expand(-1, pad, -1)], dim=1)
 
 
+@spanned("gjkepa.broadphase")
 def streamed_broadphase(p1: torch.Tensor, p2: torch.Tensor, tol,
                         tile: int = TILE) -> torch.Tensor:
     """The (B,) bool broadphase of the large-hull path: bounding spheres of
@@ -213,6 +215,7 @@ def gjk_hulls_big_plain(p1, p2, active, cfg: GJKEPAConfig) -> GJKRows:
     return gjk_rows(p1, p2, active, cfg)
 
 
+@spanned("gjkepa.k12")
 def gjk_hulls_big(p1, p2, active, cfg: GJKEPAConfig) -> GJKRows:
     """K12 over (B, N, 3) float32 hull pairs, a block of warps a pair, with
     both hulls staged in shared memory where they fit."""
@@ -259,6 +262,7 @@ def _epa_hulls_big_cuda(p1, p2, simplex, gjk_status, order, n_act, stages,
     return out
 
 
+@spanned("gjkepa.k13")
 def epa_hulls_big(p1, p2, simplex, gjk_status, order, n_act,
                   stages: list[tuple[GJKEPAConfig, int]]) -> EPARows:
     """K13: the EPA tier ladder over pairs ``order[:n_act]`` (``n_act`` a
@@ -276,6 +280,7 @@ def epa_hulls_big(p1, p2, simplex, gjk_status, order, n_act,
 
 # -- dispatch -----------------------------------------------------------------
 
+@spanned("gjkepa.fused_hulls_streamed")
 def fused_hulls_streamed(p1: torch.Tensor, p2: torch.Tensor,
                          cfg: GJKEPAConfig | None = None,
                          tile: int = TILE,

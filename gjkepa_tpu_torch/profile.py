@@ -45,14 +45,22 @@ wall per call (``torch.cuda.synchronize`` after each call, median of 7
 after 2 warm-up calls), then, over 5 calls under ``torch.profiler``: the
 device time per call (kernel self time), the device's busy share of the
 wall, the kernel launches per call and the operations with the most device
-time.  For c2dist, c3b, big8192 and big2600 it also times each step of the
-dispatch alone (host wall, synchronised, median of 7).  Every line names
-the card and its power limit.  Without a CUDA device it exits non-zero.
+time, then a line a program span (``gjkepa.*``, ``spans.py``: each
+kernel's dispatcher, the glue between kernels, the public entry): its host
+self time a call (its length less its nested spans'), the device time and
+kernel launches a call of the operations launched under it (the innermost
+span around the runtime call of each), and how many of the program's
+kernel launches lie in their own dispatcher's span.  These span lines
+took the place of the step timers that re-ran a dispatch's steps one by
+one from outside.  The first line of a path names the card and its power
+limit.  Without a CUDA device it exits non-zero.
 """
 
 from __future__ import annotations
 
+import bisect
 import functools
+import re
 import statistics
 import subprocess
 import sys
@@ -61,21 +69,30 @@ import time
 import numpy as np
 import torch
 
-from . import (GJKEPAConfig, ShapeBatch, derive_contact_batch,
-               fused_gjk_distance_hulls, fused_gjkepa_hull_shapes,
-               fused_gjkepa_hulls, fused_gjkepa_shapes, gjk_distance_batch,
+from . import (GJKEPAConfig, ShapeBatch, fused_gjk_distance_hulls,
+               fused_gjkepa_hull_shapes, fused_gjkepa_hulls,
+               fused_gjkepa_shapes, gjk_distance_batch,
                gjk_distance_shapes_batch, gjkepa, gjkepa_batch,
                gjkepa_batch_fused, manifold_batch)
 from .models import fixtures
-from .ops import fused_distance as fd
-from .ops import fused_hull_shapes as fh
-from .ops import fused_streamed as fst
-from .ops.fused import cascade_plan, hit_first_order
-from .ops.fused_shapes import shape_stages
 
 WALL_CALLS = 7
 PROFILED_CALLS = 5
 TOP_OPS = 8
+SPAN = "gjkepa."
+# The program's kernels (``csrc/``) and the spans of the dispatchers that
+# launch them (``spans.py``); K7 and K10 are one kernel.
+KERNEL_SPANS = {"gjk_hulls_kernel": ("gjkepa.k1",),
+                "epa_hulls_kernel": ("gjkepa.k2",),
+                "cf_shapes_kernel": ("gjkepa.k5",),
+                "gjk_sub_shapes_kernel": ("gjkepa.k6a",),
+                "gjk_shapes_kernel": ("gjkepa.k6b",),
+                "epa_polish_kernel": ("gjkepa.k7", "gjkepa.k10"),
+                "distance_hulls_kernel": ("gjkepa.k8",),
+                "gjk_hull_shape_kernel": ("gjkepa.k9",),
+                "gjk_hulls_big_kernel": ("gjkepa.k12",),
+                "epa_hulls_big_kernel": ("gjkepa.k13",)}
+_KERNEL = {k: re.compile(rf"(?<!\w){k}(?!\w)") for k in KERNEL_SPANS}
 
 
 def wall_ms(fn, calls=WALL_CALLS, warmup=2) -> float:
@@ -99,6 +116,71 @@ def _self_device_us(event) -> float:
     raise AttributeError("profiler event without a device time")
 
 
+def device_ops(events) -> list:
+    """The device operations among profiler ``events``: kernels, copies and
+    memsets, without the device-side shadows of host ranges (the spans)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [e for e in events
+            if e.device_type == cuda and not e.is_user_annotation]
+
+
+def span_tree(events) -> list:
+    """The program's spans (``gjkepa.*`` host ranges) among ``events`` in
+    start order, each as [name, start_us, end_us, self_us]: its length
+    less the part the spans nested in it cover."""
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = sorted((e.time_range.start, -e.time_range.end, e.name)
+                   for e in events
+                   if e.device_type != cuda and e.name.startswith(SPAN))
+    out, open_ = [], []
+    for start, neg_end, name in spans:
+        row = [name, start, -neg_end, -neg_end - start]
+        while open_ and open_[-1][2] <= start:
+            open_.pop()
+        if open_:
+            open_[-1][3] -= row[3]
+        open_.append(row)
+        out.append(row)
+    return out
+
+
+def span_summary(events):
+    """Per program span name: [host self us, device us, kernel launches,
+    the program's kernel launches among them that are its own], each device
+    operation given to the innermost span open at the host call that
+    launched it (the runtime event of its correlation id); then the
+    program's kernel launches and the device operations whose launch the
+    trace lacks."""
+    tree = span_tree(events)
+    rows = {}
+    for name, _, _, self_us in tree:
+        rows.setdefault(name, [0.0, 0.0, 0, 0])[0] += self_us
+    cuda = torch.autograd.DeviceType.CUDA
+    launch_at = {e.id: e.time_range.start for e in events
+                 if e.device_type != cuda and e.name.startswith("cu")}
+    starts = [r[1] for r in tree]
+    program = lost = 0
+    for op in device_ops(events):
+        at = launch_at.get(op.id)
+        if at is None:
+            lost += 1
+            continue
+        span = "(no span)"
+        for i in range(bisect.bisect_right(starts, at) - 1, -1, -1):
+            if tree[i][2] >= at:
+                span = tree[i][0]
+                break
+        row = rows.setdefault(span, [0.0, 0.0, 0, 0])
+        row[1] += op.time_range.elapsed_us()
+        if not op.name.startswith(("Memcpy", "Memset")):
+            row[2] += 1
+        for kernel, pattern in _KERNEL.items():
+            if pattern.search(op.name):
+                program += 1
+                row[3] += span in KERNEL_SPANS[kernel]
+    return rows, program, lost
+
+
 def kernel_launches(fn, attempts=3) -> int:
     """Device kernels one call of ``fn`` launches, counted by
     ``torch.profiler``.  The profiled call is bracketed by two
@@ -109,7 +191,6 @@ def kernel_launches(fn, attempts=3) -> int:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
     seen = []
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CPU,
@@ -118,7 +199,7 @@ def kernel_launches(fn, attempts=3) -> int:
             fn()
             torch.cuda._sleep(1)
             torch.cuda.synchronize()
-        names = [e.name for e in prof.events() if e.device_type == cuda]
+        names = [e.name for e in device_ops(prof.events())]
         marks = sum("spin_kernel" in n for n in names)
         if marks == 2:
             return len(names) - marks
@@ -128,7 +209,8 @@ def kernel_launches(fn, attempts=3) -> int:
 
 
 def profile_path(name, fn, card) -> None:
-    """Wall, device time, busy share, launches and top ops of one path."""
+    """Wall, device time, busy share, launches, top ops and the program's
+    spans of one path."""
     from torch.profiler import ProfilerActivity, profile
     wall = wall_ms(fn)
     with profile(activities=[ProfilerActivity.CPU,
@@ -136,8 +218,8 @@ def profile_path(name, fn, card) -> None:
         for _ in range(PROFILED_CALLS):
             fn()
         torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in prof.events() if e.device_type == cuda]
+    events = prof.events()
+    kernels = device_ops(events)
     device_ms = (sum(e.time_range.elapsed_us() for e in kernels) / 1e3
                  / PROFILED_CALLS)
     if device_ms <= 0:
@@ -151,70 +233,16 @@ def profile_path(name, fn, card) -> None:
         ms = _self_device_us(e) / 1e3 / PROFILED_CALLS
         print(f"  {name} op {e.key}: {ms:.4f} ms a call, "
               f"{e.count / PROFILED_CALLS:.0f} calls", flush=True)
-
-
-def steps_c2dist(d1, d2, cfg, card) -> None:
-    """The distance dispatch step by step."""
-    out = fd.distance_hulls(d1, d2, cfg, 10)
-    order, n_unf = hit_first_order(~out.converged)
-    steps = {
-        "K8 phase 1 (cap 10)": lambda: fd.distance_hulls(d1, d2, cfg, 10),
-        "hit_first_order": lambda: hit_first_order(~out.converged),
-        "K8 phase 2 (cap 64)": lambda: fd.distance_hulls(
-            d1, d2, cfg, 64, order, n_unf, out=out),
-        "K8 one pass (cap 64)": lambda: fd.distance_hulls(d1, d2, cfg, 64),
-    }
-    print(f"c2dist: {int(n_unf)} of {d1.shape[0]} lanes unconverged after "
-          "phase 1", flush=True)
-    for what, fn in steps.items():
-        print(f"  c2dist step {what}: {wall_ms(fn):.4f} ms [{card}]",
-              flush=True)
-
-
-def steps_c3b(p1, shapes, cfg, card) -> None:
-    """The hull-vs-shape dispatch step by step."""
-    sb = shapes.packed()
-    env = fh.hull_shape_retirement(p1, sb, cfg)
-    order, _ = hit_first_order(~env.retired)
-    g = fh.gjk_hull_shape(p1, sb, env.retired, order, cfg)
-    o10, n10 = hit_first_order(g.hit)
-    stages = shape_stages(cfg)
-    steps = {
-        "packed": shapes.packed,
-        "retirement": lambda: fh.hull_shape_retirement(p1, sb, cfg),
-        "hit_first_order": lambda: hit_first_order(~env.retired),
-        "K9": lambda: fh.gjk_hull_shape(p1, sb, env.retired, order, cfg),
-        "K10": lambda: fh.epa_hull_shape(p1, sb, g.simplex, g.status, o10,
-                                         n10, stages),
-    }
-    print(f"c3b: {int(env.retired.sum())} retired, {int(g.hit.sum())} hits",
-          flush=True)
-    for what, fn in steps.items():
-        print(f"  c3b step {what}: {wall_ms(fn):.4f} ms [{card}]", flush=True)
-
-
-def steps_big(name, p1, p2, cfg, card, contact) -> None:
-    """The large-hull dispatch step by step."""
-    active = fst.streamed_broadphase(p1, p2, cfg.broadphase_tol)
-    g = fst.gjk_hulls_big(p1, p2, active, cfg)
-    order, n_act = hit_first_order(g.hit)
-    stages = cascade_plan(cfg)
-    steps = {
-        "broadphase (tile-padded)": lambda: fst.streamed_broadphase(
-            p1, p2, cfg.broadphase_tol),
-        "K12": lambda: fst.gjk_hulls_big(p1, p2, active, cfg),
-        "hit_first_order": lambda: hit_first_order(g.hit),
-        "K13": lambda: fst.epa_hulls_big(p1, p2, g.simplex, g.status, order,
-                                         n_act, stages),
-    }
-    if contact:
-        r = fused_gjkepa_hulls(p1, p2, cfg=cfg)
-        steps["contact rows"] = lambda: derive_contact_batch(p1, p2, r, cfg)
-    print(f"{name}: {int(active.sum())} active, {int(n_act)} hits",
-          flush=True)
-    for what, fn in steps.items():
-        print(f"  {name} step {what}: {wall_ms(fn):.4f} ms [{card}]",
-              flush=True)
+    rows, program, lost = span_summary(events)
+    n = PROFILED_CALLS
+    for span, (host, device, launches, _) in sorted(rows.items()):
+        print(f"  {name} span {span}: host self {host / 1e3 / n:.4f} ms a "
+              f"call, device {device / 1e3 / n:.4f} ms a call, "
+              f"{launches / n:.1f} launches a call", flush=True)
+    own = sum(r[3] for r in rows.values())
+    print(f"  {name} spans: {own} of {program} program-kernel launches in "
+          f"their dispatcher's span; {lost} device operations without a "
+          "launch in the trace", flush=True)
 
 
 def main(argv) -> int:
@@ -304,14 +332,6 @@ def main(argv) -> int:
         paths["big2600"] = lambda: fused_gjkepa_hulls(h1, h2, cfg=cfg)
     for name in order:
         profile_path(name, paths[name], card)
-    if "c2dist" in want:
-        steps_c2dist(d1, d2, cfg, card)
-    if "c3b" in want:
-        steps_c3b(h3, s3, cfg, card)
-    if "big8192" in want:
-        steps_big("big8192", g1, g2, cfg, card, contact=True)
-    if "big2600" in want:
-        steps_big("big2600", h1, h2, cfg, card, contact=False)
     return 0
 
 
