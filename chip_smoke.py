@@ -196,7 +196,9 @@ once) and runs, in phases:
      kernel's counter set to 0 just before and read just after (c2: one
      K1 a boolean query, two K8 a distance query; c3: one K5, K6a and K7
      a query; c3b: one K9 and K10; c4: one K1 and K2 a query; c6: one of
-     each a shard; c5: one of each a step; c1: none), the fused queries'
+     each a shard; c5: one of each a step; c1: none), every K1 launch
+     staged (``fused_gjk.STAGED_LAUNCHES``: one a c2 boolean, c4 and c6
+     shard query, one a c5 step), the fused queries'
      host reads (none), c3's hits and c4's contact points a hit against
      the JAX bench's logged run (BENCH_r05.json); then ``python3 -m
      gjkepa_tpu_torch.bench`` in a subprocess over every config: rc 0,
@@ -346,9 +348,10 @@ def ptxas_report(log_text: str) -> list[str]:
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"([a-z_]+_kernel)(?:IL[a-z](\d+)E(?:Lb([01])E)?)?",
+            k = re.search(r"([a-z_]+_kernel)(?:IL[a-z](\d+)E((?:Lb[01]E)*))?",
                           m.group(1))
-            args = [a for a in (k.group(2), k.group(3)) if a] if k else []
+            args = ([a for a in [k.group(2)] + re.findall(
+                r"Lb([01])E", k.group(3) or "") if a] if k else [])
             name = (k.group(1) + (f"<{', '.join(args)}>" if args else "")
                     if k else m.group(1))
         elif "spill stores" in line:
@@ -2328,6 +2331,7 @@ def bench_phase(gt, dev, cfg, card) -> None:
     gjkepa_tpu_torch.bench`` in a subprocess over every config, its
     output line checked."""
     from gjkepa_tpu_torch import bench
+    from gjkepa_tpu_torch.ops import fused_gjk
     from gjkepa_tpu_torch.parallel import pair_mesh
     mesh = pair_mesh()
     deep = bench.c4_inputs(dev)
@@ -2356,17 +2360,23 @@ def bench_phase(gt, dev, cfg, card) -> None:
     for name, (run, launches, quiet) in configs.items():
         timer = OneCallTimer()
         zero_launches()
+        fused_gjk.STAGED_LAUNCHES = 0
         results, diags[name] = run(timer)
         got = launched()
         want = launches(timer.calls)
         check(got == want, f"phase 24: bench.{name} launched {got} over "
               f"{timer.calls} queries, expected {want}")
+        # every hull of the bench fits K1's staged tile
+        check(fused_gjk.STAGED_LAUNCHES == want.get("gjk_hulls", 0),
+              f"phase 24: bench.{name} staged {fused_gjk.STAGED_LAUNCHES} "
+              f"of its {want.get('gjk_hulls', 0)} K1 launches")
         check(not any(timer.reads[:quiet]), f"phase 24: bench.{name}'s "
               f"fused queries made host reads: {timer.reads}")
         check(set(results) <= set(bench.KEYS), f"phase 24: bench.{name} "
               f"keys {sorted(results)}")
-        notes.append(f"{name}: {timer.calls} queries, launches {got}, host "
-                     f"reads a query {timer.reads}")
+        notes.append(f"{name}: {timer.calls} queries, launches {got} "
+                     f"(K1 staged {fused_gjk.STAGED_LAUNCHES}), host reads a "
+                     f"query {timer.reads}")
     check(set(diags["c3"]) == {"seed0", "seed1", "seed2", "shuffled"}
           and diags["c3"]["shuffled"] == diags["c3"]["seed0"],
           f"phase 24: c3 diagnostics {diags['c3']}")

@@ -45,8 +45,9 @@ _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ip = ctypes.POINTER(ctypes.c_int)
 # C entry points: name -> (source, argument types); each returns an int.
 ENTRY_POINTS = {
-    "gjk_hulls_launch": ("gjk_hulls.cu", [_vp] * 8 + [_ci] * 5
+    "gjk_hulls_launch": ("gjk_hulls.cu", [_vp] * 8 + [_ci] * 6
                          + [_cf] * 4 + [_ci, _vp]),
+    "gjk_hulls_staged_bytes": ("gjk_hulls.cu", [_ci] * 2),
     "epa_hulls_launch": ("epa_hulls.cu", [_vp] * 10 + [_ci] * 4
                          + [_ip, _ip] + [_ci] * 2 + [_cf, _cf, _ci, _vp]),
     "epa_hulls_smem_bytes": ("epa_hulls.cu", [_ci]),

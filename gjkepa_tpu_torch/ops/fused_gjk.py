@@ -4,7 +4,9 @@ Ports ``gjkepa_tpu/ops/fused.py``: ``_hull_broadphase`` (:876),
 ``_make_hull_support`` (:237), ``_gjk_phase`` (:262-453) and the kernel
 ``_gjk_kernel_hulls`` (:1099) with its output rows ``_write_gjk_out``
 (:903).  The CUDA kernel is ``csrc/gjk_hulls.cu``; both versions take
-the kernel's ``use_broadphase`` mode (:1099-1109).
+the kernel's ``use_broadphase`` mode (:1099-1109).  The kernel stages a
+block's hulls in shared memory where its tile fits :data:`STAGED_BUDGET`
+(:func:`stages`), and reads them from device memory otherwise.
 
 :func:`gjk_hulls` takes the plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.
@@ -13,6 +15,7 @@ CUDA tensors it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -28,10 +31,13 @@ from .lane_geom import (FACE_IDX, P3, dist_pf_sign, fsqrt, is_inside_tri,
                         point_in_simplex, putz, pwhere, pzero_like, vec_pl)
 
 __all__ = ["GJKRows", "gjk_hulls", "gjk_hulls_plain", "team_size", "TEAMS",
-           "TEAM_MAX_VERTICES", "LAUNCHES"]
+           "TEAM_MAX_VERTICES", "LAUNCHES", "STAGED_LAUNCHES",
+           "STAGED_BUDGET", "STAGED_TEAMS", "stages", "staged_team"]
 
-# Kernel launches made by gjk_hulls (CUDA tensors only).
+# Kernel launches made by gjk_hulls (CUDA tensors only), and those of them
+# that took the staged kernel (the hulls in shared memory).
 LAUNCHES = 0
+STAGED_LAUNCHES = 0
 
 _RUNNING = -1
 
@@ -47,6 +53,18 @@ INIT_DIRS = np.ascontiguousarray(DIRECTION_TABLE[:N_INIT_UNROLL],
 # 1024 on (scripts/torch_kernel_sweep.py teams; PERF.md).
 TEAMS = (4, 8, 16, 32)
 TEAM_MAX_VERTICES = (64, 256, 512)
+
+# K1's staged kernel (a block's 32 pairs, their hulls in shared memory):
+# the most shared memory its block may take, in bytes (half an H100 SM's
+# 228 KB less the 1 KB the card reserves a block: two blocks an SM), and
+# its teams (csrc/gjk_hulls.cu instantiates each): 2 threads a pair up to
+# 64 vertices a hull in batches of STAGED_PAIR_TEAM_BATCH pairs or more
+# (512 blocks, about four an SM), else 8.  On an H100 a team of 2 was the
+# fastest staged team at 16,384 and 65,536 pairs of 24 and 64 vertices,
+# and the slowest at 4,096 pairs, a block an SM (PERF.md).
+STAGED_BUDGET = 113 * 1024
+STAGED_TEAMS = (2, 8)
+STAGED_PAIR_TEAM_BATCH = 16_384
 
 
 class GJKRows(NamedTuple):
@@ -290,17 +308,46 @@ def team_size(n1: int, n2: int) -> int:
                 TEAMS[-1])
 
 
+def stages(n1: int, n2: int, tile_bytes, budget: int = STAGED_BUDGET) -> bool:
+    """Whether K1 stages the hulls of a block's pairs in shared memory: while
+    its tile, ``tile_bytes(n1, n2)`` bytes (the kernel's
+    ``gjk_hulls_staged_bytes`` on the card), fits ``budget``."""
+    return tile_bytes(n1, n2) <= budget
+
+
+def staged_team(b: int, n1: int, n2: int) -> int:
+    """Threads a pair of K1's staged kernel over ``b`` pairs: the first of
+    STAGED_TEAMS up to 64 vertices a hull in a batch of
+    STAGED_PAIR_TEAM_BATCH pairs or more, else the second."""
+    small = max(n1, n2) <= 64 and b >= STAGED_PAIR_TEAM_BATCH
+    return STAGED_TEAMS[0] if small else STAGED_TEAMS[1]
+
+
+@functools.cache
+def _staged(n1: int, n2: int) -> bool:
+    """:func:`stages` over the kernel's own byte count, once a shape."""
+    return stages(n1, n2, _build.load().gjk_hulls_staged_bytes)
+
+
 def _gjk_hulls_cuda(p1, p2, cfg: GJKEPAConfig, team: int | None = None,
-                    use_broadphase: bool = True) -> GJKRows:
-    """K1 on the card; ``team`` (threads a pair, one of TEAMS) defaults to
-    :func:`team_size`."""
-    global LAUNCHES
+                    use_broadphase: bool = True,
+                    staged: bool | None = None) -> GJKRows:
+    """K1 on the card.  By default the staged kernel (the hulls in shared
+    memory) at :func:`staged_team` where :func:`stages` holds, else the
+    streamed kernel at :func:`team_size`; a ``team`` given alone (one of
+    TEAMS) runs the streamed kernel, ``staged=True`` the staged one (at a
+    team of STAGED_TEAMS)."""
+    global LAUNCHES, STAGED_LAUNCHES
     lib = _build.load()
     b, n1, n2 = p1.shape[0], p1.shape[1], p2.shape[1]
+    if staged is None:
+        staged = team is None and _staged(n1, n2)
     if team is None:
-        team = team_size(n1, n2)
-    if team not in TEAMS:
-        raise ValueError(f"K1 team of {team} threads, expected one of {TEAMS}")
+        team = staged_team(b, n1, n2) if staged else team_size(n1, n2)
+    teams = STAGED_TEAMS if staged else TEAMS
+    if team not in teams:
+        raise ValueError(f"K1 team of {team} threads, expected one of "
+                         f"{teams}")
     dev = p1.device
     out = GJKRows(torch.empty(b, dtype=torch.bool, device=dev),
                   torch.empty(b, dtype=torch.int32, device=dev),
@@ -314,12 +361,13 @@ def _gjk_hulls_cuda(p1, p2, cfg: GJKEPAConfig, team: int | None = None,
             ptr(p1), ptr(p2), INIT_DIRS.ctypes.data_as(ctypes.c_void_p),
             ptr(out.hit), ptr(out.status), ptr(out.iters), ptr(out.sep),
             ptr(out.simplex), b, n1, n2, team, int(use_broadphase),
-            cfg.eps_coincide, cfg.eps_zero,
+            int(staged), cfg.eps_coincide, cfg.eps_zero,
             cfg.eps_coincide * cfg.eps_coincide,  # rounded once, as gjk_phase
             cfg.broadphase_tol, cfg.gjk_max_iters, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"gjk_hulls kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
+    STAGED_LAUNCHES += bool(staged)
     return out
 
 

@@ -45,7 +45,9 @@ wall per call (``torch.cuda.synchronize`` after each call, median of 7
 after 2 warm-up calls), then, over 5 calls under ``torch.profiler``: the
 device time per call (kernel self time), the device's busy share of the
 wall, the kernel launches per call and the operations with the most device
-time, then a line a program span (``gjkepa.*``, ``spans.py``: each
+time, K1's launches a call and how many of them took its staged kernel
+(``fused_gjk.STAGED_LAUNCHES``: the hulls in shared memory), then a line
+a program span (``gjkepa.*``, ``spans.py``: each
 kernel's dispatcher, the glue between kernels, the public entry): its host
 self time a call (its length less its nested spans'), the device time and
 kernel launches a call of the operations launched under it (the innermost
@@ -212,12 +214,16 @@ def profile_path(name, fn, card) -> None:
     """Wall, device time, busy share, launches, top ops and the program's
     spans of one path."""
     from torch.profiler import ProfilerActivity, profile
+
+    from .ops import fused_gjk
     wall = wall_ms(fn)
+    k1 = (fused_gjk.LAUNCHES, fused_gjk.STAGED_LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(PROFILED_CALLS):
             fn()
         torch.cuda.synchronize()
+    k1 = (fused_gjk.LAUNCHES - k1[0], fused_gjk.STAGED_LAUNCHES - k1[1])
     events = prof.events()
     kernels = device_ops(events)
     device_ms = (sum(e.time_range.elapsed_us() for e in kernels) / 1e3
@@ -233,6 +239,8 @@ def profile_path(name, fn, card) -> None:
         ms = _self_device_us(e) / 1e3 / PROFILED_CALLS
         print(f"  {name} op {e.key}: {ms:.4f} ms a call, "
               f"{e.count / PROFILED_CALLS:.0f} calls", flush=True)
+    print(f"  {name} K1: {k1[0] / PROFILED_CALLS:.1f} launches a call, "
+          f"{k1[1] / PROFILED_CALLS:.1f} of them staged", flush=True)
     rows, program, lost = span_summary(events)
     n = PROFILED_CALLS
     for span, (host, device, launches, _) in sorted(rows.items()):

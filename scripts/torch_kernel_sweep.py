@@ -4,6 +4,7 @@ PyTorch/CUDA port (``gjkepa_tpu_torch``), on one card.
 Usage, from the root of a checkout:
 
     python3 scripts/torch_kernel_sweep.py teams
+    python3 scripts/torch_kernel_sweep.py k1
     python3 scripts/torch_kernel_sweep.py warps
     python3 scripts/torch_kernel_sweep.py k2
     python3 scripts/torch_kernel_sweep.py k12
@@ -20,6 +21,17 @@ Usage, from the root of a checkout:
 picked by ``fused_gjk.team_size`` from the hull size.  This runs every T
 of ``fused_gjk.TEAMS`` on a grid of (pairs, vertices), each bit for bit
 against the plain version, and prints each one's device time.
+
+``k1``: K1 stages a block's hulls in shared memory where its tile fits
+``fused_gjk.STAGED_BUDGET``: a block of K1_STAGED_PAIRS = 32 pairs, a team
+of T threads each.  This rebuilds that source with ``-DK1_STAGED_PAIRS=P``
+for P = 16, 32 and 64 and runs the staged kernel of each build at every T
+of ``fused_gjk.STAGED_TEAMS`` where its tile fits the device, and the
+streamed kernel at every T of ``fused_gjk.TEAMS``, on c2 (65,536 x 64) and
+c4 (16,384 x 24) with and without the broadphase, 65,536 x 24, 16,384 x
+128 and x 256, 4,096 x 63, 4,096 x 24 (a c6 shard) and 8,192 x 64 pairs,
+each bit for bit against the plain version, and prints each one's device
+time and tile.
 
 ``warps``: K13 (``csrc/epa_hulls_big.cu``) runs a block of 8 warps a pair.
 This rebuilds that source with ``-DK13_WARPS=W`` for W = 1, 2, 4 and 8
@@ -221,6 +233,71 @@ def teams(cs, dev, card) -> None:
         del p1, p2, want
         torch.cuda.empty_cache()
     print(json.dumps({"k1_teams": table, "card": card}), flush=True)
+
+
+# -- k1 ------------------------------------------------------------------------
+
+K1_STAGED_PAIRS = (16, 32, 64)
+# (pairs, vertices, kind, broadphase)
+K1_GRID = ((65536, 64, "boolean", True), (65536, 64, "boolean", False),
+           (16384, 24, "deep", True), (16384, 24, "deep", False),
+           (65536, 24, "boolean", True), (16384, 128, "boolean", True),
+           (16384, 256, "boolean", True), (4096, 63, "boolean", True),
+           (4096, 24, "deep", True), (8192, 64, "boolean", True))
+
+
+def k1(cs, dev, card) -> None:
+    from gjkepa_tpu_torch import GJKEPAConfig, _build
+    from gjkepa_tpu_torch.ops import fused_gjk
+    cfg = GJKEPAConfig.for_f32()
+    bool_cfg = cfg.replace(epa_max_iters=0)
+    builds = variants(cs, "gjk_hulls.cu", {
+        p: {"K1_STAGED_PAIRS": p} for p in K1_STAGED_PAIRS})
+    limit = _build.smem_limit(dev)
+    rng = np.random.default_rng(22)
+    table = []
+    for b, n, kind, bp in K1_GRID:
+        if kind == "deep":
+            pair, c = cs.deep_pairs(rng, b, n), cfg
+        else:
+            pair, c = (cs.random_hulls(rng, b, n),
+                       cs.random_hulls(rng, b, n)), bool_cfg
+        p1, p2 = on_card(dev, *pair)
+        want = fused_gjk.gjk_hulls_plain(p1, p2, c, bp)
+        ran = want.status != 0
+        row = {"pairs": b, "vertices": n, "kind": kind, "broadphase": bp,
+               "gjk_lanes": int(ran.sum()), "rule": fused_gjk.team_size(n, n),
+               "staged_by_rule": fused_gjk._staged(n, n),
+               "staged_rule": fused_gjk.staged_team(b, n, n)}
+        runs = [("streamed", t, None, False) for t in fused_gjk.TEAMS]
+        runs += [(f"P{p} staged", t, ns, True) for p, ns in builds.items()
+                 for t in fused_gjk.STAGED_TEAMS
+                 if ns.gjk_hulls_staged_bytes(n, n) <= limit]
+        for label, t, ns, staged in runs:
+            def fn(t=t, staged=staged):
+                return fused_gjk._gjk_hulls_cuda(p1, p2, c, t, bp, staged)
+            with mock.patch.object(_build, "load",
+                                   (lambda ns=ns: ns) if ns else _build.load):
+                got = fn()
+                torch.cuda.synchronize()
+                if not rows_equal(got, want, ran):
+                    raise AssertionError(f"K1 {label} T={t} differs from "
+                                         f"plain at {b} x {n} {kind}")
+                row[f"{label} T{t}"] = cs.device_ms(fn)
+                if ns:
+                    row[f"{label} tile"] = ns.gjk_hulls_staged_bytes(n, n)
+        table.append(row)
+        print(f"K1 {b} x {n} {kind}, broadphase {bp}: {row['gjk_lanes']} GJK "
+              f"lanes; rule T={row['rule']}, staged by rule "
+              f"{row['staged_by_rule']} (T={row['staged_rule']}); every run "
+              "bit-equal to plain; "
+              + ", ".join(f"{k} {v:.4f}" for k, v in row.items()
+                          if k.startswith(("streamed", "P"))
+                          and not k.endswith("tile"))
+              + f" ms [{card}]", flush=True)
+        del p1, p2, want
+        torch.cuda.empty_cache()
+    print(json.dumps({"k1_staged": table, "card": card}), flush=True)
 
 
 # -- rebuilt variants ------------------------------------------------------------
@@ -1112,8 +1189,9 @@ def times(cs, dev, card, tag) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("what", choices=("teams", "warps", "k2", "k12", "k8", "k7",
-                                     "k9", "k10", "k5", "k6a", "k6b", "times"))
+    ap.add_argument("what", choices=("teams", "k1", "warps", "k2", "k12", "k8",
+                                     "k7", "k9", "k10", "k5", "k6a", "k6b",
+                                     "times"))
     ap.add_argument("--root", type=Path, default=None,
                     help="another checkout: the package `times` imports, "
                     "the parent whose K6b `k6b` builds")
@@ -1126,7 +1204,7 @@ def main() -> int:
     sys.path.insert(0, str(root.resolve()))
     cs = _chip_smoke()
     dev, card = torch.device("cuda", 0), card_name()
-    {"teams": teams, "warps": warps, "k2": k2, "k12": k12, "k8": k8,
+    {"teams": teams, "k1": k1, "warps": warps, "k2": k2, "k12": k12, "k8": k8,
      "k7": k7, "k9": k9, "k10": k10, "k5": k5, "k6a": k6a,
      "k6b": lambda *x: k6b(*x, a.root),
      "times": lambda *x: times(*x, a.tag)}[a.what](cs, dev, card)

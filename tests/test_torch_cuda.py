@@ -25,7 +25,12 @@ both of K12's hull sources included.  K1 at each team size and K2 and
 K13 over a tier ladder forced to overflow into their retries, at vertex
 counts with each remainder mod 4: bit for bit; K1 without the broadphase
 at each team size, K13 with its tiers in shared memory, device memory or
-both, and past shared memory: bit for bit.  ``fused_gjkepa_hulls`` without
+both, and past shared memory: bit for bit.  K1's staged kernel (a block's
+hulls in shared memory) at 8-256 vertices, n = 3 mod 4 and one side of
+each, with and without the broadphase, at each of its teams, on a ragged
+last block: bit for bit against the plain version and the streamed
+kernel; ``gjk_hulls`` stages at 24 and 64 vertices and streams at 256
+and 1,024, as ``STAGED_LAUNCHES`` counts.  ``fused_gjkepa_hulls`` without
 the broadphase on both routes against its CPU run (discrete fields exact,
 depth, normal and distance within 1e-5); the portable distance in chunks
 equal to the unchunked call, bit for bit.  The portable path (torch
@@ -435,6 +440,81 @@ def test_fused_hulls_without_the_broadphase_on_card(dev):
         for f in ("depth", "distance", "normal"):
             assert float((getattr(r, f).cpu() - getattr(w, f)).abs().max()) \
                 <= 1e-5, f
+
+
+def _k1_tile(n1, n2, pairs=32):
+    """K1's staged tile in bytes: the mbarrier (16 B), then the block's 32
+    pairs' two hulls, each at an odd number of 16-B words."""
+    def words(n):
+        return 4 * (((3 * n + 3) // 4) | 1)
+    return 4 * (4 + pairs * (words(n1) + words(n2)))
+
+
+# (n1, n2): a multiple of 4 (bulk copies), n = 3 mod 4 (the block's loads,
+# K11's scalar scan), one of each (both copies in one block), and 256
+# vertices, past STAGED_BUDGET (197,648 B: staged only when asked)
+K1_STAGED_SHAPES = ((8, 8), (23, 23), (24, 24), (63, 63), (64, 64),
+                    (256, 256), (64, 23))
+
+
+@pytest.mark.parametrize("use_broadphase", [True, False],
+                         ids=["sphere", "no sphere"])
+@pytest.mark.parametrize("shape", K1_STAGED_SHAPES,
+                         ids=lambda s: f"{s[0]} x {s[1]}")
+def test_k1_staged_is_bit_equal_to_plain_and_streamed(dev, shape,
+                                                      use_broadphase):
+    """K1's staged kernel (the hulls of a block's 32 pairs in shared
+    memory) at each of STAGED_TEAMS, on 2,045 pairs (the last block is
+    ragged): rows bit for bit against the plain version (the simplex on
+    the lanes that ran GJK) and against the streamed kernel at the rule's
+    team (every row); each launch counted once, the staged ones in
+    STAGED_LAUNCHES too."""
+    n1, n2 = shape
+    rng = np.random.default_rng(22)
+    p1 = torch.from_numpy(_hulls(rng, 2045, n1)).to(dev)
+    p2 = torch.from_numpy(_hulls(rng, 2045, n2)).to(dev)
+    cfg = GJKEPAConfig.for_f32().replace(epa_max_iters=0)
+    assert _build.load().gjk_hulls_staged_bytes(n1, n2) == _k1_tile(n1, n2)
+    assert _k1_tile(n1, n2) <= _build.smem_limit(dev)
+    gp = fused_gjk.gjk_hulls_plain(p1, p2, cfg, use_broadphase)
+    ran = gp.status != 0
+    assert int(gp.hit.sum()) > 0
+    if use_broadphase:
+        assert int((~ran).sum()) > 0
+    n0 = (fused_gjk.LAUNCHES, fused_gjk.STAGED_LAUNCHES)
+    gm = fused_gjk._gjk_hulls_cuda(p1, p2, cfg, fused_gjk.team_size(n1, n2),
+                                   use_broadphase)
+    assert _rows_equal(gm, gp, ran)
+    for team in fused_gjk.STAGED_TEAMS:
+        gs = fused_gjk._gjk_hulls_cuda(p1, p2, cfg, team, use_broadphase,
+                                       staged=True)
+        assert _rows_equal(gs, gp, ran), team
+        assert _rows_equal(gs, gm), team
+    k = len(fused_gjk.STAGED_TEAMS)
+    assert (fused_gjk.LAUNCHES, fused_gjk.STAGED_LAUNCHES) == (
+        n0[0] + 1 + k, n0[1] + k)
+
+
+def test_k1_takes_the_staged_kernel_by_shape(dev):
+    """gjk_hulls stages the hulls at 24 and 64 vertices (a block's tile is
+    50,192 B at 64, inside STAGED_BUDGET) and streams them at 256
+    (197,648 B) and 1,024: STAGED_LAUNCHES grows with LAUNCHES only at the
+    first two, and every call equals the plain version."""
+    rng = np.random.default_rng(23)
+    cfg = GJKEPAConfig.for_f32().replace(epa_max_iters=0)
+    lib = _build.load()
+    assert _k1_tile(64, 64) == 50_192 and _k1_tile(256, 256) == 197_648
+    for n, staged in ((24, True), (64, True), (256, False), (1024, False)):
+        assert (lib.gjk_hulls_staged_bytes(n, n)
+                <= fused_gjk.STAGED_BUDGET) == staged
+        p1, p2 = (torch.from_numpy(_hulls(rng, 1024, n)).to(dev)
+                  for _ in range(2))
+        n0 = (fused_gjk.LAUNCHES, fused_gjk.STAGED_LAUNCHES)
+        gk = fused_gjk.gjk_hulls(p1, p2, cfg)
+        assert (fused_gjk.LAUNCHES, fused_gjk.STAGED_LAUNCHES) == (
+            n0[0] + 1, n0[1] + staged)
+        gp = fused_gjk.gjk_hulls_plain(p1, p2, cfg)
+        assert _rows_equal(gk, gp, gp.status != 0)
 
 
 @pytest.mark.parametrize("chunk", [1000, 4096])

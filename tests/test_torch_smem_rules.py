@@ -17,13 +17,19 @@ ladder (``fused_shapes.shape_stages``) is 48 faces at every
 runs the same kernel (csrc/epa_polish_warp.cuh) over the mixed path's
 ladder, the same ``shape_stages``, with its own block size
 (``epa_hull_shape_smem_bytes``).  K12's staged-or-scanned choice
-is its C launcher's (``gjk_hulls_big_staged``), held on the card.
+is its C launcher's (``gjk_hulls_big_staged``), held on the card.  K1
+(csrc/gjk_hulls.cu) stages a block's hulls in shared memory while its
+tile fits ``fused_gjk.STAGED_BUDGET`` (``fused_gjk.stages`` over
+``gjk_hulls_staged_bytes`` on the card): held here against a stand-in of
+that count, with the teams of K1, K8 and K9, which the staging leaves as
+they were.
 """
 
 import pytest
 
 from gjkepa_tpu_torch import GJKEPAConfig
-from gjkepa_tpu_torch.ops import fused_epa, fused_shapes
+from gjkepa_tpu_torch.ops import (fused_distance, fused_epa, fused_gjk,
+                                  fused_hull_shapes, fused_shapes)
 from gjkepa_tpu_torch.ops.fused import cascade_plan
 
 H100_LIMIT = 232_448     # an H100 block's opt-in shared memory
@@ -188,3 +194,79 @@ def test_k13_tiers_past_shared_memory_take_the_device_store():
         stages = cascade_plan(cfg.replace(epa_max_faces=faces))
         assert _stores(stages, k13_bytes, H100_LIMIT) == (
             88, stages[-1][0].epa_max_faces, ["shared", "shared", "device"])
+
+
+def k1_words(n):
+    """A staged hull's words: 3n rounded up to 16-B words, then to an odd
+    number of them."""
+    return 4 * (((3 * n + 3) // 4) | 1)
+
+
+def k1_bytes(n1, n2, pairs=32):
+    """A stand-in of K1's staged tile (``gjk_hulls_staged_bytes``): the
+    mbarrier (16 B) and a block's 32 pairs, both hulls each."""
+    return 4 * (4 + pairs * (k1_words(n1) + k1_words(n2)))
+
+
+@pytest.mark.parametrize("shape", [(8, 8), (23, 23), (24, 24), (64, 64),
+                                   (64, 23), (128, 128), (148, 148),
+                                   (149, 149), (256, 256), (1024, 1024),
+                                   (2048, 2048)],
+                         ids=lambda s: f"{s[0]} x {s[1]}")
+def test_k1_stages_at_the_byte_boundary(shape):
+    """A tile is staged at its own bytes and one byte more, and streamed
+    one byte below them."""
+    n1, n2 = shape
+    need = k1_bytes(n1, n2)
+    assert fused_gjk.stages(n1, n2, k1_bytes, need)
+    assert fused_gjk.stages(n1, n2, k1_bytes, need + 1)
+    assert not fused_gjk.stages(n1, n2, k1_bytes, need - 1)
+
+
+def test_k1_budget_stages_the_small_hulls():
+    """At STAGED_BUDGET (two blocks an H100 SM) K1 stages hulls up to 148
+    vertices (c2's 64-vertex tile is 50,192 B) and streams them from 149
+    on; the staged team is 2 up to 64 vertices a hull in a batch of
+    16,384 pairs or more, else 8."""
+    def staged(n1, n2):
+        return fused_gjk.stages(n1, n2, k1_bytes)
+    assert fused_gjk.STAGED_BUDGET == 115_712
+    assert 2 * (fused_gjk.STAGED_BUDGET + 1024) == 233_472  # an H100 SM
+    assert k1_bytes(64, 64) == 50_192 and k1_bytes(148, 148) == 113_680
+    assert all(staged(n, n) for n in (4, 8, 23, 24, 63, 64, 65, 128, 148))
+    assert not any(staged(n, n) for n in (149, 256, 512, 1024, 2048))
+    assert staged(8, 280) and not staged(8, 290)
+    assert [fused_gjk.staged_team(65536, n, n)
+            for n in (4, 24, 64, 65, 148)] == [2, 2, 2, 8, 8]
+    assert fused_gjk.staged_team(16384, 64, 8) == 2
+    assert fused_gjk.staged_team(16383, 64, 8) == 8
+    assert fused_gjk.staged_team(4096, 24, 24) == 8
+    assert fused_gjk.staged_team(65536, 8, 65) == 8
+    assert set(fused_gjk.STAGED_TEAMS) == {2, 8}
+
+
+def test_k1_staged_hulls_are_aligned_and_spread_over_banks():
+    """A staged hull of 1 to 2,048 vertices starts 16-B aligned, holds its
+    3n words, and the eight pairs of a quarter warp (teams of 2, or of 4)
+    start on eight disjoint groups of four banks (an odd number of 16-B
+    words apart)."""
+    for n in range(1, 2049):
+        w = k1_words(n)
+        assert w % 4 == 0 and (w // 4) % 2 == 1 and 3 * n <= w < 3 * n + 8
+        assert len({(p * w) % 32 for p in range(8)}) == 8
+
+
+def test_team_rules_are_unchanged():
+    """K1's streamed, K8's and K9's teams by hull size, 8 to 2,048
+    vertices, are what they were before K1 staged its hulls: 4 threads up
+    to 64 vertices, 8 up to 256, 16 up to 512, then 32 (K8's restart: its
+    own team)."""
+    assert fused_gjk.TEAMS == (4, 8, 16, 32)
+    for n in range(8, 2049):
+        want = 4 if n <= 64 else 8 if n <= 256 else 16 if n <= 512 else 32
+        assert fused_gjk.team_size(n, n) == want
+        assert fused_gjk.team_size(n, 8) == want
+        assert fused_distance.team_size(n, n, restart=False) == want
+        assert fused_distance.team_size(n, n, restart=True) \
+            == fused_distance.RESTART_TEAM
+        assert fused_hull_shapes.team_size(n) == want
