@@ -30,17 +30,20 @@ import torch
 
 from .. import _build
 from ..config import GJKEPAConfig
-from ..spans import spanned
+from ..spans import span, spanned
 from ..types import Status
 from .fused_gjk import check_hulls, make_hull_support
 from .lane_geom import P3, fsqrt, pdot, pmean4, pwhere, pzero_like
 
 __all__ = ["EPARows", "epa_cascade", "epa_cascade_plain", "epa_phase",
            "run_cascade", "check_stages", "check_tensors", "near_store_faces",
-           "far_store_faces", "face_stores", "LAUNCHES"]
+           "far_store_faces", "face_stores", "LAUNCHES", "STORE_READS"]
 
 # Kernel launches made by epa_cascade (CUDA tensors only).
 LAUNCHES = 0
+# Host reads of the hit count by face_stores, K2's and K13's (0 at the
+# default ladder, whose every tier fits in shared memory).
+STORE_READS = 0
 
 BIG = 3.4e38            # "no plane" distance (float32)
 _MAXID = 256            # vertex ids < 4 + epa_max_iters <= 103 < 256
@@ -72,14 +75,19 @@ def face_stores(stages, smem_bytes, n_act: torch.Tensor, dev: torch.device,
     or None).  ``near_faces`` defaults to :func:`near_store_faces` over the
     kernel's block bytes ``smem_bytes``; the device store, one a hit,
     [rank][field][face], is sized by the hit count, the one host read of
-    these paths, taken only where a tier needs it."""
+    these paths, taken only where a tier needs it (``gjkepa.store_read``,
+    counted in :data:`STORE_READS`)."""
+    global STORE_READS
     if near_faces is None:
         near_faces = near_store_faces(stages, smem_bytes,
                                       _build.smem_limit(dev))
     far_faces = far_store_faces(stages, near_faces)
     if not far_faces:
         return near_faces, 0, None
-    far = torch.empty((max(int(n_act), 1),
+    with span("gjkepa.store_read"):
+        hits = int(n_act)
+    STORE_READS += 1
+    far = torch.empty((max(hits, 1),
                        _build.load().epa_scratch_words_per_face(), far_faces),
                       dtype=torch.float32, device=dev)
     return near_faces, far_faces, far

@@ -46,7 +46,9 @@ after 2 warm-up calls), then, over 5 calls under ``torch.profiler``: the
 device time per call (kernel self time), the device's busy share of the
 wall, the kernel launches per call and the operations with the most device
 time, K1's launches a call and how many of them took its staged kernel
-(``fused_gjk.STAGED_LAUNCHES``: the hulls in shared memory), then a line
+(``fused_gjk.STAGED_LAUNCHES``: the hulls in shared memory), the host
+reads of the hit count that size K2's or K13's face store in device
+memory (``fused_epa.STORE_READS``), then a line
 a program span (``gjkepa.*``, ``spans.py``: each
 kernel's dispatcher, the glue between kernels, the public entry): its host
 self time a call (its length less its nested spans'), the device time and
@@ -215,15 +217,17 @@ def profile_path(name, fn, card) -> None:
     spans of one path."""
     from torch.profiler import ProfilerActivity, profile
 
-    from .ops import fused_gjk
+    from .ops import fused_epa, fused_gjk
     wall = wall_ms(fn)
     k1 = (fused_gjk.LAUNCHES, fused_gjk.STAGED_LAUNCHES)
+    reads = fused_epa.STORE_READS
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(PROFILED_CALLS):
             fn()
         torch.cuda.synchronize()
     k1 = (fused_gjk.LAUNCHES - k1[0], fused_gjk.STAGED_LAUNCHES - k1[1])
+    reads = fused_epa.STORE_READS - reads
     events = prof.events()
     kernels = device_ops(events)
     device_ms = (sum(e.time_range.elapsed_us() for e in kernels) / 1e3
@@ -241,6 +245,8 @@ def profile_path(name, fn, card) -> None:
               f"{e.count / PROFILED_CALLS:.0f} calls", flush=True)
     print(f"  {name} K1: {k1[0] / PROFILED_CALLS:.1f} launches a call, "
           f"{k1[1] / PROFILED_CALLS:.1f} of them staged", flush=True)
+    print(f"  {name} K2/K13 face store: {reads / PROFILED_CALLS:.1f} host "
+          "reads of the hit count a call", flush=True)
     rows, program, lost = span_summary(events)
     n = PROFILED_CALLS
     for span, (host, device, launches, _) in sorted(rows.items()):

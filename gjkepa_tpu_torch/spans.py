@@ -7,8 +7,10 @@ dispatcher.  The ranges land in the profiler's own session, on the clock
 of its CUDA activity.  No span reads the device or synchronises.
 
 Names are ``gjkepa.<step>``: the public entry (its function's name), a
-kernel's dispatcher (``k1`` ... ``k13``), and the glue between kernels
-(``order``, ``fill``, ``broadphase``, ``contact_rows``).
+kernel's dispatcher (``k1`` ... ``k13``), the glue between kernels
+(``order``, ``fill``, ``broadphase``, ``contact_rows``), and the host read
+of the hit count that sizes K2's or K13's face store in device memory
+(``store_read``).
 """
 
 from __future__ import annotations
