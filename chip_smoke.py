@@ -37,8 +37,9 @@ pair axis over a list of devices (K1 and K2 a shard), the sanitizer
 checks the fused and portable queries' results on the card, and the
 entry points drive the sharded pipeline.  The hull queries also run
 without the broadphase (``use_broadphase=False``, K1 or K12 over every
-pair), and K13 keeps a tier whose polytope does not fit in shared memory
-in a store in device memory, as K2 does.  The script builds
+pair), K13 keeps a tier whose polytope does not fit in shared memory
+in a store in device memory, and K2 keeps its tiers past its share of an
+SM's shared memory in a slot of a device pool.  The script builds
 every kernel from the sources in the checkout (one nvcc per source, all at
 once) and runs, in phases:
 
@@ -48,9 +49,11 @@ once) and runs, in phases:
      63 and 1024 x 2047 vertices), bit for bit;
   2. K2 against its plain version, bit for bit: 2048 deep pairs x 24
      vertices; a tier ladder forced to overflow (F=8, K=2; F=16, K=4;
-     F=208, K=16) with its tiers in shared memory (the size rule), the
-     last in device memory, and all in device memory; a face capacity
-     past a block's shared memory (F=4096), which takes the device store;
+     F=208, K=16) with its tiers as the store rule places them, the last
+     in the pool, and all in the pool; a face capacity past a block's
+     shared memory (F=4096), which takes the pool; K2's warps an SM under
+     its rule and the tally of each run (its hits, the pool's claims), the
+     pool's slot masks all clear after each;
   3. known geometry: unit cubes at offsets 0.3, 0.7, 1.2, 2.5;
   4. the float64 reference oracle (tests/oracle_np.py) on 64 deep pairs;
   5. the main path at full size (16384 x 24 deep pairs with full contact,
@@ -2501,10 +2504,16 @@ def main() -> int:
         g = fused_gjk.gjk_hulls(p1, p2, cfg)
         order, n_act = hit_first_order(g.hit)
         args = (p1, p2, g.simplex, g.status, order, n_act, tiers)
-        ek = (fused_epa._epa_cascade_cuda(*args, **variant) if variant
-              else fused_epa.epa_cascade(*args))
+        with fused_epa.k2_tally(dev) as tally:
+            ek = (fused_epa._epa_cascade_cuda(*args, **variant) if variant
+                  else fused_epa.epa_cascade(*args))
         ep = fused_epa.epa_cascade_plain(*args)
         torch.cuda.synchronize()
+        tally = tally.tolist()
+        check(sum(tally[:-1]) == int(n_act),
+              f"{what}: K2's tally {tally} does not sum to {int(n_act)} hits")
+        busy = [int(m.count_nonzero()) for _, m in fused_epa._POOLS.values()]
+        check(not any(busy), f"{what}: K2's pool masks left slots taken")
         err = max(float((ek.depth - ep.depth).abs().max()),
                   float((ek.normal - ep.normal).abs().max()))
         ei_diff = int((ek.iters != ep.iters).sum())
@@ -2517,7 +2526,8 @@ def main() -> int:
             f"{[c.epa_max_faces for c, _ in tiers]}"
             + (f", {variant}" if variant else "") + f": {int(n_act)} hits, "
             f"mean epa_iters {float(ep.iters[g.hit].float().mean()):.3f}, "
-            f"rows bit for bit")
+            f"finished by tier {tally[:-1]}, {tally[-1]} pool claims, rows "
+            f"bit for bit")
         return err
 
     # -- phase 1: K1 vs plain -------------------------------------------------
@@ -2537,16 +2547,25 @@ def main() -> int:
     rng = np.random.default_rng(0)
     deep = on_dev(*deep_pairs(rng, 2048, 24))
     k2_err = compare_k2(*deep, "phase 2")
-    # K2's stores by the size rule over the kernel's own byte count
+    # K2's stores by its rule over the kernel's own byte count and occupancy
     lib, limit = _build.load(), _build.smem_limit(dev)
-    near = fused_epa.near_store_faces(stages, lib.epa_hulls_smem_bytes, limit)
-    log(f"phase 2 K2 stores: the tiers {[c.epa_max_faces for c, _ in stages]}"
-        f" in shared memory up to {near} faces "
-        f"({lib.epa_hulls_smem_bytes(near)} B a block of {limit}), device "
-        f"store {fused_epa.far_store_faces(stages, near)} faces")
-    # a ladder whose first tiers overflow, its tiers in shared memory (the
-    # rule), the last in device memory, all in device memory; then a face
-    # capacity past shared memory, which takes the device store
+    facts = fused_epa.k2_device(dev)
+    near = fused_epa.k2_near_faces(stages, lib.epa_hulls_smem_bytes,
+                                   facts.blocks, facts.sm_bytes, facts.reserve)
+    warps = fused_epa.k2_resident_warps(dev, stages)
+    log(f"phase 2 K2 stores: {facts}; the tiers "
+        f"{[c.epa_max_faces for c, _ in stages]} in shared memory up to "
+        f"{near} faces ({lib.epa_hulls_smem_bytes(near)} B a block), the pool "
+        f"{fused_epa.far_store_faces(stages, near)} faces a slot; "
+        f"{warps[0]} warps an SM ({warps[1]} with every tier in shared "
+        "memory)")
+    check(warps[0] >= warps[1] and warps[0] >= facts.blocks * facts.pairs,
+          f"phase 2: K2's store rule gives {warps[0]} warps an SM, the "
+          f"registers {facts.blocks * facts.pairs}, every tier shared "
+          f"{warps[1]}")
+    # a ladder whose first tiers overflow, its tiers as the rule places
+    # them, the last in the pool, all in the pool; then a face capacity
+    # past shared memory, which takes the pool
     ladder = [(cfg.replace(epa_max_faces=f), k)
               for f, k in ((8, 2), (16, 4), (208, 16))]
     for near in (None, 16, 0):

@@ -1,5 +1,5 @@
-// K2: the EPA capacity cascade over hit lanes, a warp per hit, the polytope
-// in shared memory where it fits.
+// K2: the EPA capacity cascade over hit lanes, a warp per hit, the small
+// tiers' polytope in shared memory and the larger ones' in a pooled slot.
 //
 // Replaces the TPU kernel _epa_cascade_kernel_hulls
 // (gjkepa_tpu/ops/fused.py:1112, with _epa_phase_fast :456-749, _epa_cascade
@@ -10,35 +10,48 @@
 // r = i * P + w, pair order[r] (the hit lanes, moved to the front by one
 // cumsum on the host side, no sync), while r < n_act; a warp at or past
 // n_act returns whole, its pair already filled with the miss pass-through
-// by the wrapper.  The warp runs the tier ladder of epa_warp.cuh, each face
-// scan split across its 32 threads, with the warp support of
-// hull_stream.cuh (TeamHullSupport<32>: at 24 vertices six threads read a
-// 4-vertex group each, then one xor reduction), and lane 0 writes depth,
-// normal, iterations and status.  A final-tier capacity exit becomes
-// HIT_EPA_DEGENERATE.  This is K13's warp tier, bit-equal to the same
-// plain version; K13 shares each probe across a block because its hulls
-// are large, K2 gives each warp its own pair because its hulls are small.
+// by the wrapper.  The warp runs its ladder (k2_ladder) over the tier of
+// epa_warp.cuh, each face scan split across its 32 threads, with the warp
+// support of hull_stream.cuh (TeamHullSupport<32>: at 24 vertices six
+// threads read a 4-vertex group each, then one xor reduction), and lane 0
+// writes depth, normal, iterations and status.  A final-tier capacity exit
+// becomes HIT_EPA_DEGENERATE.  This is K13's warp tier, bit-equal to the
+// same plain version; K13 shares each probe across a block because its
+// hulls are large, K2 gives each warp its own pair because its hulls are
+// small.
 // P is K2_PAIRS = 1, fixed at compile time: of 1, 2, 4 and 8 the fastest
 // on an H100 (PERF.md); `scripts/torch_kernel_sweep.py k2` rebuilds this
 // file with -DK2_PAIRS=P to time the others.
 //
 // Face stores by size, never a refusal.  The block's dynamic shared memory
 // holds, for each of its P warps, a WarpScratch (1,152 B) and a face store
-// of near_faces faces (68 B a face).  A tier of at most near_faces faces
-// keeps its faces there; a larger tier keeps them in a store of far_faces
-// faces in device memory, one per hit rank ([rank][field][face]), which the
-// wrapper allocates only when some tier needs it.  fused_epa.k2_near_faces
-// picks near_faces, the largest tier whose store fits in the device's
-// shared memory (epa_hulls_smem_bytes): the whole default ladder (208
-// faces, 15,296 B a warp) fits, so the main path keeps every tier in shared
-// memory and allocates no scratch.
+// of near_faces faces (68 B a face): a tier of at most near_faces faces
+// keeps its faces there.  A larger tier keeps them in a slot of a device
+// pool, [slot][field][far_faces] float32, which the warp claims only when
+// its ladder reaches such a tier, and frees when its hit is done: lane 0
+// sets a free bit of its own SM's slot mask (%smid) with atomicOr and
+// broadcasts the slot.  The pool holds, for each SM id (%nsmid), one slot
+// for every warp of K2 an SM can ever hold (the device's most blocks an SM
+// times P, at most its warps), so a warp always finds a free slot, whatever
+// the occupancy, the streams and the launches in flight; fused_epa.k2_pool
+// allocates it once a device, and no host read sizes it.
+// fused_epa.k2_near_faces picks near_faces: the largest tier whose block
+// still lets as many blocks an SM as K2's registers allow
+// (epa_hulls_blocks_per_sm(0)) fit in the SM's shared memory (its size and
+// reserve a block from epa_hulls_device).  At the default ladder
+// (48, 88 and 208 faces) on an H100 that keeps 48 and 88 faces (7,136 B a
+// warp) and pools 208 (15,296 B a warp): 16 warps an SM, what 111
+// registers allow (a scheduler's quarter of the register file holds 4),
+// where the whole ladder in shared memory allowed 14.  A hit reaches the
+// 208-face tier only after both smaller tiers exit for capacity.  An
+// optional tally counts, by lane 0's atomics, the hits that finish in each
+// tier and the pool's claims (null on the main path).
 //
 // What bounds it: each hit's iterations run one after another, a chain of
 // dependent shared-memory passes and shuffles plus one probe of both hulls
 // (5 float operations a vertex), so the launch lasts as long as its waves'
 // slowest hits; the warps resident on an SM hide each other's latency, and
-// the whole ladder's store (14 warps an SM) allows fewer of them than the
-// registers would (18).
+// with the 208-face tier in the pool the registers set how many reside.
 #include "epa_warp.cuh"
 
 namespace gjkepa {
@@ -54,15 +67,91 @@ inline size_t smem_bytes(int near_faces) {
   return (size_t)kPairs * warp_words(near_faces) * sizeof(float);
 }
 
+// The device pool of face stores for the tiers past near_faces.
+struct SlotPool {
+  float* faces;    // [slot][field][f_max]
+  unsigned* mask;  // [SM id][words]: a set bit is a slot taken
+  int per_sm;      // slots an SM id
+  int f_max;       // faces a slot
+  __device__ __forceinline__ int words() const { return (per_sm + 31) / 32; }
+};
+
+// Lane 0 takes a free slot of its SM's mask and the whole warp gets it.
+// The SM's resident warps are at most its slots, so the scan ends.
+__device__ __forceinline__ int claim_slot(const SlotPool& pool) {
+  int slot = 0;
+  if ((threadIdx.x & (kWarp - 1)) == 0) {
+    unsigned sm;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+    unsigned* mask = pool.mask + (size_t)sm * pool.words();
+    for (int i = 0;; i = i + 1 < pool.words() ? i + 1 : 0) {
+      const int n = min(32, pool.per_sm - 32 * i);
+      const unsigned all = n == 32 ? ~0u : (1u << n) - 1u;
+      unsigned free_bits = ~*reinterpret_cast<volatile unsigned*>(mask + i) & all;
+      while (free_bits != 0u) {
+        const unsigned bit = free_bits & (0u - free_bits);
+        if ((atomicOr(mask + i, bit) & bit) == 0u) {
+          slot = (int)sm * pool.per_sm + 32 * i + __ffs(bit) - 1;
+          break;
+        }
+        free_bits &= ~bit;
+      }
+      if (free_bits != 0u) break;
+    }
+    __threadfence();  // the slot's last holder's writes before ours
+  }
+  return __shfl_sync(kFullMask, slot, 0);
+}
+
+// The whole warp, after its last use of the slot.
+__device__ __forceinline__ void release_slot(const SlotPool& pool, int slot) {
+  __threadfence();  // this warp's writes to the slot before the release
+  __syncwarp();
+  if ((threadIdx.x & (kWarp - 1)) == 0) {
+    const int sm = slot / pool.per_sm, k = slot - sm * pool.per_sm;
+    atomicAnd(pool.mask + (size_t)sm * pool.words() + k / 32, ~(1u << (k % 32)));
+  }
+}
+
+// epa_cascade_warp's ladder with the far tiers in a pool slot, claimed when
+// the ladder first reaches one: the same tiers over the same simplex, so the
+// same rows whichever store holds a tier.
+template <class Support>
+__device__ __forceinline__ TierOut k2_ladder(const Support& support, const P3* s,
+                                             const Tiers& tiers, const PairFaces& near,
+                                             const SlotPool& pool, WarpScratch& ws,
+                                             const EpaParams& prm, int* tally) {
+  const P3 interior = mean4(s);
+  TierOut r;
+  r.status = kHitEpaCapacity;
+  int slot = -1, t = 0;
+  for (; t < tiers.n && r.status == kHitEpaCapacity; ++t) {
+    const int F = tiers.faces[t], K = tiers.kvis[t];
+    if (F <= near.f_max) {
+      r = epa_tier_warp(support, s, interior, F, K, near, ws, prm);
+    } else {
+      if (slot < 0) slot = claim_slot(pool);
+      const PairFaces far = {pool.faces + (size_t)slot * kFields * pool.f_max, pool.f_max};
+      r = epa_tier_warp(support, s, interior, F, K, far, ws, prm);
+    }
+  }
+  if (slot >= 0) release_slot(pool, slot);
+  if (tally != nullptr && (threadIdx.x & (kWarp - 1)) == 0) {
+    atomicAdd(tally + t - 1, 1);
+    if (slot >= 0) atomicAdd(tally + kMaxTiers, 1);
+  }
+  return r;
+}
+
 // At least one block an SM: without it ptxas caps the registers at 80 and
-// spills (the block's shared memory limits the warps an SM runs anyway).
+// spills.
 __global__ void __launch_bounds__(kPairs * kWarp, 1)
 epa_hulls_kernel(const float* __restrict__ p1, const float* __restrict__ p2,
                  const float* __restrict__ simplex, const int* __restrict__ order,
                  const int* __restrict__ n_act, float* __restrict__ depth_out,
                  float* __restrict__ normal_out, int* __restrict__ iters_out,
-                 int* __restrict__ status_out, float* __restrict__ far_store, int n1, int n2,
-                 Tiers tiers, int near_faces, int far_faces, EpaParams prm) {
+                 int* __restrict__ status_out, SlotPool pool, int* __restrict__ tally, int n1,
+                 int n2, Tiers tiers, int near_faces, EpaParams prm) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x / kWarp;
   const int r = blockIdx.x * kPairs + warp;
@@ -71,7 +160,6 @@ epa_hulls_kernel(const float* __restrict__ p1, const float* __restrict__ p2,
   float* mine = smem + warp * warp_words(near_faces);
   WarpScratch& ws = *reinterpret_cast<WarpScratch*>(mine);
   const PairFaces near = {mine + kScratchWords, near_faces};
-  const PairFaces far = {far_store + (size_t)r * kFields * far_faces, far_faces};
   P3 s[4];
   for (int j = 0; j < 4; ++j) {
     const float* q = simplex + (size_t)pair * 12 + 3 * j;
@@ -79,7 +167,7 @@ epa_hulls_kernel(const float* __restrict__ p1, const float* __restrict__ p2,
   }
   const TeamHullSupport<kWarp> support = {p1 + (size_t)pair * n1 * 3, n1,
                                           p2 + (size_t)pair * n2 * 3, n2};
-  TierOut res = epa_cascade_warp(support, s, tiers, near, far, ws, prm);
+  TierOut res = k2_ladder(support, s, tiers, near, pool, ws, prm, tally);
   if ((threadIdx.x & (kWarp - 1)) != 0) return;
   if (res.status == kHitEpaCapacity) res.status = kHitEpaDegenerate;
   depth_out[pair] = res.depth;
@@ -90,11 +178,18 @@ epa_hulls_kernel(const float* __restrict__ p1, const float* __restrict__ p2,
   status_out[pair] = res.status;
 }
 
+__global__ void sm_ids_kernel(int* out) {
+  unsigned n;
+  asm("mov.u32 %0, %%nsmid;" : "=r"(n));
+  *out = (int)n;
+}
+
 }  // namespace
 }  // namespace gjkepa
 
-// Words a face of the EPA face stores: K2's device store is (n_act,
-// words, far_faces) float32, K10's scratch (words, f_max, B).
+// Words a face of the EPA face stores: K2's pool is (slots, words,
+// far_faces) float32, K13's device store (n_act, words, far_faces), K10's
+// scratch (words, f_max, B).
 extern "C" int epa_scratch_words_per_face() { return gjkepa::kFields; }
 
 // Bytes of shared memory a K2 block takes with a face store of `near_faces`
@@ -103,17 +198,77 @@ extern "C" int epa_hulls_smem_bytes(int near_faces) {
   return (int)gjkepa::smem_bytes(near_faces);
 }
 
+// K2 blocks an SM holds with `smem` bytes of dynamic shared memory a block
+// (the occupancy calculator; at 0, what its registers allow), or minus the
+// CUDA error.
+extern "C" int epa_hulls_blocks_per_sm(int smem) {
+  using namespace gjkepa;
+  const int err = allow_smem(epa_hulls_kernel, (size_t)smem);
+  if (err != 0) return -err;
+  int blocks = 0;
+  const cudaError_t e =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, epa_hulls_kernel, kPairs * kWarp,
+                                                    (size_t)smem);
+  return e == cudaSuccess ? blocks : -(int)e;
+}
+
+// What K2's store rule and pool observe of the current device besides its
+// occupancy, in `facts`: [0] the warps a block (P), [1] the shared memory
+// of an SM, [2] the shared memory the system reserves a block, [3] the
+// pool's slots an SM id (the most K2 warps an SM can hold), [4] the SM ids
+// (%nsmid, read by a one-thread kernel and a copy: the call waits for the
+// device).  Returns 0 or the CUDA error.
+extern "C" int epa_hulls_device(int* facts) {
+  using namespace gjkepa;
+  int dev = 0, sm_bytes = 0, reserve = 0, max_blocks = 0, max_threads = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sm_bytes, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&reserve, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&max_blocks, cudaDevAttrMaxBlocksPerMultiprocessor, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&max_threads, cudaDevAttrMaxThreadsPerMultiProcessor, dev);
+  }
+  int* sm_ids = nullptr;
+  int n_ids = 0;
+  if (err == cudaSuccess) err = cudaMalloc(&sm_ids, sizeof(int));
+  if (err == cudaSuccess) {
+    sm_ids_kernel<<<1, 1>>>(sm_ids);
+    err = cudaGetLastError();
+    if (err == cudaSuccess) err = cudaMemcpy(&n_ids, sm_ids, sizeof(int), cudaMemcpyDeviceToHost);
+  }
+  if (sm_ids != nullptr) cudaFree(sm_ids);
+  if (err != cudaSuccess) return (int)err;
+  const int warps = max_threads / kWarp;
+  facts[0] = kPairs;
+  facts[1] = sm_bytes;
+  facts[2] = reserve;
+  facts[3] = max_blocks * kPairs < warps ? max_blocks * kPairs : warps;
+  facts[4] = n_ids;
+  return 0;
+}
+
 // C interface, bound with ctypes.  A tier of at most `near_faces` faces runs
-// in shared memory, a larger one in `far_store`, (n_act, fields, far_faces)
-// float32 (null when no tier needs it).  Returns cudaGetLastError() after
-// the launch, or cudaErrorInvalidValue for a tier ladder the kernel does
-// not hold, a tier in neither store or a block past the device's shared
-// memory; the launch is asynchronous on `stream`.
+// in shared memory, a larger one in a slot of the pool `pool_faces`
+// (slots, fields, far_faces) float32 with `pool_mask` int32 (SM ids,
+// ceil(pool_per_sm / 32)) zeroed (both null when no tier needs them).
+// `tally`, when not null, is int32 (MAX_TIERS + 1): each hit adds one to
+// the tier it finished in, and one to the last entry if it took a slot.
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// a tier ladder the kernel does not hold, a tier in neither store or a
+// block past the device's shared memory; the launch is asynchronous on
+// `stream`.
 extern "C" int epa_hulls_launch(const void* p1, const void* p2, const void* simplex,
                                 const void* order, const void* n_act, void* depth, void* normal,
-                                void* iters, void* status, void* far_store, int B, int n1, int n2,
-                                int n_tiers, const int* tier_faces, const int* tier_kvis,
-                                int near_faces, int far_faces, float eps_coincide,
+                                void* iters, void* status, void* pool_faces, void* pool_mask,
+                                void* tally, int B, int n1, int n2, int n_tiers,
+                                const int* tier_faces, const int* tier_kvis, int near_faces,
+                                int far_faces, int pool_per_sm, float eps_coincide,
                                 float eps_zero, int epa_max_iters, void* stream) {
   using namespace gjkepa;
   if (B <= 0) return 0;
@@ -122,19 +277,22 @@ extern "C" int epa_hulls_launch(const void* p1, const void* p2, const void* simp
   const int f_max = near_faces > far_faces ? near_faces : far_faces;
   const int rc = make_tiers(n_tiers, tier_faces, tier_kvis, f_max, epa_max_iters, &tiers);
   if (rc != 0) return rc;
+  const bool pooled = pool_faces != nullptr && pool_mask != nullptr && pool_per_sm > 0;
   for (int t = 0; t < tiers.n; ++t) {
-    if (tiers.faces[t] > near_faces && far_store == nullptr) return (int)cudaErrorInvalidValue;
+    if (tiers.faces[t] > near_faces && !pooled) return (int)cudaErrorInvalidValue;
   }
   const size_t smem = smem_bytes(near_faces);
   const int err = allow_smem(epa_hulls_kernel, smem);
   if (err != 0) return err;
   const EpaParams prm = make_epa_params(eps_coincide, eps_zero, epa_max_iters);
+  const SlotPool pool = {static_cast<float*>(pool_faces), static_cast<unsigned*>(pool_mask),
+                         pool_per_sm, far_faces};
   const int blocks = (B + kPairs - 1) / kPairs;
   epa_hulls_kernel<<<blocks, kPairs * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(p1), static_cast<const float*>(p2),
       static_cast<const float*>(simplex), static_cast<const int*>(order),
       static_cast<const int*>(n_act), static_cast<float*>(depth), static_cast<float*>(normal),
-      static_cast<int*>(iters), static_cast<int*>(status), static_cast<float*>(far_store), n1,
-      n2, tiers, near_faces, far_faces, prm);
+      static_cast<int*>(iters), static_cast<int*>(status), pool, static_cast<int*>(tally), n1,
+      n2, tiers, near_faces, prm);
   return (int)cudaGetLastError();
 }

@@ -10,12 +10,22 @@ Both versions take the hit-first lane ``order`` and the device scalar
 other lane passes its GJK status through with zero depth, normal and
 iteration count.
 
-The kernel runs a warp per hit, each with its polytope in shared memory
-where it fits: :func:`near_store_faces` picks the largest tier capacity
-whose store fits in a block's shared memory, and a larger tier keeps its
-faces in a store in device memory, allocated only when some tier needs it
-(:func:`far_store_faces`).  K13 (``fused_streamed.epa_hulls_big``) takes
-the same rule.
+The kernel runs a warp per hit, the small tiers' polytope in shared
+memory: :func:`k2_near_faces` keeps the largest tier whose block still lets
+as many blocks an SM as K2's registers allow fit in the SM's shared memory
+(:func:`k2_device` asks the card), and every larger tier runs in a slot of
+a device pool (:func:`k2_pool`), which a warp claims only when its ladder
+reaches such a tier.  The pool has a slot for every K2 warp an SM can hold,
+on every SM, so it is allocated once a device and no host read sizes it:
+at the default ladder on an H100, 48 and 88 faces stay in shared memory
+and the 208-face tier takes the pool, 16 warps an SM (what K2's
+registers allow) where the whole ladder in shared memory allowed 14
+(:func:`k2_resident_warps`).
+:data:`TALLY`, set by :func:`k2_tally`, counts the hits that finish in
+each tier and the pool's claims.  K13 (``fused_streamed.epa_hulls_big``)
+keeps its own rule: each tier in shared memory where its store fits in a
+block (:func:`near_store_faces`), else in a device store one a hit
+(:func:`face_stores`), sized by the one host read of the hit count.
 
 :func:`epa_cascade` takes the plain version only for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises.
@@ -23,7 +33,9 @@ for CUDA tensors it launches the kernel or raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -37,13 +49,18 @@ from .lane_geom import P3, fsqrt, pdot, pmean4, pwhere, pzero_like
 
 __all__ = ["EPARows", "epa_cascade", "epa_cascade_plain", "epa_phase",
            "run_cascade", "check_stages", "check_tensors", "near_store_faces",
-           "far_store_faces", "face_stores", "LAUNCHES", "STORE_READS"]
+           "far_store_faces", "face_stores", "K2Device", "k2_device",
+           "k2_near_faces", "k2_pool", "k2_resident_warps", "k2_tally",
+           "LAUNCHES", "STORE_READS", "TALLY"]
 
 # Kernel launches made by epa_cascade (CUDA tensors only).
 LAUNCHES = 0
-# Host reads of the hit count by face_stores, K2's and K13's (0 at the
-# default ladder, whose every tier fits in shared memory).
+# Host reads of the hit count by face_stores, K13's (0 at the default
+# ladder, whose every tier fits in K13's shared memory); K2 takes none.
 STORE_READS = 0
+# K2's tally while k2_tally is open: int32 (MAX_TIERS + 1,) on the card,
+# the hits that finished in each tier, then the pool's slot claims.
+TALLY: torch.Tensor | None = None
 
 BIG = 3.4e38            # "no plane" distance (float32)
 _MAXID = 256            # vertex ids < 4 + epa_max_iters <= 103 < 256
@@ -52,17 +69,18 @@ MAX_TIERS = 4
 
 
 def near_store_faces(stages, smem_bytes, limit: int) -> int:
-    """The face capacity of K2's or K13's shared-memory store: the largest
-    tier's whose block, ``smem_bytes(faces)`` bytes
-    (``epa_hulls_smem_bytes`` or ``epa_hulls_big_smem_bytes`` on the card),
-    fits in ``limit`` bytes of shared memory (0 when none does).  Every
-    tier up to it keeps its faces in shared memory."""
+    """The face capacity of K13's shared-memory store (and, with K2's
+    share of an SM as the limit, K2's): the largest tier's whose block,
+    ``smem_bytes(faces)`` bytes (``epa_hulls_big_smem_bytes`` or
+    ``epa_hulls_smem_bytes`` on the card), fits in ``limit`` bytes of
+    shared memory (0 when none does).  Every tier up to it keeps its faces
+    in shared memory."""
     return max((c.epa_max_faces for c, _ in stages
                 if smem_bytes(c.epa_max_faces) <= limit), default=0)
 
 
 def far_store_faces(stages, near_faces: int) -> int:
-    """The face capacity of K2's or K13's store in device memory: the
+    """The face capacity of K2's pool or K13's store in device memory: the
     largest tier's above ``near_faces`` (0 when every tier fits in shared
     memory)."""
     return max((c.epa_max_faces for c, _ in stages
@@ -71,7 +89,7 @@ def far_store_faces(stages, near_faces: int) -> int:
 
 def face_stores(stages, smem_bytes, n_act: torch.Tensor, dev: torch.device,
                 near_faces: int | None = None):
-    """K2's or K13's face stores: (near_faces, far_faces, the device store
+    """K13's face stores: (near_faces, far_faces, the device store
     or None).  ``near_faces`` defaults to :func:`near_store_faces` over the
     kernel's block bytes ``smem_bytes``; the device store, one a hit,
     [rank][field][face], is sized by the hit count, the one host read of
@@ -91,6 +109,100 @@ def face_stores(stages, smem_bytes, n_act: torch.Tensor, dev: torch.device,
                        _build.load().epa_scratch_words_per_face(), far_faces),
                       dtype=torch.float32, device=dev)
     return near_faces, far_faces, far
+
+
+class K2Device(NamedTuple):
+    """What K2's store rule and pool observe on a card
+    (``epa_hulls_blocks_per_sm(0)``, then ``epa_hulls_device``)."""
+
+    blocks: int      # K2 blocks an SM its registers allow
+    pairs: int       # warps (pairs) a block, K2_PAIRS
+    sm_bytes: int    # shared memory an SM (233,472 B on an H100)
+    reserve: int     # shared memory reserved a block (1,024 B)
+    slots: int       # pool slots an SM id: the most K2 warps an SM holds
+    sm_ids: int      # SM ids (%nsmid)
+
+
+@functools.cache
+def k2_device(dev: torch.device) -> K2Device:
+    """:class:`K2Device` of ``dev``, asked once a device (the SM ids by a
+    one-thread kernel, so the first call waits for the card)."""
+    lib = _build.load()
+    facts = (ctypes.c_int * (len(K2Device._fields) - 1))()
+    with torch.cuda.device(dev):
+        blocks = lib.epa_hulls_blocks_per_sm(0)
+        rc = lib.epa_hulls_device(facts) if blocks >= 0 else -blocks
+    if rc != 0:
+        raise RuntimeError(f"cannot read K2's occupancy on {dev}: CUDA error "
+                           f"{rc}")
+    return K2Device(blocks, *facts)
+
+
+def k2_near_faces(stages, smem_bytes, blocks: int, sm_bytes: int,
+                  reserve: int) -> int:
+    """The face capacity of K2's shared-memory store: the largest tier's
+    whose block, ``smem_bytes(faces)`` bytes (``epa_hulls_smem_bytes`` on
+    the card) and ``reserve`` more, still lets ``blocks`` blocks (what K2's
+    registers allow) fit in ``sm_bytes`` of an SM's shared memory; 0 when
+    none does.  Every larger tier takes the pool (:func:`k2_pool`)."""
+    share = sm_bytes // max(blocks, 1) - reserve
+    return near_store_faces(stages, smem_bytes, share)
+
+
+_POOLS: dict = {}
+
+
+def k2_pool(dev: torch.device, far_faces: int, facts: K2Device):
+    """K2's pool for tiers of up to ``far_faces`` faces on ``dev``: (faces,
+    mask), faces (slots, fields, far_faces) float32 with ``facts.slots``
+    slots for each of ``facts.sm_ids`` SM ids, mask int32 (SM ids,
+    ceil(slots / 32)) zeroed, a set bit a slot a warp holds.  Made once a
+    device and size, then the card waits for the zeroed mask, so that a
+    launch on any stream finds it; nothing in it depends on the batch or
+    the hit count."""
+    key = (dev, far_faces, facts.slots, facts.sm_ids)
+    if key not in _POOLS:
+        words = _build.load().epa_scratch_words_per_face()
+        faces = torch.empty((facts.sm_ids * facts.slots, words, far_faces),
+                            dtype=torch.float32, device=dev)
+        mask = torch.zeros((facts.sm_ids, -(-facts.slots // 32)),
+                           dtype=torch.int32, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        _POOLS[key] = (faces, mask)
+    return _POOLS[key]
+
+
+def k2_resident_warps(dev: torch.device, stages) -> tuple[int, int]:
+    """K2's warps an SM over ``stages`` on ``dev`` by the occupancy
+    calculator: under :func:`k2_near_faces`, and under the rule it replaced
+    (every tier whose block fits in shared memory kept there)."""
+    lib = _build.load()
+    facts = k2_device(dev)
+    near = k2_near_faces(stages, lib.epa_hulls_smem_bytes, facts.blocks,
+                         facts.sm_bytes, facts.reserve)
+    old = near_store_faces(stages, lib.epa_hulls_smem_bytes,
+                           _build.smem_limit(dev))
+    with torch.cuda.device(dev):
+        blocks = [lib.epa_hulls_blocks_per_sm(lib.epa_hulls_smem_bytes(f))
+                  for f in (near, old)]
+    if min(blocks) < 0:
+        raise RuntimeError(f"cannot read K2's occupancy on {dev}: CUDA error "
+                           f"{-min(blocks)}")
+    return blocks[0] * facts.pairs, blocks[1] * facts.pairs
+
+
+@contextlib.contextmanager
+def k2_tally(dev: torch.device):
+    """Count K2's launches on ``dev`` while open: yields :data:`TALLY`,
+    zeroed, which each launch adds to (the main path passes none)."""
+    global TALLY
+    outer = TALLY
+    TALLY = torch.zeros(MAX_TIERS + 1, dtype=torch.int32, device=dev)
+    try:
+        yield TALLY
+    finally:
+        TALLY = outer
 
 
 class EPARows(NamedTuple):
@@ -380,16 +492,23 @@ def epa_cascade_plain(p1, p2, simplex, gjk_status, order, n_act,
 
 def _epa_cascade_cuda(p1, p2, simplex, gjk_status, order, n_act, stages,
                       near_faces: int | None = None) -> EPARows:
-    """K2 with a shared-memory store of ``near_faces`` faces a warp (the
-    size rule when None) and, if a tier needs one, a device store a hit
-    (:func:`face_stores`)."""
+    """K2 with a shared-memory store of ``near_faces`` faces a warp
+    (:func:`k2_near_faces` when None) and, for the larger tiers, the
+    device's pool (:func:`k2_pool`); no host read."""
     global LAUNCHES
     lib = _build.load()
     b, n1, n2 = p1.shape[0], p1.shape[1], p2.shape[1]
     dev = p1.device
     cfg = stages[0][0]
-    near_faces, far_faces, far = face_stores(
-        stages, lib.epa_hulls_smem_bytes, n_act, dev, near_faces)
+    facts = k2_device(dev)
+    if near_faces is None:
+        near_faces = k2_near_faces(stages, lib.epa_hulls_smem_bytes,
+                                   facts.blocks, facts.sm_bytes,
+                                   facts.reserve)
+    far_faces = far_store_faces(stages, near_faces)
+    faces, mask = (k2_pool(dev, far_faces, facts) if far_faces
+                   else (None, None))
+    tally = TALLY if TALLY is not None and TALLY.device == dev else None
     tier_f = (ctypes.c_int * MAX_TIERS)(*[c.epa_max_faces for c, _ in stages])
     tier_k = (ctypes.c_int * MAX_TIERS)(*[k for _, k in stages])
     out = _passthrough(gjk_status, b, dev)
@@ -399,9 +518,12 @@ def _epa_cascade_cuda(p1, p2, simplex, gjk_status, order, n_act, stages,
         rc = lib.epa_hulls_launch(
             ptr(p1), ptr(p2), ptr(simplex), ptr(order), ptr(n_act),
             ptr(out.depth), ptr(out.normal), ptr(out.iters), ptr(out.status),
-            None if far is None else ptr(far), b, n1, n2, len(stages),
-            tier_f, tier_k, near_faces, far_faces, cfg.eps_coincide,
-            cfg.eps_zero, cfg.epa_max_iters, ctypes.c_void_p(stream))
+            None if faces is None else ptr(faces),
+            None if mask is None else ptr(mask),
+            None if tally is None else ptr(tally), b, n1, n2, len(stages),
+            tier_f, tier_k, near_faces, far_faces, facts.slots,
+            cfg.eps_coincide, cfg.eps_zero, cfg.epa_max_iters,
+            ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"epa_hulls kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

@@ -14,6 +14,8 @@ Paths, each at its bench.py configuration (``models/fixtures.py``):
             the four shape kinds;
   c3b_unsorted  the same with ``sort_hits=False``;
   c4        ``gjkepa_batch_fused``, 16,384 x 24 deep pairs, full contact;
+  deep64k   ``fused_gjkepa_hulls``, EPA on, 65,536 x 24 deep pairs (c4's
+            recipe at the batch of the cell ``hull24_64k.deep_penetration``);
   big8192   ``gjkepa_batch_fused``, 256 x 8,192 hull pairs (the large-hull
             path: K12, K13), full contact;
   big2600   ``fused_gjkepa_hulls``, 4,096 x 2,600 hull pairs (K12, K13);
@@ -47,8 +49,10 @@ device time per call (kernel self time), the device's busy share of the
 wall, the kernel launches per call and the operations with the most device
 time, K1's launches a call and how many of them took its staged kernel
 (``fused_gjk.STAGED_LAUNCHES``: the hulls in shared memory), the host
-reads of the hit count that size K2's or K13's face store in device
-memory (``fused_epa.STORE_READS``), then a line
+reads of the hit count that size K13's face store in device memory
+(``fused_epa.STORE_READS``; K2 takes none), K2's tally (``fused_epa.k2_tally``:
+the hits that finished in each tier of its ladder and the share that took
+a slot of its device pool), then a line
 a program span (``gjkepa.*``, ``spans.py``: each
 kernel's dispatcher, the glue between kernels, the public entry): its host
 self time a call (its length less its nested spans'), the device time and
@@ -57,7 +61,10 @@ span around the runtime call of each), and how many of the program's
 kernel launches lie in their own dispatcher's span.  These span lines
 took the place of the step timers that re-ran a dispatch's steps one by
 one from outside.  The first line of a path names the card and its power
-limit.  Without a CUDA device it exits non-zero.
+limit, the second K2's warps an SM at the default ladder
+(``fused_epa.k2_resident_warps``: under its store rule, and under the rule
+that kept every tier in shared memory).  Without a CUDA device it exits
+non-zero.
 """
 
 from __future__ import annotations
@@ -228,6 +235,11 @@ def profile_path(name, fn, card) -> None:
         torch.cuda.synchronize()
     k1 = (fused_gjk.LAUNCHES - k1[0], fused_gjk.STAGED_LAUNCHES - k1[1])
     reads = fused_epa.STORE_READS - reads
+    with fused_epa.k2_tally(torch.device("cuda", torch.cuda.current_device())
+                            ) as tally:
+        fn()
+        torch.cuda.synchronize()
+    tally = tally.tolist()
     events = prof.events()
     kernels = device_ops(events)
     device_ms = (sum(e.time_range.elapsed_us() for e in kernels) / 1e3
@@ -247,6 +259,11 @@ def profile_path(name, fn, card) -> None:
           f"{k1[1] / PROFILED_CALLS:.1f} of them staged", flush=True)
     print(f"  {name} K2/K13 face store: {reads / PROFILED_CALLS:.1f} host "
           "reads of the hit count a call", flush=True)
+    hits = sum(tally[:-1])
+    if hits:
+        print(f"  {name} K2 tally, one call: {hits} hits, finished by tier "
+              f"{tally[:-1]}; {tally[-1]} took a pool slot "
+              f"({100.0 * tally[-1] / hits:.3f}% of hits)", flush=True)
     rows, program, lost = span_summary(events)
     n = PROFILED_CALLS
     for span, (host, device, launches, _) in sorted(rows.items()):
@@ -268,9 +285,15 @@ def main(argv) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
+    from .ops import fused_epa
+    from .ops.fused import cascade_plan
     cfg = GJKEPAConfig.for_f32()
+    new, old = fused_epa.k2_resident_warps(dev, cascade_plan(cfg))
+    print(f"K2 warps an SM at the default ladder: {new} (every tier in "
+          f"shared memory: {old}) [{card}]", flush=True)
     order = argv or ["c2", "c2dist", "c2dist1", "c3", "c3b", "c3b_unsorted",
-                     "c4", "big8192", "big2600", "c1", "c4portable",
+                     "c4", "deep64k", "big8192", "big2600", "c1",
+                     "c4portable",
                      "c4manifold", "c5sim1024", "c5sim16k",
                      "c2distportable", "c3distportable", "c4sharded4",
                      "c4checked"]
@@ -312,6 +335,10 @@ def main(argv) -> int:
                                              16384, 24))
         paths["c4"] = lambda: gjkepa_batch_fused(m1, m2, cfg=cfg)
         paths["c4portable"] = lambda: gjkepa_batch(m1, m2, cfg=cfg)
+    if "deep64k" in want:
+        e1, e2 = on_dev(*fixtures.deep_pairs(np.random.default_rng(0),
+                                             65536, 24))
+        paths["deep64k"] = lambda: fused_gjkepa_hulls(e1, e2, cfg=cfg)
     if want & {"c4manifold", "c4sharded4", "c4checked"}:
         from .debug import checked_fused_gjkepa_hulls
         from .parallel import (gjkepa_batch_fused_sharded, pair_mesh,

@@ -42,12 +42,13 @@ prints each one's time, registers and the least-squares fit t(W) = face +
 probe / W.
 
 ``k2``: K2 (``csrc/epa_hulls.cu``) runs a warp a hit, 1 warp a block, each
-tier's polytope in shared memory up to a face capacity and in device
-memory above it.  This rebuilds that source with ``-DK2_PAIRS=P`` for P =
-1, 2, 4 and 8 warps a block and runs each build with the default ladder's
-tiers in shared memory up to 48, 88 or 208 faces (or none), at c4 and at
-2048 x 24, and a forced-overflow ladder, each bit for bit against the
-plain version, and prints each one's device time.
+tier's polytope in shared memory up to a face capacity and in a slot of
+the device pool above it.  This rebuilds that source with
+``-DK2_PAIRS=P`` for P = 1, 2, 4 and 8 warps a block and runs each build
+with the default ladder's tiers in shared memory up to 48, 88 or 208
+faces (or none), at c4, at 2048 x 24 and at 65,536 x 24, and a
+forced-overflow ladder, each bit for bit against the plain version, and
+prints each one's device time and warps an SM.
 
 ``k12``: K12 (``csrc/gjk_hulls_big.cu``) runs a block of W warps a pair.
 This rebuilds that source with ``-DK12_WARPS=W`` for W = 2, 4, 8 and 16,
@@ -433,12 +434,14 @@ def k2(cs, dev, card) -> None:
     builds = variants(cs, "epa_hulls.cu",
                       {p: {"K2_PAIRS": p} for p in K2_PAIRS})
     # shared-memory store up to F faces; the default ladder's tiers above
-    # it in device memory (0: every tier there)
+    # it in the pool (0: every tier there)
     splits = {"all": 208, "tiers 1-2": 88, "tier 1": 48, "none": 0}
     cases = (("c4 16384 x 24", cs.deep_pairs(np.random.default_rng(0),
                                              16384, 24), stages, splits),
              ("2048 x 24", cs.deep_pairs(np.random.default_rng(0), 2048, 24),
               stages, splits),
+             ("65536 x 24", cs.deep_pairs(np.random.default_rng(0), 65536,
+                                          24), stages, splits),
              ("ladder 2048 x 23", cs.deep_pairs(np.random.default_rng(12),
                                                 2048, 23), ladder,
               {"all": 208, "tiers 1-2": 16, "none": 0}))
@@ -449,14 +452,18 @@ def k2(cs, dev, card) -> None:
         order, n_act = hit_first_order(g.hit)
         args = (p1, p2, g.simplex, g.status, order, n_act, st)
         want = fused_epa.epa_cascade_plain(*args)
+        facts = fused_epa.k2_device(dev)
         row = {"case": what, "hits": int(n_act),
                "mean_epa_iters": float(want.iters[g.hit].float().mean()),
                "max_epa_iters": int(want.iters.max()),
-               "rule_near_faces": fused_epa.near_store_faces(
-                   st, _build.load().epa_hulls_smem_bytes,
-                   _build.smem_limit(dev))}
+               "rule_near_faces": fused_epa.k2_near_faces(
+                   st, _build.load().epa_hulls_smem_bytes, facts.blocks,
+                   facts.sm_bytes, facts.reserve)}
         for pairs, ns in builds.items():
+            fused_epa.k2_device.cache_clear()  # this build's registers
             with mock.patch.object(_build, "load", lambda ns=ns: ns):
+                row[f"P{pairs} warps an SM"] = fused_epa.k2_resident_warps(
+                    dev, st)
                 for name, near in split.items():
                     def fn(near=near):
                         return fused_epa._epa_cascade_cuda(*args,
@@ -468,11 +475,13 @@ def k2(cs, dev, card) -> None:
                             f"K2 at P={pairs}, shared store up to {near} "
                             f"faces, differs from plain at {what}")
                     row[f"P{pairs} {name}"] = cs.device_ms(fn)
+            fused_epa.k2_device.cache_clear()
         table.append(row)
         print(f"K2 {what}: {row['hits']} hits, mean epa_iters "
               f"{row['mean_epa_iters']:.3f} (max {row['max_epa_iters']}); "
               f"every block size and store split bit-equal to plain; "
-              + ", ".join(f"{k} {v:.4f}" for k, v in row.items()
+              + ", ".join(f"{k} {v:.4f}" if isinstance(v, float)
+                          else f"{k} {v}" for k, v in row.items()
                           if k.startswith("P")) + f" ms [{card}]", flush=True)
         del p1, p2, g, want, args
         torch.cuda.empty_cache()

@@ -7,10 +7,11 @@ separated cubes) and against the frozen float64 oracle
 (``benchmark/oracle.py``); the port's ``fused_gjkepa_hulls`` (its plain
 versions on CPU tensors) is held against it; the cell
 ``hull24_64k.deep_penetration`` runs small through the harness, correct,
-while its bfloat16 control fails every compared number; K2's host read of
-the hit count (``fused_epa.face_stores``) is counted and spanned; and the
-cell's two new metric readers read made-up traces.  One test, marked
-``cuda``, runs K2 at the cell's 65,536 hits on the card:
+while its bfloat16 control fails every compared number; K13's host read
+of the hit count (``fused_epa.face_stores``, which K2 no longer takes:
+its far tiers run in a pool no host read sizes) is counted and spanned;
+and the cell's two new metric readers read made-up traces.  One test,
+marked ``cuda``, runs K2 at the cell's 65,536 hits on the card:
 
     python -m pytest tests/test_penetration_reference.py -q -m cuda \
         --noconftest -o addopts="" -p no:cacheprovider
@@ -178,9 +179,10 @@ def test_readings_take_only_the_lanes_asked_for():
 
 @pytest.fixture
 def k2_store(monkeypatch):
-    """``face_stores`` over the default ladder on the CPU: an H100's shared
-    memory limit and a stand-in of K2's block bytes (1,152 B of scratch and
-    68 B a face), and a stand-in of the built library's face words."""
+    """``face_stores`` (K13's) over the default ladder on the CPU: an
+    H100's shared memory limit and a stand-in of K13's block bytes (the
+    probe exchange and one warp's scratch, 1,296 B, and 68 B a face), and a
+    stand-in of the built library's face words."""
     monkeypatch.setattr(fused_epa._build, "smem_limit",
                         lambda dev: H100_LIMIT)
     library = types.SimpleNamespace(epa_scratch_words_per_face=lambda: 17)
@@ -191,7 +193,7 @@ def k2_store(monkeypatch):
         before = fused_epa.STORE_READS
         hits = torch.tensor(300, dtype=torch.int32)
         near, far_faces, far = fused_epa.face_stores(
-            stages, lambda f: 1152 + 68 * f, hits, torch.device("cpu"),
+            stages, lambda f: 1296 + 68 * f, hits, torch.device("cpu"),
             near_faces)
         return fused_epa.STORE_READS - before, far_faces, far
     return stores
@@ -258,7 +260,8 @@ def test_store_reads_per_call(monkeypatch):
 @pytest.mark.cuda
 def test_k2_at_the_cells_hits_on_card():
     """K2 over 65,536 deep hits (the cell's batch) bit for bit against its
-    plain version on the same tensors, with no host read."""
+    plain version on the same tensors, with no host read; its tally counts
+    every hit once and its pool's masks end clear."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from gjkepa_tpu_torch.ops.fused_gjk import gjk_hulls
@@ -272,9 +275,12 @@ def test_k2_at_the_cells_hits_on_card():
     gr = gjk_hulls(p1, p2, cfg, True)
     order, n_act = hit_first_order(gr.hit)
     reads = fused_epa.STORE_READS
-    k = fused_epa.epa_cascade(p1, p2, gr.simplex, gr.status, order, n_act,
-                              stages)
+    with fused_epa.k2_tally(dev) as tally:
+        k = fused_epa.epa_cascade(p1, p2, gr.simplex, gr.status, order,
+                                  n_act, stages)
     assert fused_epa.STORE_READS == reads
+    assert int(tally[:-1].sum()) == int(n_act)
+    assert not any(bool(m.any()) for _, m in fused_epa._POOLS.values())
     plain = fused_epa.epa_cascade_plain(p1, p2, gr.simplex, gr.status, order,
                                         n_act, stages)
     assert int(n_act) > 65000

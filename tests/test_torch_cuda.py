@@ -21,7 +21,11 @@ rows bit for bit at every team size, K8's two-phase equal to one pass, K9
 in the dispatch's order and in the caller's.  K2, K12 and K13 (the warp
 kernels over K11's support): rows bit for bit against their plain
 versions on every input, the tie fixture, both of K2's face stores and
-both of K12's hull sources included.  K1 at each team size and K2 and
+both of K12's hull sources included.  K2's store rule over the card's
+own occupancy facts; K2 on 16,384 hits with its tiers as the rule places
+them and all in its device pool (more hits than slots), and two launches
+in flight on two streams: bit for bit, the tally summing to the hits, the
+pool's slot masks clear after.  K1 at each team size and K2 and
 K13 over a tier ladder forced to overflow into their retries, at vertex
 counts with each remainder mod 4: bit for bit; K1 without the broadphase
 at each team size, K13 with its tiers in shared memory, device memory or
@@ -628,10 +632,11 @@ def test_k13_takes_a_polytope_past_48_kb(dev):
 
 
 def test_kernel_byte_counts_are_the_rules(dev):
-    """On the card, K2's size rule over the kernel's own byte count keeps
-    the whole default ladder in shared memory and sends a 4,096-face store
-    to device memory, and K12's launcher stages 2,600 + 2,600 and 8,192 +
-    8,192 vertices but not 10,240 + 10,240."""
+    """On the card, the block-fit rule (K13's, and K2's before its pool)
+    over K2's own byte count keeps the whole default ladder in shared
+    memory and sends a 4,096-face store to device memory, and K12's
+    launcher stages 2,600 + 2,600 and 8,192 + 8,192 vertices but not
+    10,240 + 10,240."""
     from gjkepa_tpu_torch import _build
     lib = _build.load()
     limit = _build.smem_limit(dev)
@@ -657,10 +662,10 @@ def _deep(rng, b, n):
 @pytest.mark.parametrize("n", [24, 23])
 def test_k2_overflow_ladder_is_bit_equal_to_plain(dev, n, near):
     """K2 over a ladder whose first tiers overflow (F=8, K=2; F=16, K=4;
-    F=208, K=16), with the tiers in shared memory (the rule: all three),
-    the first two there and the last in device memory, or all in device
-    memory: rows bit for bit against the plain cascade; at 23 vertices K11
-    takes its scalar scan."""
+    F=208, K=16), with the tiers as its store rule places them, the first
+    two in shared memory and the last in the pool, or all in the pool:
+    rows bit for bit against the plain cascade; at 23 vertices K11 takes
+    its scalar scan."""
     rng = np.random.default_rng(12)
     p1, p2 = (t.to(dev) for t in _deep(rng, 2048, n))
     cfg = GJKEPAConfig.for_f32()
@@ -679,7 +684,7 @@ def test_k2_overflow_ladder_is_bit_equal_to_plain(dev, n, near):
 
 def test_k2_takes_a_polytope_past_shared_memory(dev):
     """A face capacity whose store does not fit in a block's shared memory
-    (F = 4096) runs in K2's device store, bit for bit: no refusal."""
+    (F = 4096) runs in K2's pool, bit for bit: no refusal."""
     from gjkepa_tpu_torch import _build
     rng = np.random.default_rng(13)
     p1, p2 = (t.to(dev) for t in _deep(rng, 512, 24))
@@ -694,6 +699,95 @@ def test_k2_takes_a_polytope_past_shared_memory(dev):
     assert fused_epa.LAUNCHES == n0 + 1
     assert int(n_act) > 300
     assert _rows_equal(ek, fused_epa.epa_cascade_plain(*args))
+
+
+def test_k2_store_rule_on_card(dev):
+    """K2's rule over the card's own facts: the registers' blocks an SM fit
+    in shared memory beside the tiers it keeps there, the occupancy
+    calculator gives K2 those warps an SM (no fewer than with every tier
+    in shared memory), and the tiers past them take the pool, whose slots
+    cover the most K2 warps an SM holds."""
+    lib = _build.load()
+    facts = fused_epa.k2_device(dev)
+    stages = cascade_plan(GJKEPAConfig.for_f32())
+    near = fused_epa.k2_near_faces(stages, lib.epa_hulls_smem_bytes,
+                                   facts.blocks, facts.sm_bytes,
+                                   facts.reserve)
+    new, old = fused_epa.k2_resident_warps(dev, stages)
+    props = torch.cuda.get_device_properties(dev)
+    assert facts.blocks >= 1 and facts.pairs == 1
+    assert facts.sm_ids >= props.multi_processor_count
+    assert facts.blocks * facts.pairs <= facts.slots <= 64
+    assert facts.blocks * (lib.epa_hulls_smem_bytes(near) + facts.reserve) \
+        <= facts.sm_bytes
+    assert new == facts.blocks * facts.pairs >= old
+    assert near in (0, 48, 88, 208)
+    if near < 208:
+        assert facts.blocks * (lib.epa_hulls_smem_bytes(208)
+                               + facts.reserve) > facts.sm_bytes
+        assert new > old
+
+
+def _k2_case(dev, b, seed):
+    rng = np.random.default_rng(seed)
+    p1, p2 = (t.to(dev) for t in _deep(rng, b, 24))
+    cfg = GJKEPAConfig.for_f32()
+    g = fused_gjk.gjk_hulls(p1, p2, cfg)
+    order, n_act = hit_first_order(g.hit)
+    return (p1, p2, g.simplex, g.status, order, n_act, cascade_plan(cfg))
+
+
+def _pool_clear():
+    torch.cuda.synchronize()
+    return not any(bool(m.any()) for _, m in fused_epa._POOLS.values())
+
+
+@pytest.mark.parametrize("near", [None, 0], ids=["rule", "pool"])
+def test_k2_pool_is_bit_equal_to_plain(dev, near):
+    """K2 on 16,384 deep hits over the default ladder, its tiers as the
+    rule places them or every tier in the pool (each hit claims a slot:
+    more hits than the pool has slots, so slots are reused): rows bit for
+    bit against the plain cascade, the tally counts every hit once and a
+    claim for each hit that reached a pooled tier, the pool's masks end
+    clear and no host read is taken."""
+    args = _k2_case(dev, 16384, 14)
+    facts = fused_epa.k2_device(dev)
+    n = int(args[5])
+    assert n > facts.sm_ids * facts.slots
+    reads = fused_epa.STORE_READS
+    with fused_epa.k2_tally(dev) as tally:
+        ek = fused_epa._epa_cascade_cuda(*args, near_faces=near)
+    assert fused_epa.STORE_READS == reads
+    assert _pool_clear()
+    tally = tally.tolist()
+    assert sum(tally[:-1]) == n
+    if near is None:
+        near = fused_epa.k2_near_faces(
+            args[6], _build.load().epa_hulls_smem_bytes, facts.blocks,
+            facts.sm_bytes, facts.reserve)
+    pooled = [c.epa_max_faces > near for c, _ in args[6]]
+    assert tally[-1] == sum(t for t, p in zip(tally, pooled) if p)
+    assert _rows_equal(ek, fused_epa.epa_cascade_plain(*args))
+
+
+def test_k2_launches_in_flight_on_two_streams(dev):
+    """Two K2 launches on two streams at once, every tier in the pool, so
+    that both claim slots of the same masks: each gives the plain rows,
+    and the masks end clear."""
+    a = _k2_case(dev, 8192, 15)
+    b = _k2_case(dev, 8192, 16)
+    want = [fused_epa.epa_cascade_plain(*x) for x in (a, b)]
+    fused_epa._epa_cascade_cuda(*a, near_faces=0)   # the pool made first
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    got = []
+    for x, st in zip((a, b), streams):
+        st.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(st):
+            got.append(fused_epa._epa_cascade_cuda(*x, near_faces=0))
+    for st in streams:
+        torch.cuda.current_stream(dev).wait_stream(st)
+    assert _pool_clear()
+    assert all(_rows_equal(g, w) for g, w in zip(got, want))
 
 
 def test_k12_scans_hulls_past_shared_memory(dev):

@@ -1,15 +1,24 @@
 """K2's and K13's face stores by size, in plain Python, at their byte
 boundaries, and K7's and K10's store, which always fits.
 
-K2 (csrc/epa_hulls.cu) keeps a tier's polytope in shared memory where its
-store fits, and in device memory otherwise (``fused_epa.near_store_faces``,
-``far_store_faces``).  The rule takes the kernel's byte count as a function
-(``epa_hulls_smem_bytes`` on the card) and the limit as an argument, so it
-is held here without a card, against stand-ins of that count: a block of
-P warps, each 1,152 B of scratch and 68 B a face.  K13
-(csrc/epa_hulls_big.cu) takes the same rule over its own block: one
-polytope a block of 8 warps, the probe exchange and one warp's scratch
-beside the faces (``epa_hulls_big_smem_bytes`` on the card).  K7 (csrc/epa_shapes.cu)
+K2 (csrc/epa_hulls.cu) keeps a tier's polytope in shared memory while its
+block still lets as many blocks an SM as K2's registers allow fit in the
+SM's shared memory, and every larger tier in a slot of a device pool
+(``fused_epa.k2_near_faces``, ``far_store_faces``, ``k2_pool``).  The rule
+takes the kernel's byte count as a function (``epa_hulls_smem_bytes`` on
+the card), the register-bound blocks an SM, the SM's shared memory and the
+reserve a block as arguments (``epa_hulls_device`` on the card), so it is
+held here without a card, against stand-ins of them: a block of P warps,
+each 1,152 B of scratch and 68 B a face, 16 warps an SM by the registers
+(111 a thread: a scheduler's quarter of the register file holds 4 such
+warps), and an H100's 233,472 B an SM, 1,024 B reserved a block
+(232,448 B a block at most).  The pool's size and K2's launch arguments
+are held through a stand-in of the library on CPU tensors.  K13
+(csrc/epa_hulls_big.cu) keeps each tier in shared memory where its own
+store fits in a block (``near_store_faces``) and in a device store
+otherwise: one polytope a block of 8 warps, the probe exchange and one
+warp's scratch beside the faces (``epa_hulls_big_smem_bytes`` on the
+card).  K7 (csrc/epa_shapes.cu)
 keeps its one store in shared memory and has no device store: the shape
 ladder (``fused_shapes.shape_stages``) is 48 faces at every
 ``epa_max_iters``, so a block of W warps takes W * (1,152 + 68 * 48) B
@@ -25,7 +34,11 @@ that count, with the teams of K1, K8 and K9, which the staging leaves as
 they were.
 """
 
+import contextlib
+import types
+
 import pytest
+import torch
 
 from gjkepa_tpu_torch import GJKEPAConfig
 from gjkepa_tpu_torch.ops import (fused_distance, fused_epa, fused_gjk,
@@ -33,11 +46,22 @@ from gjkepa_tpu_torch.ops import (fused_distance, fused_epa, fused_gjk,
 from gjkepa_tpu_torch.ops.fused import cascade_plan
 
 H100_LIMIT = 232_448     # an H100 block's opt-in shared memory
+H100_SM = 233_472        # an H100 SM's shared memory
+RESERVE = 1_024          # shared memory reserved a block
+K2_WARPS = 16            # K2's warps an SM by its registers (111 a thread)
 
 
 def k2_bytes(pairs):
     """A stand-in of K2's block bytes, built with P = ``pairs`` warps."""
     return lambda faces: pairs * (1152 + 68 * faces)
+
+
+def _k2_stores(stages, smem_bytes, blocks, sm_bytes=H100_SM):
+    near = fused_epa.k2_near_faces(stages, smem_bytes, blocks, sm_bytes,
+                                   RESERVE)
+    far = fused_epa.far_store_faces(stages, near)
+    return near, far, ["shared" if c.epa_max_faces <= near else "pool"
+                       for c, _ in stages]
 
 
 def _stores(stages, smem_bytes, limit):
@@ -54,34 +78,60 @@ def _ladder(*faces):
 
 @pytest.mark.parametrize("pairs", [1, 2, 4, 8])
 def test_k2_default_ladder_at_the_byte_boundary(pairs):
-    """The default ladder (F = 48, 88, 208) keeps every tier in shared
-    memory at an H100's limit; one byte below a tier's need sends that
-    tier, and only it and the larger ones, to device memory."""
+    """At the blocks an SM K2's registers allow (16 warps, P a block) the
+    default ladder (F = 48, 88, 208) keeps 48 and 88 faces in shared
+    memory and pools 208; on an SM whose shared memory gives each block
+    exactly a tier's bytes that tier stays shared, and one byte less sends
+    it, and only it and the larger ones, to the pool."""
     stages = cascade_plan(GJKEPAConfig.for_f32())
     assert [c.epa_max_faces for c, _ in stages] == [48, 88, 208]
-    nbytes = k2_bytes(pairs)
-    assert _stores(stages, nbytes, H100_LIMIT) == (208, 0, ["shared"] * 3)
-    need = {f: nbytes(f) for f in (48, 88, 208)}
-    assert _stores(stages, nbytes, need[208]) == (208, 0, ["shared"] * 3)
-    assert _stores(stages, nbytes, need[208] - 1) == (
-        88, 208, ["shared", "shared", "device"])
-    assert _stores(stages, nbytes, need[88]) == (
-        88, 208, ["shared", "shared", "device"])
-    assert _stores(stages, nbytes, need[88] - 1) == (
-        48, 208, ["shared", "device", "device"])
-    assert _stores(stages, nbytes, need[48] - 1) == (
-        0, 208, ["device"] * 3)
+    nbytes, blocks = k2_bytes(pairs), K2_WARPS // pairs
+    assert _k2_stores(stages, nbytes, blocks) == (
+        88, 208, ["shared", "shared", "pool"])
+
+    def sm(faces):     # the SM whose share a block is that tier's block
+        return blocks * (nbytes(faces) + RESERVE)
+    assert _k2_stores(stages, nbytes, blocks, sm(208)) == (
+        208, 0, ["shared"] * 3)
+    assert _k2_stores(stages, nbytes, blocks, sm(208) - 1) == (
+        88, 208, ["shared", "shared", "pool"])
+    assert _k2_stores(stages, nbytes, blocks, sm(88)) == (
+        88, 208, ["shared", "shared", "pool"])
+    assert _k2_stores(stages, nbytes, blocks, sm(88) - 1) == (
+        48, 208, ["shared", "pool", "pool"])
+    assert _k2_stores(stages, nbytes, blocks, sm(48) - 1) == (
+        0, 208, ["pool"] * 3)
+
+
+@pytest.mark.parametrize("blocks, near", [
+    (1, 208), (2, 208), (7, 208), (14, 208), (15, 88), (16, 88), (18, 88),
+    (20, 88), (24, 88),
+    (28, 88), (29, 48), (32, 48)])
+def test_k2_rule_follows_the_register_bound(blocks, near):
+    """A ladder that fits whole under the register bound (up to 14 one-warp
+    blocks an SM: 14 x (15,296 + 1,024) B <= 233,472) keeps every tier in
+    shared memory and pools nothing, as the rule it replaced; past it the
+    208-face tier takes the pool (88 faces fit up to 28 blocks, 48 faces
+    beyond)."""
+    stages = cascade_plan(GJKEPAConfig.for_f32())
+    got_near, far, where = _k2_stores(stages, k2_bytes(1), blocks)
+    assert got_near == near
+    assert far == (0 if near == 208 else 208)
+    assert where.count("pool") == (near < 208) + (near < 88)
+    assert blocks * (k2_bytes(1)(near) + RESERVE) <= H100_SM
 
 
 def test_k2_runs_a_store_past_shared_memory_in_device_memory():
     """A face capacity past a block's shared memory (F = 4096: 279,680 B a
-    warp) is no refusal: it takes the device store, and a ladder mixing it
-    with small tiers keeps those in shared memory."""
+    warp) is no refusal: it takes the pool, and a ladder mixing it with
+    small tiers keeps those in shared memory."""
     nbytes = k2_bytes(1)
     assert nbytes(4096) == 279_680 > H100_LIMIT
-    assert _stores(_ladder(4096), nbytes, H100_LIMIT) == (0, 4096, ["device"])
-    assert _stores(_ladder(8, 16, 4096), nbytes, H100_LIMIT) == (
-        16, 4096, ["shared", "shared", "device"])
+    assert _k2_stores(_ladder(4096), nbytes, K2_WARPS) == (0, 4096, ["pool"])
+    assert _k2_stores(_ladder(8, 16, 4096), nbytes, K2_WARPS) == (
+        16, 4096, ["shared", "shared", "pool"])
+    assert _k2_stores(_ladder(8, 16, 4096), nbytes, 1) == (
+        16, 4096, ["shared", "shared", "pool"])
 
 
 @pytest.mark.parametrize("limit", [0, 20_000, 60_000])
@@ -91,15 +141,144 @@ def test_k2_runs_a_store_past_shared_memory_in_device_memory():
                          ids=lambda f: "-".join(map(str, f)))
 def test_k2_a_tier_is_shared_exactly_when_its_store_fits(faces, limit):
     """Whatever the ladder's order, a tier keeps its faces in shared memory
-    exactly when its own store fits in the limit, and the device store
-    holds the largest of the others (none when every tier fits)."""
+    exactly when its block fits in a block's share of the SM (``limit``
+    bytes, the reserve aside, at K2's blocks an SM), and the pool holds
+    the largest of the others (none when every tier fits)."""
     stages = _ladder(*faces)
     nbytes = k2_bytes(2)
-    near, far, where = _stores(stages, nbytes, limit)
-    assert where == ["shared" if nbytes(f) <= limit else "device"
+    blocks = K2_WARPS // 2
+    near, far, where = _k2_stores(stages, nbytes, blocks,
+                                  blocks * (limit + RESERVE))
+    assert where == ["shared" if nbytes(f) <= limit else "pool"
                      for f in faces]
     assert far == max((f for f in faces if nbytes(f) > limit), default=0)
     assert near == max((f for f in faces if nbytes(f) <= limit), default=0)
+
+
+# An H100's K2 facts as epa_hulls_device reports them (blocks by the
+# registers, P, shared memory an SM, reserve, slots an SM id, SM ids).
+H100_K2 = fused_epa.K2Device(16, 1, H100_SM, RESERVE, 32, 132)
+
+
+class K2Library:
+    """A stand-in of the built library's K2 entry points: the device facts
+    given, K2's block bytes and face words, and a launch that records its
+    arguments."""
+
+    def __init__(self, facts):
+        self.facts = facts
+        self.launches = []
+
+    def epa_hulls_blocks_per_sm(self, smem):
+        return self.facts.blocks    # the registers bind these blocks
+
+    def epa_hulls_device(self, out):
+        for i, v in enumerate(self.facts[1:]):
+            out[i] = v
+        return 0
+
+    def epa_hulls_smem_bytes(self, faces):
+        return 1152 + 68 * faces
+
+    def epa_scratch_words_per_face(self):
+        return 17
+
+    def epa_hulls_launch(self, *args):
+        self.launches.append(args)
+        return 0
+
+
+@pytest.fixture
+def k2_library(monkeypatch):
+    """K2's wrapper over CPU tensors with the library stood in (no card):
+    each test gives its facts and reads the launches."""
+    def use(facts):
+        lib = K2Library(facts)
+        monkeypatch.setattr(fused_epa._build, "load", lambda: lib)
+        return lib
+    monkeypatch.setattr(fused_epa, "_POOLS", {})
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    fused_epa.k2_device.cache_clear()
+    yield use
+    fused_epa.k2_device.cache_clear()
+
+
+def _k2_inputs(b, hits):
+    g = torch.Generator().manual_seed(b)
+    return (torch.randn(b, 24, 3, generator=g),
+            torch.randn(b, 24, 3, generator=g),
+            torch.randn(b, 4, 3, generator=g),
+            torch.ones(b, dtype=torch.int32),
+            torch.arange(b, dtype=torch.int32),
+            torch.tensor(hits, dtype=torch.int32))
+
+
+# positions of epa_hulls_launch's arguments
+POOL_FACES, POOL_MASK, TALLY, B_ARG = 9, 10, 11, 12
+NEAR, FAR, PER_SM = 18, 19, 20
+
+
+@pytest.mark.parametrize("facts", [H100_K2, H100_K2._replace(sm_ids=144),
+                                   H100_K2._replace(slots=64, pairs=2),
+                                   H100_K2._replace(slots=40, sm_ids=8)],
+                         ids=["h100", "144-ids", "p2", "40-slots"])
+def test_k2_pool_depends_on_the_card_alone(k2_library, facts):
+    """K2's pool holds a slot of 208 faces for every K2 warp an SM can hold
+    on every SM id, with a zeroed mask word for each 32 slots an SM id:
+    the same tensors, made once, for every batch size and hit count, and
+    no host read of the hit count."""
+    lib = k2_library(facts)
+    stages = cascade_plan(GJKEPAConfig.for_f32())
+    reads = fused_epa.STORE_READS
+    for b, hits in ((64, 0), (64, 64), (256, 17), (4096, 4096), (1, 1)):
+        fused_epa._epa_cascade_cuda(*_k2_inputs(b, hits), stages)
+    assert fused_epa.STORE_READS == reads
+    ((faces, mask),) = fused_epa._POOLS.values()
+    assert faces.shape == (facts.sm_ids * facts.slots, 17, 208)
+    assert mask.shape == (facts.sm_ids, -(-facts.slots // 32))
+    assert mask.dtype == torch.int32 and not mask.any()
+    assert [a[B_ARG] for a in lib.launches] == [64, 64, 256, 4096, 1]
+    for a in lib.launches:
+        assert a[POOL_FACES].value == faces.data_ptr()
+        assert a[POOL_MASK].value == mask.data_ptr()
+        assert (a[NEAR], a[FAR], a[PER_SM]) == (88, 208, facts.slots)
+        assert a[TALLY] is None
+
+
+@pytest.mark.parametrize("blocks, near, pooled", [
+    (14, None, False), (16, None, True), (16, 208, False), (16, 0, True),
+    (1, 48, True)])
+def test_k2_pool_only_where_a_tier_needs_it(k2_library, blocks, near,
+                                            pooled):
+    """No pool is made or passed while every tier fits in K2's share of
+    shared memory (the rule at 14 blocks an SM, or a store of 208 faces
+    forced); a tier past it passes the pool."""
+    lib = k2_library(H100_K2._replace(blocks=blocks))
+    stages = cascade_plan(GJKEPAConfig.for_f32())
+    fused_epa._epa_cascade_cuda(*_k2_inputs(32, 32), stages, near_faces=near)
+    (args,) = lib.launches
+    assert (args[POOL_FACES] is not None) == pooled
+    assert (args[POOL_MASK] is not None) == pooled
+    assert len(fused_epa._POOLS) == int(pooled)
+    assert args[FAR] == (208 if pooled else 0)
+
+
+def test_k2_tally_is_passed_only_while_open(k2_library):
+    """``k2_tally`` hands K2 an int32 (MAX_TIERS + 1) tally on the launch's
+    device while open, and none after (the main path's)."""
+    lib = k2_library(H100_K2)
+    stages = cascade_plan(GJKEPAConfig.for_f32())
+    inputs = _k2_inputs(32, 32)
+    with fused_epa.k2_tally(torch.device("cpu")) as tally:
+        fused_epa._epa_cascade_cuda(*inputs, stages)
+    fused_epa._epa_cascade_cuda(*inputs, stages)
+    assert tally.shape == (fused_epa.MAX_TIERS + 1,)
+    assert tally.dtype == torch.int32
+    assert lib.launches[0][TALLY].value == tally.data_ptr()
+    assert lib.launches[1][TALLY] is None and fused_epa.TALLY is None
 
 
 def k7_bytes(warps):
