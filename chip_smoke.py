@@ -2557,12 +2557,10 @@ def main() -> int:
         f"{[c.epa_max_faces for c, _ in stages]} in shared memory up to "
         f"{near} faces ({lib.epa_hulls_smem_bytes(near)} B a block), the pool "
         f"{fused_epa.far_store_faces(stages, near)} faces a slot; "
-        f"{warps[0]} warps an SM ({warps[1]} with every tier in shared "
-        "memory)")
-    check(warps[0] >= warps[1] and warps[0] >= facts.blocks * facts.pairs,
-          f"phase 2: K2's store rule gives {warps[0]} warps an SM, the "
-          f"registers {facts.blocks * facts.pairs}, every tier shared "
-          f"{warps[1]}")
+        f"{warps} warps an SM")
+    check(warps >= facts.blocks * facts.pairs,
+          f"phase 2: K2's store rule gives {warps} warps an SM, the "
+          f"registers {facts.blocks * facts.pairs}")
     # a ladder whose first tiers overflow, its tiers as the rule places
     # them, the last in the pool, all in the pool; then a face capacity
     # past shared memory, which takes the pool

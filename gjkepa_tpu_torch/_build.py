@@ -36,7 +36,7 @@ SOURCES = ("gjk_hulls.cu", "epa_hulls.cu", "cf_shapes.cu", "gjk_shapes.cu",
            "epa_hull_shape.cu", "gjk_hulls_big.cu", "epa_hulls_big.cu")
 HEADERS = ("lane_geom.cuh", "gjk_core.cuh", "gjk_quad.cuh", "epa_core.cuh",
            "shape_geom.cuh", "hull_shape.cuh", "hull_stream.cuh",
-           "epa_warp.cuh", "epa_polish_warp.cuh")
+           "epa_warp.cuh", "epa_polish_warp.cuh", "tma_stage.cuh")
 NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -17,7 +17,7 @@
 // What bounds it: 129 bytes in (two 64-byte rows and the retirement bit)
 // and 26 out per pair, and a few hundred flops: a memory-bound pass with
 // one long branch, the box-box SAT (15 axes, each with a square root and a
-// divide).  On an H100 (scripts/torch_kernel_sweep.py k5; PERF.md) a
+// divide).  On an H100 (PERF.md, Findings) a
 // kernel that only moves these bytes takes ~4.0 us at c3.  The first
 // version of this kernel took 7.2 us in natural order, its box quarter
 // alone 6.5 us: the SAT loop kept its axes in local memory (a 72-byte

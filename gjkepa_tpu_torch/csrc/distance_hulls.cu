@@ -56,21 +56,18 @@
 // shortens each iteration, the candidates computed side by side rather than
 // one after another.  Over every pair the chains are what the card waits
 // on, so the warps an SM holds matter: unbounded, ptxas takes 138-142
-// registers (3 blocks, 12 warps an SM); K8_MIN_BLOCKS = 4 bounds it to
+// registers (3 blocks, 12 warps an SM); kMinBlocks = 4 bounds it to
 // 126 without a spill (16 warps) and reads faster, while 6 or 8 blocks (80
 // or 64 registers) spill and read slower; a flat loop in which each team
-// walks its own pairs read no faster than a team a pair
-// (`scripts/torch_kernel_sweep.py k8`; PERF.md).
+// walks its own pairs read no faster than a team a pair (PERF.md,
+// Findings).
 #include "hull_stream.cuh"
 
 namespace gjkepa {
 namespace {
 
 constexpr int kThreads = 128;
-#ifndef K8_MIN_BLOCKS
-#define K8_MIN_BLOCKS 4
-#endif
-constexpr int kMinBlocks = K8_MIN_BLOCKS;  // blocks an SM ptxas sizes registers for
+constexpr int kMinBlocks = 4;  // blocks an SM ptxas sizes registers for
 constexpr float kBigD2 = 3.4e38f;  // d2 of an invalid candidate
 constexpr float kEpsRel = 1e-6f;   // relative duality gap; |v|^2 of a touch
 

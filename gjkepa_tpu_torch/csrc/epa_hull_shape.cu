@@ -18,9 +18,8 @@
 // hull_shape.cuh, the hull's first maximum scanned by the warp's 32
 // threads, as float4 groups of 4 vertices where N % 4 == 0, and reduced by
 // xor shuffles, ties to the smaller index; every thread evaluates the
-// shape side itself) and its block size, K10_WARPS = 1 warp, fixed at
-// compile time (PERF.md); `scripts/torch_kernel_sweep.py k10` rebuilds this
-// file with -DK10_WARPS=W to time 1, 2 and 4.  A block takes
+// shape side itself) and its block size, kWarps = 1 warp, as K7's
+// (PERF.md, Findings).  A block takes
 // epa_hull_shape_smem_bytes(f_max) of shared memory, 4,416 B a warp at the
 // shape ladder's 48 faces; a ladder whose store does not fit raises.
 //
@@ -36,10 +35,7 @@
 namespace gjkepa {
 namespace {
 
-#ifndef K10_WARPS
-#define K10_WARPS 1
-#endif
-constexpr int kWarps = K10_WARPS;  // W, the warps (hits in flight) a block
+constexpr int kWarps = 1;  // W, the warps (hits in flight) a block
 
 // A pair's support: its (N, 3) hull against its analytic shape.
 struct HullShapePairs {

@@ -19,9 +19,8 @@
 // same plain version; K13 shares each probe across a block because its
 // hulls are large, K2 gives each warp its own pair because its hulls are
 // small.
-// P is K2_PAIRS = 1, fixed at compile time: of 1, 2, 4 and 8 the fastest
-// on an H100 (PERF.md); `scripts/torch_kernel_sweep.py k2` rebuilds this
-// file with -DK2_PAIRS=P to time the others.
+// P is kPairs = 1: of 1, 2, 4 and 8 the fastest on an H100 (PERF.md,
+// Findings).
 //
 // Face stores by size, never a refusal.  The block's dynamic shared memory
 // holds, for each of its P warps, a WarpScratch (1,152 B) and a face store
@@ -57,10 +56,7 @@
 namespace gjkepa {
 namespace {
 
-#ifndef K2_PAIRS
-#define K2_PAIRS 1
-#endif
-constexpr int kPairs = K2_PAIRS;  // P, the warps (pairs) a block
+constexpr int kPairs = 1;  // P, the warps (pairs) a block
 
 // P warps, each its scratch and its near face store (epa_warp.cuh).
 inline size_t smem_bytes(int near_faces) {

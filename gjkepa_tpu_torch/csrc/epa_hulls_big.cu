@@ -43,9 +43,8 @@
 // word): it is a few shared-memory passes an iteration, and one warp keeps
 // its ballots and shuffles free of block barriers.  The barrier is the
 // named barrier 1 (barrier.sync, not .aligned), which warps may reach from
-// different code.  W is K13_WARPS = 8, the fastest of 1, 2, 4 and 8 on an
-// H100 at both measured sizes (PERF.md); `scripts/torch_kernel_sweep.py
-// warps` rebuilds this file with -DK13_WARPS=W to time the others.
+// different code.  W is kWarps = 8, the fastest of 1, 2, 4 and 8 on an
+// H100 at both measured sizes (PERF.md, Findings).
 //
 // What bounds it: the probes' bytes at the card's memory rate (the L2 holds
 // 256 pairs of 8192 + 8192 vertices, 50 MB, only in part), then warp 0's
@@ -57,10 +56,7 @@
 namespace gjkepa {
 namespace {
 
-#ifndef K13_WARPS
-#define K13_WARPS 8
-#endif
-constexpr int kWarps = K13_WARPS;  // W, the warps a block
+constexpr int kWarps = 8;  // W, the warps a block
 
 using Probe = BlockProbe<kWarps>;
 using Support = BlockHullSupport<kWarps>;

@@ -28,7 +28,8 @@
 // The grid.  The hit count lies on the device, so the launcher sizes the
 // grid to the blocks the card holds at once (at most one warp a pair) and
 // each warp strides over the hit ranks.  A block holds W warps, a
-// compile-time constant of each kernel (K7_WARPS, K10_WARPS), and takes
+// compile-time constant of each kernel (kWarps in epa_shapes.cu and
+// epa_hull_shape.cu), and takes
 // polish_smem_bytes<W>(f_max) of shared memory, 4,416 B a warp at the
 // shape ladder's 48 faces; a ladder whose store does not fit makes the
 // launcher return cudaErrorInvalidValue.

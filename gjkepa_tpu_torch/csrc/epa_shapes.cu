@@ -13,9 +13,8 @@
 // (ShapePairs: the GJK hits without a closed form; the analytic shape
 // support of shape_geom.cuh, which every thread evaluates on the same
 // direction to the same point, so it needs no scan and no shuffle) and its
-// block size, K7_WARPS = 1 warp, fixed at compile time: of 1, 2 and 4 the
-// fastest on an H100 (PERF.md); `scripts/torch_kernel_sweep.py k7`
-// rebuilds this file with -DK7_WARPS=W to time the others.  A block takes
+// block size, kWarps = 1 warp: of 1, 2 and 4 the fastest on an H100
+// (PERF.md, Findings).  A block takes
 // epa_shapes_smem_bytes(f_max) of shared memory, 4,416 B a warp at the
 // shape ladder's 48 faces; a ladder whose store does not fit raises.
 // Every pair off the hit list keeps the pass-through row the wrapper wrote
@@ -31,10 +30,7 @@
 namespace gjkepa {
 namespace {
 
-#ifndef K7_WARPS
-#define K7_WARPS 1
-#endif
-constexpr int kWarps = K7_WARPS;  // W, the warps (hits in flight) a block
+constexpr int kWarps = 1;  // W, the warps (hits in flight) a block
 
 // A pair's support: both sides' analytic shapes, evaluated by every thread.
 struct ShapePairs {

@@ -72,15 +72,13 @@
 
 #include "gjk_core.cuh"
 #include "hull_stream.cuh"
+#include "tma_stage.cuh"
 
 namespace gjkepa {
 namespace {
 
 constexpr int kThreads = 128;
-#ifndef K1_STAGED_PAIRS
-#define K1_STAGED_PAIRS 32
-#endif
-constexpr int kStagedPairs = K1_STAGED_PAIRS;  // P, the pairs a staged block
+constexpr int kStagedPairs = 32;  // P, the pairs a staged block
 constexpr int kBarWords = 4;  // the mbarrier (8 B), padded to 16
 
 // The words of a staged hull of n vertices: 3n rounded up to whole 16-B
@@ -91,20 +89,6 @@ __host__ __device__ constexpr int staged_words(int n) { return 4 * (((3 * n + 3)
 inline size_t staged_bytes(int n1, int n2) {
   return ((size_t)kBarWords + (size_t)kStagedPairs * (staged_words(n1) + staged_words(n2))) *
          sizeof(float);
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// One bulk copy of `bytes` (a multiple of 16, both ends 16-B aligned) from
-// device to shared memory, completing on the mbarrier at `bar`.
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src, unsigned bytes,
-                                          unsigned bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
 }
 
 // Copy `pairs` consecutive hulls of n vertices (row-major, 3n words apart
@@ -129,11 +113,8 @@ __device__ __forceinline__ void stage_pairs(const float* src1, int n1, float* s1
   if (bulk1 || bulk2) {
     if (threadIdx.x == 0) {  // armed with every byte before any copy is issued
       const unsigned bytes = pairs * ((bulk1 ? 12u * n1 : 0u) + (bulk2 ? 12u * n2 : 0u));
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
-      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-                   "r"(bytes)
-                   : "memory");
+      mbar_init(bar);
+      mbar_expect_tx(bar, bytes);
     }
     __syncthreads();
     const int p = threadIdx.x / T;
@@ -144,17 +125,7 @@ __device__ __forceinline__ void stage_pairs(const float* src1, int n1, float* s1
   }
   if (!bulk1) copy_hulls(src1, n1, s1, w1, pairs);
   if (!bulk2) copy_hulls(src2, n2, s2, w2, pairs);
-  if (bulk1 || bulk2) {  // phase 0 completes when every byte has landed
-    unsigned done = 0;
-    while (!done) {
-      asm volatile(
-          "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
-          " selp.u32 %0, 1, 0, p;\n}"
-          : "=r"(done)
-          : "r"(bar)
-          : "memory");
-    }
-  }
+  if (bulk1 || bulk2) mbar_wait_phase0(bar);
   __syncthreads();  // the threads' own copies
 }
 

@@ -30,28 +30,21 @@
 // hulls fit in a block's shared memory (n1 + n2 up to about 19,300
 // vertices on an H100, gjk_hulls_big_staged); past that the same kernel
 // template scans the hulls in device memory on every probe, a choice by
-// size, never a refusal.  W is K12_WARPS = 4, fixed at compile time: of 2,
-// 4, 8 and 16 the fastest at 4096 x 2600 and within 5% of the fastest (8)
-// at 256 x 8192 on an H100 (PERF.md); `scripts/torch_kernel_sweep.py k12`
-// rebuilds this file with -DK12_WARPS=W, and with -DK12_STAGE=0 (scan at
-// every size), to time the others.
+// size, never a refusal.  W is kWarps = 4: of 2, 4, 8 and 16 the fastest
+// at 4096 x 2600 and within 5% of the fastest (8) at 256 x 8192 on an
+// H100 (PERF.md, Findings).
 //
 // What bounds it: reading both hulls, 12 * (n1 + n2) bytes a pair, once
 // from device memory; then about 6 + iterations probes from shared memory
 // and the GJK arithmetic between them, one after another within a pair.
 #include "gjk_core.cuh"
 #include "hull_stream.cuh"
+#include "tma_stage.cuh"
 
 namespace gjkepa {
 namespace {
 
-#ifndef K12_WARPS
-#define K12_WARPS 4
-#endif
-#ifndef K12_STAGE
-#define K12_STAGE 1
-#endif
-constexpr int kWarps = K12_WARPS;  // W, the warps a block
+constexpr int kWarps = 4;  // W, the warps a block
 
 using Probe = BlockProbe<kWarps>;
 using Support = BlockHullSupport<kWarps>;
@@ -72,21 +65,7 @@ inline size_t smem_bytes(int n1, int n2, bool staged) {
 // current device's shared memory.
 inline bool stages(int n1, int n2) {
   const int limit = smem_optin_limit();
-  return K12_STAGE && limit >= 0 && smem_bytes(n1, n2, true) <= (size_t)limit;
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// One bulk copy of `bytes` (a multiple of 16, both ends 16-B aligned) from
-// device to shared memory, completing on the mbarrier at `bar`.
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src, unsigned bytes,
-                                          unsigned bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
+  return limit >= 0 && smem_bytes(n1, n2, true) <= (size_t)limit;
 }
 
 // Copy both hulls of a pair into shared memory, by the whole block.
@@ -95,16 +74,10 @@ __device__ __forceinline__ void stage_hulls(const float* v1, int n1, float* s1, 
   const bool bulk1 = hull_in_groups(v1, n1), bulk2 = hull_in_groups(v2, n2);
   const unsigned bar = smem_addr(bar_ptr);
   if (bulk1 || bulk2) {
-    if (threadIdx.x == 0) {
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
-      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    }
+    if (threadIdx.x == 0) mbar_init(bar);
     __syncthreads();  // the initialised barrier before any wait on it
     if (threadIdx.x == 0) {
-      const unsigned bytes = (bulk1 ? 12u * n1 : 0u) + (bulk2 ? 12u * n2 : 0u);
-      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-                   "r"(bytes)
-                   : "memory");
+      mbar_expect_tx(bar, (bulk1 ? 12u * n1 : 0u) + (bulk2 ? 12u * n2 : 0u));
       if (bulk1) bulk_copy(s1, v1, 12u * n1, bar);
       if (bulk2) bulk_copy(s2, v2, 12u * n2, bar);
     }
@@ -115,17 +88,7 @@ __device__ __forceinline__ void stage_hulls(const float* v1, int n1, float* s1, 
   if (!bulk2) {
     for (int i = threadIdx.x; i < 3 * n2; i += blockDim.x) s2[i] = v2[i];
   }
-  if (bulk1 || bulk2) {  // phase 0 completes when every byte has landed
-    unsigned done = 0;
-    while (!done) {
-      asm volatile(
-          "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
-          " selp.u32 %0, 1, 0, p;\n}"
-          : "=r"(done)
-          : "r"(bar)
-          : "memory");
-    }
-  }
+  if (bulk1 || bulk2) mbar_wait_phase0(bar);
   __syncthreads();  // the threads' own copies
 }
 

@@ -20,7 +20,7 @@
 //       the output is written once, as the plain version leaves it, and
 //       the wrapper fills nothing.
 //   K6b runs over every pair in the caller's order, in one launch of
-//       blocks of K6B_PAIRS pairs, and also writes the closed-form channel
+//       blocks of kAllPairs pairs, and also writes the closed-form channel
 //       (final flag, depth, normal); a closed-form lane's status and
 //       separation come from the closed form.  A block works in three
 //       steps: (1) a thread a pair computes the closed form (K5's, with the
@@ -44,32 +44,28 @@
 // every SM rather than the first few blocks; the quad splits each
 // iteration's four faces, which shortens the chain (on an H100 an
 // iteration of c3's longest chain takes ~0.9 us in a quad and ~1.5 us on
-// one thread; 8 quads a block is the k6a sweep's choice,
-// scripts/torch_kernel_sweep.py).  The inactive rows are ~60 bytes a pair
-// over nearly all B pairs, in pair order (hit_first_order is stable), the
-// simplex as three float4 words; they are most of the bytes bound.  K6b
-// reads every pair once and writes every row (~210 bytes a pair), and a
-// block's time is its closed-form pass plus its longest GJK chain.  A
-// block of 128 threads takes 32 pairs, so each GJK lane has a quad of its
-// own and a block runs one round of chains whatever its share of GJK
-// lanes; the closed forms take one warp.  With 128 pairs a block (the
-// first design) a block whose GJK lanes outnumber its 32 quads runs them
-// in rounds: on an H100 (scripts/torch_kernel_sweep.py k6b; PERF.md) that
-// took 2.5x the old thread-a-pair kernel on the 16 kind pairs, while 32
-// pairs a block beat it on every input measured (c3, shuffled, the 16 kind
-// pairs, all-cylinder pairs); 128 pairs were ~25% faster only on c3
-// shuffled, where the closed forms of four warps overlap.
+// one thread; of 8, 16, 32 and 64 quads a block, 8 read first or level on
+// every input measured, PERF.md, Findings).  The inactive rows are ~60
+// bytes a pair over nearly all B pairs, in pair order (hit_first_order is
+// stable), the simplex as three float4 words; they are most of the bytes
+// bound.  K6b reads every pair once and writes every row (~210 bytes a
+// pair), and a block's time is its closed-form pass plus its longest GJK
+// chain.  A block of 128 threads takes 32 pairs, so each GJK lane has a
+// quad of its own and a block runs one round of chains whatever its share
+// of GJK lanes; the closed forms take one warp.  With 128 pairs a block
+// (the first design) a block whose GJK lanes outnumber its 32 quads runs
+// them in rounds: on an H100 (PERF.md, Findings) that took 2.5x the old
+// thread-a-pair kernel on the 16 kind pairs, while 32 pairs a block beat
+// it on every input measured (c3, shuffled, the 16 kind pairs,
+// all-cylinder pairs); 128 pairs were ~25% faster only on c3 shuffled,
+// where the closed forms of four warps overlap.
 #include "gjk_quad.cuh"
 #include "shape_geom.cuh"
 
 namespace gjkepa {
 namespace {
 
-// K6a: the sweep's knob (scripts/torch_kernel_sweep.py k6a).
-#ifndef K6A_PAIRS
-#define K6A_PAIRS 8
-#endif
-constexpr int kSubPairs = K6A_PAIRS;  // quads (pairs in flight) a block
+constexpr int kSubPairs = 8;  // K6a's quads (pairs in flight) a block
 constexpr int kSubThreads = kSubPairs * kQuad;
 
 __global__ void __launch_bounds__(kSubThreads)
@@ -119,20 +115,13 @@ gjk_sub_shapes_kernel(const float* __restrict__ sa, const float* __restrict__ sb
   }
 }
 
-// K6b: the sweep's knobs (scripts/torch_kernel_sweep.py k6b): threads and
-// pairs a block.
-#ifndef K6B_THREADS
-#define K6B_THREADS 128
-#endif
-#ifndef K6B_PAIRS
-#define K6B_PAIRS 32
-#endif
-constexpr int kAllThreads = K6B_THREADS;
-constexpr int kAllPairs = K6B_PAIRS;
+// K6b's threads and pairs a block.
+constexpr int kAllThreads = 128;
+constexpr int kAllPairs = 32;
 constexpr int kAllWarps = kAllThreads / 32;
 constexpr int kAllQuads = kAllThreads / kQuad;
 static_assert(kAllThreads % 32 == 0 && kAllThreads <= 1024 && kAllPairs <= kAllThreads,
-              "K6B_THREADS, K6B_PAIRS");
+              "kAllThreads, kAllPairs");
 
 __global__ void __launch_bounds__(kAllThreads, 512 / kAllThreads)
 gjk_shapes_kernel(const float* __restrict__ sa, const float* __restrict__ sb,

@@ -52,7 +52,7 @@ EPS_REL = 1e-6          # relative duality gap, and |v|^2 of intersection
 
 # K8's team for a restart of the unconverged pairs (an ``order`` given:
 # phase 2): the fastest of fused_gjk.TEAMS for phase 2 at c2 on an H100
-# (scripts/torch_kernel_sweep.py k8; PERF.md).  A launch over every pair
+# (PERF.md, Findings).  A launch over every pair
 # (phase 1, one pass) takes K1's rule by hull size.
 RESTART_TEAM = 32
 

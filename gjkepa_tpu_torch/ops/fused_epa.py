@@ -18,9 +18,8 @@ a device pool (:func:`k2_pool`), which a warp claims only when its ladder
 reaches such a tier.  The pool has a slot for every K2 warp an SM can hold,
 on every SM, so it is allocated once a device and no host read sizes it:
 at the default ladder on an H100, 48 and 88 faces stay in shared memory
-and the 208-face tier takes the pool, 16 warps an SM (what K2's
-registers allow) where the whole ladder in shared memory allowed 14
-(:func:`k2_resident_warps`).
+and the 208-face tier takes the pool, 16 warps an SM, what K2's
+registers allow (:func:`k2_resident_warps`).
 :data:`TALLY`, set by :func:`k2_tally`, counts the hits that finish in
 each tier and the pool's claims.  K13 (``fused_streamed.epa_hulls_big``)
 keeps its own rule: each tier in shared memory where its store fits in a
@@ -116,7 +115,7 @@ class K2Device(NamedTuple):
     (``epa_hulls_blocks_per_sm(0)``, then ``epa_hulls_device``)."""
 
     blocks: int      # K2 blocks an SM its registers allow
-    pairs: int       # warps (pairs) a block, K2_PAIRS
+    pairs: int       # warps (pairs) a block, epa_hulls.cu's kPairs
     sm_bytes: int    # shared memory an SM (233,472 B on an H100)
     reserve: int     # shared memory reserved a block (1,024 B)
     slots: int       # pool slots an SM id: the most K2 warps an SM holds
@@ -173,23 +172,19 @@ def k2_pool(dev: torch.device, far_faces: int, facts: K2Device):
     return _POOLS[key]
 
 
-def k2_resident_warps(dev: torch.device, stages) -> tuple[int, int]:
-    """K2's warps an SM over ``stages`` on ``dev`` by the occupancy
-    calculator: under :func:`k2_near_faces`, and under the rule it replaced
-    (every tier whose block fits in shared memory kept there)."""
+def k2_resident_warps(dev: torch.device, stages) -> int:
+    """K2's warps an SM over ``stages`` on ``dev`` under
+    :func:`k2_near_faces`, by the occupancy calculator."""
     lib = _build.load()
     facts = k2_device(dev)
     near = k2_near_faces(stages, lib.epa_hulls_smem_bytes, facts.blocks,
                          facts.sm_bytes, facts.reserve)
-    old = near_store_faces(stages, lib.epa_hulls_smem_bytes,
-                           _build.smem_limit(dev))
     with torch.cuda.device(dev):
-        blocks = [lib.epa_hulls_blocks_per_sm(lib.epa_hulls_smem_bytes(f))
-                  for f in (near, old)]
-    if min(blocks) < 0:
+        blocks = lib.epa_hulls_blocks_per_sm(lib.epa_hulls_smem_bytes(near))
+    if blocks < 0:
         raise RuntimeError(f"cannot read K2's occupancy on {dev}: CUDA error "
-                           f"{-min(blocks)}")
-    return blocks[0] * facts.pairs, blocks[1] * facts.pairs
+                           f"{-blocks}")
+    return blocks * facts.pairs
 
 
 @contextlib.contextmanager

@@ -50,7 +50,7 @@ INIT_DIRS = np.ascontiguousarray(DIRECTION_TABLE[:N_INIT_UNROLL],
 # K1's team sizes (threads a pair; csrc/gjk_hulls.cu instantiates each) and
 # the largest hull each of the first three takes: on an H100 a team of 4
 # was the fastest up to 64 vertices, 8 up to 256, 16 at 512 and 32 from
-# 1024 on (scripts/torch_kernel_sweep.py teams; PERF.md).
+# 1024 on (PERF.md, Findings).
 TEAMS = (4, 8, 16, 32)
 TEAM_MAX_VERTICES = (64, 256, 512)
 

@@ -173,7 +173,7 @@ def team_size(n1: int) -> int:
     """Threads of K9 that share one pair (a divisor of the 32-thread warp):
     K1's crossovers (``fused_gjk.TEAM_MAX_VERTICES``) by the hull's size.
     On an H100 they came within 1.5% of K9's fastest team at 24, 256 and
-    1,024 vertices (``scripts/torch_kernel_sweep.py k9``, PERF.md)."""
+    1,024 vertices (PERF.md, Findings)."""
     return k1_team_size(n1, n1)
 
 

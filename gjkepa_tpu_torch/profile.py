@@ -62,8 +62,7 @@ kernel launches lie in their own dispatcher's span.  These span lines
 took the place of the step timers that re-ran a dispatch's steps one by
 one from outside.  The first line of a path names the card and its power
 limit, the second K2's warps an SM at the default ladder
-(``fused_epa.k2_resident_warps``: under its store rule, and under the rule
-that kept every tier in shared memory).  Without a CUDA device it exits
+(``fused_epa.k2_resident_warps``).  Without a CUDA device it exits
 non-zero.
 """
 
@@ -288,9 +287,9 @@ def main(argv) -> int:
     from .ops import fused_epa
     from .ops.fused import cascade_plan
     cfg = GJKEPAConfig.for_f32()
-    new, old = fused_epa.k2_resident_warps(dev, cascade_plan(cfg))
-    print(f"K2 warps an SM at the default ladder: {new} (every tier in "
-          f"shared memory: {old}) [{card}]", flush=True)
+    warps = fused_epa.k2_resident_warps(dev, cascade_plan(cfg))
+    print(f"K2 warps an SM at the default ladder: {warps} [{card}]",
+          flush=True)
     order = argv or ["c2", "c2dist", "c2dist1", "c3", "c3b", "c3b_unsorted",
                      "c4", "deep64k", "big8192", "big2600", "c1",
                      "c4portable",

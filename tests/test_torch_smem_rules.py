@@ -312,7 +312,7 @@ def test_k7_block_fits_shared_memory(warps):
 
 @pytest.mark.parametrize("warps", [1, 2, 4])
 def test_k10_block_fits_shared_memory(warps):
-    """At each block size the K10 sweep takes (1, 2 and 4 warps), K10's
+    """At each block size measured for K10 (1, 2 and 4 warps), K10's
     block at the mixed path's ladder (48 faces) fits within the default
     48 KB of shared memory: no opt-in, no refusal on the main path."""
     stages = fused_shapes.shape_stages(GJKEPAConfig.for_f32())
