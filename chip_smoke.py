@@ -5,8 +5,10 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
 The port has five paths.  The hull path is the fused hull-pair query,
 ``gjkepa_batch_fused``: K1, the GJK hull kernel, a team of threads a pair
 (``gjkepa_tpu_torch/csrc/gjk_hulls.cu``), then K2, the EPA cascade kernel,
-a warp a hit with the polytope in shared memory where it fits
-(``csrc/epa_hulls.cu`` over ``csrc/epa_warp.cuh``), over the hit lanes,
+a team of 16 lanes a hit (two a warp) where both hulls have at most 64
+vertices and a warp a hit above, with the polytope in shared memory where
+it fits (``csrc/epa_hulls.cu`` over ``csrc/epa_warp.cuh``), over the hit
+lanes,
 then the contact rows.  Hull pairs with n1 + n2 > 4096 vertices take the
 large-hull path instead: the broadphase on the tile-padded hulls, K12, GJK
 a block of warps a pair with both hulls staged in shared memory where they
@@ -47,13 +49,15 @@ once) and runs, in phases:
      and every kernel's registers, stack and spills (``-Xptxas -v``);
   1. K1 against its plain PyTorch version on the card (4096 x 64, 4096 x
      63 and 1024 x 2047 vertices), bit for bit;
-  2. K2 against its plain version, bit for bit: 2048 deep pairs x 24
-     vertices; a tier ladder forced to overflow (F=8, K=2; F=16, K=4;
-     F=208, K=16) with its tiers as the store rule places them, the last
-     in the pool, and all in the pool; a face capacity past a block's
-     shared memory (F=4096), which takes the pool; K2's warps an SM under
-     its rule and the tally of each run (its hits, the pool's claims), the
-     pool's slot masks all clear after each;
+  2. K2 against its plain version, bit for bit, at 16 and 32 lanes a hit:
+     2048 deep pairs x 24 vertices; a tier ladder forced to overflow (F=8,
+     K=2; F=16, K=4; F=208, K=16) with its tiers as the store rule places
+     them, the last in the pool, and all in the pool; a face capacity past
+     a block's shared memory (F=4096), which takes the pool; K2's hits an
+     SM under its rule at each width and the tally of each run (its hits,
+     the pool's claims, at 16 lanes the pairing's efficiency), the rows'
+     mean and largest EPA iterations, the launches by width, the pool's
+     slot masks all clear after each;
   3. known geometry: unit cubes at offsets 0.3, 0.7, 1.2, 2.5;
   4. the float64 reference oracle (tests/oracle_np.py) on 64 deep pairs;
   5. the main path at full size (16384 x 24 deep pairs with full contact,
@@ -2499,18 +2503,22 @@ def main() -> int:
 
     def compare_k2(p1, p2, what, tiers=stages, **variant):
         """K2 against its plain version on the same K1 rows, bit for bit
-        (``variant``: the shared store's faces, else the wrapper's);
-        returns the max abs error over depth and normal."""
+        (``variant``: the shared store's faces or the team width, else the
+        wrapper's); returns the max abs error over depth and normal."""
         g = fused_gjk.gjk_hulls(p1, p2, cfg)
         order, n_act = hit_first_order(g.hit)
         args = (p1, p2, g.simplex, g.status, order, n_act, tiers)
+        split = dict(fused_epa.LAUNCHES_BY_TEAM)
         with fused_epa.k2_tally(dev) as tally:
             ek = (fused_epa._epa_cascade_cuda(*args, **variant) if variant
                   else fused_epa.epa_cascade(*args))
+        split = {t: n - split[t] for t, n in
+                 fused_epa.LAUNCHES_BY_TEAM.items()}
         ep = fused_epa.epa_cascade_plain(*args)
         torch.cuda.synchronize()
         tally = tally.tolist()
-        check(sum(tally[:-1]) == int(n_act),
+        tiers_done = tally[:fused_epa.MAX_TIERS]
+        check(sum(tiers_done) == int(n_act),
               f"{what}: K2's tally {tally} does not sum to {int(n_act)} hits")
         busy = [int(m.count_nonzero()) for _, m in fused_epa._POOLS.values()]
         check(not any(busy), f"{what}: K2's pool masks left slots taken")
@@ -2522,12 +2530,16 @@ def main() -> int:
               f"(status equal: {torch.equal(ek.status, ep.status)}, depth/"
               f"normal err {err}, epa_iters differ on {ei_diff} of "
               f"{int(n_act)} hits)")
+        pairing = fused_epa.k2_pairing(tally)
         log(f"{what} K2 vs plain, {p1.shape[0]} x {p1.shape[1]} deep, tiers "
             f"{[c.epa_max_faces for c, _ in tiers]}"
             + (f", {variant}" if variant else "") + f": {int(n_act)} hits, "
-            f"mean epa_iters {float(ep.iters[g.hit].float().mean()):.3f}, "
-            f"finished by tier {tally[:-1]}, {tally[-1]} pool claims, rows "
-            f"bit for bit")
+            f"epa_iters mean {float(ep.iters[g.hit].float().mean()):.3f} "
+            f"largest {int(ep.iters.max())}, launches by lanes a hit "
+            f"{split}, finished by tier {tiers_done}, "
+            f"{tally[fused_epa.TALLY_CLAIMS]} pool claims, pairing "
+            + ("n/a" if pairing is None else f"{pairing:.4f}")
+            + ", rows bit for bit")
         return err
 
     # -- phase 1: K1 vs plain -------------------------------------------------
@@ -2547,29 +2559,35 @@ def main() -> int:
     rng = np.random.default_rng(0)
     deep = on_dev(*deep_pairs(rng, 2048, 24))
     k2_err = compare_k2(*deep, "phase 2")
-    # K2's stores by its rule over the kernel's own byte count and occupancy
-    lib, limit = _build.load(), _build.smem_limit(dev)
-    facts = fused_epa.k2_device(dev)
-    near = fused_epa.k2_near_faces(stages, lib.epa_hulls_smem_bytes,
-                                   facts.blocks, facts.sm_bytes, facts.reserve)
-    warps = fused_epa.k2_resident_warps(dev, stages)
-    log(f"phase 2 K2 stores: {facts}; the tiers "
-        f"{[c.epa_max_faces for c, _ in stages]} in shared memory up to "
-        f"{near} faces ({lib.epa_hulls_smem_bytes(near)} B a block), the pool "
-        f"{fused_epa.far_store_faces(stages, near)} faces a slot; "
-        f"{warps} warps an SM")
-    check(warps >= facts.blocks * facts.pairs,
-          f"phase 2: K2's store rule gives {warps} warps an SM, the "
-          f"registers {facts.blocks * facts.pairs}")
+    k2_err = max(k2_err, compare_k2(*deep, "phase 2", team=32))
+    # K2's stores by its rule over the kernel's own byte count and
+    # occupancy, at each width
+    limit = _build.smem_limit(dev)
+    for team in (16, 32):
+        facts = fused_epa.k2_device(dev, team)
+        nbytes = fused_epa.k2_smem_bytes(team)
+        near = fused_epa.k2_near_faces(stages, nbytes, facts.blocks,
+                                       facts.sm_bytes, facts.reserve)
+        hits = fused_epa.k2_resident_hits(dev, stages, team)
+        log(f"phase 2 K2 stores at {team} lanes a hit: {facts}; the tiers "
+            f"{[c.epa_max_faces for c, _ in stages]} in shared memory up to "
+            f"{near} faces ({nbytes(near)} B a block), the pool "
+            f"{fused_epa.far_store_faces(stages, near)} faces a slot; "
+            f"{hits} hits an SM")
+        check(hits >= facts.blocks * facts.hits,
+              f"phase 2: K2's store rule gives {hits} hits an SM at {team} "
+              f"lanes, the registers {facts.blocks * facts.hits}")
     # a ladder whose first tiers overflow, its tiers as the rule places
     # them, the last in the pool, all in the pool; then a face capacity
     # past shared memory, which takes the pool
     ladder = [(cfg.replace(epa_max_faces=f), k)
               for f, k in ((8, 2), (16, 4), (208, 16))]
-    for near in (None, 16, 0):
-        k2_err = max(k2_err, compare_k2(
-            *deep, "phase 2 overflow ladder", ladder, near_faces=near))
-    check(lib.epa_hulls_smem_bytes(4096) > limit,
+    for team in (16, 32):
+        for near in (None, 16, 0):
+            k2_err = max(k2_err, compare_k2(
+                *deep, "phase 2 overflow ladder", ladder, near_faces=near,
+                team=team))
+    check(fused_epa.k2_smem_bytes(32)(4096) > limit,
           "phase 2: a 4096-face store fits in shared memory")
     k2_err = max(k2_err, compare_k2(
         *(t[:512].contiguous() for t in deep), "phase 2 past shared memory",

@@ -49,10 +49,10 @@ ENTRY_POINTS = {
                          + [_cf] * 4 + [_ci, _vp]),
     "gjk_hulls_staged_bytes": ("gjk_hulls.cu", [_ci] * 2),
     "epa_hulls_launch": ("epa_hulls.cu", [_vp] * 12 + [_ci] * 4
-                         + [_ip, _ip] + [_ci] * 3 + [_cf, _cf, _ci, _vp]),
-    "epa_hulls_smem_bytes": ("epa_hulls.cu", [_ci]),
-    "epa_hulls_device": ("epa_hulls.cu", [_ip]),
-    "epa_hulls_blocks_per_sm": ("epa_hulls.cu", [_ci]),
+                         + [_ip, _ip] + [_ci] * 4 + [_cf, _cf, _ci, _vp]),
+    "epa_hulls_smem_bytes": ("epa_hulls.cu", [_ci, _ci]),
+    "epa_hulls_device": ("epa_hulls.cu", [_ci, _ip]),
+    "epa_hulls_blocks_per_sm": ("epa_hulls.cu", [_ci, _ci]),
     "epa_scratch_words_per_face": ("epa_hulls.cu", []),
     "gjk_hulls_big_launch": ("gjk_hulls_big.cu", [_vp] * 9 + [_ci] * 3
                              + [_cf] * 4 + [_ci, _vp]),

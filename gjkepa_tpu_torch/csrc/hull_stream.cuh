@@ -18,10 +18,10 @@
 // each, kGroupUnroll groups loaded before they are folded, so a team's
 // loads cover 48 * T neighbouring bytes; else it reads vertices t, t + T,
 // ..., kUnroll at a time.  K1 (gjk_hulls.cu), K8 (distance_hulls.cu) and
-// K9 (gjk_hull_shape.cu) run teams of 4-32 threads, K2 (epa_hulls.cu) and
-// K10 (epa_hull_shape.cu) a warp (T = 32), K12 (gjk_hulls_big.cu) and
-// K13 (epa_hulls_big.cu) W warps of one block whose warp results meet in
-// shared memory (BlockHullSupport).
+// K9 (gjk_hull_shape.cu) run teams of 4-32 threads, K2 (epa_hulls.cu) a
+// team of 16 or 32, K10 (epa_hull_shape.cu) a warp, K12 (gjk_hulls_big.cu)
+// and K13 (epa_hulls_big.cu) W warps of one block whose warp results meet
+// in shared memory (BlockHullSupport).
 //
 // The tie rule.  Each thread keeps the first (strict >) maximum of its own
 // vertices in index order, which is the smallest index among its maxima;

@@ -10,21 +10,25 @@ Both versions take the hit-first lane ``order`` and the device scalar
 other lane passes its GJK status through with zero depth, normal and
 iteration count.
 
-The kernel runs a warp per hit, the small tiers' polytope in shared
-memory: :func:`k2_near_faces` keeps the largest tier whose block still lets
-as many blocks an SM as K2's registers allow fit in the SM's shared memory
+The kernel runs a team of 16 or 32 lanes per hit (:func:`k2_team`: 16,
+two hits a warp, where both hulls have at most :data:`NARROW_VERTICES`
+vertices), the small tiers' polytope in shared memory:
+:func:`k2_near_faces` keeps the largest tier whose block still lets as
+many blocks an SM as K2's registers allow fit in the SM's shared memory
 (:func:`k2_device` asks the card), and every larger tier runs in a slot of
-a device pool (:func:`k2_pool`), which a warp claims only when its ladder
-reaches such a tier.  The pool has a slot for every K2 warp an SM can hold,
-on every SM, so it is allocated once a device and no host read sizes it:
-at the default ladder on an H100, 48 and 88 faces stay in shared memory
-and the 208-face tier takes the pool, 16 warps an SM, what K2's
-registers allow (:func:`k2_resident_warps`).
+a device pool (:func:`k2_pool`), which a team claims only when its ladder
+reaches such a tier.  The pool has a slot for every K2 hit an SM can hold
+at either width, on every SM, so it is allocated once a device and no host
+read sizes it: at the default ladder on an H100, 16 warps an SM by K2's
+registers (:func:`k2_resident_hits`), a 16-lane team keeps 48 faces in
+shared memory and pools 88 and 208, a 32-lane team keeps 48 and 88.
 :data:`TALLY`, set by :func:`k2_tally`, counts the hits that finish in
-each tier and the pool's claims.  K13 (``fused_streamed.epa_hulls_big``)
-keeps its own rule: each tier in shared memory where its store fits in a
-block (:func:`near_store_faces`), else in a device store one a hit
-(:func:`face_stores`), sized by the one host read of the hit count.
+each tier and the pool's claims, and at 16 lanes the iterations that give
+the pairing's efficiency (:func:`k2_pairing`).  K13
+(``fused_streamed.epa_hulls_big``) keeps its own rule: each tier in shared
+memory where its store fits in a block (:func:`near_store_faces`), else in
+a device store one a hit (:func:`face_stores`), sized by the one host read
+of the hit count.
 
 :func:`epa_cascade` takes the plain version only for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises.
@@ -49,22 +53,33 @@ from .lane_geom import P3, fsqrt, pdot, pmean4, pwhere, pzero_like
 __all__ = ["EPARows", "epa_cascade", "epa_cascade_plain", "epa_phase",
            "run_cascade", "check_stages", "check_tensors", "near_store_faces",
            "far_store_faces", "face_stores", "K2Device", "k2_device",
-           "k2_near_faces", "k2_pool", "k2_resident_warps", "k2_tally",
-           "LAUNCHES", "STORE_READS", "TALLY"]
+           "k2_near_faces", "k2_pool", "k2_resident_hits", "k2_tally",
+           "k2_pairing", "k2_smem_bytes", "k2_team", "LAUNCHES",
+           "LAUNCHES_BY_TEAM", "STORE_READS", "TALLY", "NARROW_VERTICES"]
 
-# Kernel launches made by epa_cascade (CUDA tensors only).
+# Kernel launches made by epa_cascade (CUDA tensors only), and the same by
+# the lanes of a hit's team.
 LAUNCHES = 0
+LAUNCHES_BY_TEAM = {16: 0, 32: 0}
 # Host reads of the hit count by face_stores, K13's (0 at the default
 # ladder, whose every tier fits in K13's shared memory); K2 takes none.
 STORE_READS = 0
-# K2's tally while k2_tally is open: int32 (MAX_TIERS + 1,) on the card,
-# the hits that finished in each tier, then the pool's slot claims.
+# K2's tally while k2_tally is open: int32 (MAX_TIERS + 3,) on the card,
+# the hits that finished in each tier, the pool's slot claims, then (16
+# lanes a hit only) the EPA iterations the hits ran and, summed over the
+# warps, the iterations of each warp's longer team.
 TALLY: torch.Tensor | None = None
 
 BIG = 3.4e38            # "no plane" distance (float32)
 _MAXID = 256            # vertex ids < 4 + epa_max_iters <= 103 < 256
 K_MAX = 16              # largest visible-set bound the kernel holds
 MAX_TIERS = 4
+# The tally's entries past the tiers' counts (epa_hulls.cu kTally*).
+TALLY_CLAIMS, TALLY_ITERS, TALLY_LONGER = (MAX_TIERS, MAX_TIERS + 1,
+                                           MAX_TIERS + 2)
+# Hulls of at most this many vertices a side take 16 lanes a hit: 16
+# 4-vertex groups, one probe pass on 16 lanes as on 32.
+NARROW_VERTICES = 64
 
 
 def near_store_faces(stages, smem_bytes, limit: int) -> int:
@@ -110,38 +125,46 @@ def face_stores(stages, smem_bytes, n_act: torch.Tensor, dev: torch.device,
     return near_faces, far_faces, far
 
 
+def k2_team(n1: int, n2: int) -> int:
+    """The lanes of K2's team a hit for hulls of ``n1`` and ``n2``
+    vertices: 16, two hits a warp, where both have at most
+    :data:`NARROW_VERTICES`; else 32."""
+    return 16 if max(n1, n2) <= NARROW_VERTICES else 32
+
+
 class K2Device(NamedTuple):
-    """What K2's store rule and pool observe on a card
-    (``epa_hulls_blocks_per_sm(0)``, then ``epa_hulls_device``)."""
+    """What K2's store rule and pool observe on a card for one team width
+    (``epa_hulls_blocks_per_sm(team, 0)``, then ``epa_hulls_device``)."""
 
     blocks: int      # K2 blocks an SM its registers allow
-    pairs: int       # warps (pairs) a block, epa_hulls.cu's kPairs
+    hits: int        # hits a block: epa_hulls.cu's kPairs * 32 / team
     sm_bytes: int    # shared memory an SM (233,472 B on an H100)
     reserve: int     # shared memory reserved a block (1,024 B)
-    slots: int       # pool slots an SM id: the most K2 warps an SM holds
+    slots: int       # pool slots an SM id: the most K2 hits an SM holds
     sm_ids: int      # SM ids (%nsmid)
 
 
 @functools.cache
-def k2_device(dev: torch.device) -> K2Device:
-    """:class:`K2Device` of ``dev``, asked once a device (the SM ids by a
-    one-thread kernel, so the first call waits for the card)."""
+def k2_device(dev: torch.device, team: int) -> K2Device:
+    """:class:`K2Device` of ``dev`` for teams of ``team`` lanes, asked once
+    a device and width (the SM ids by a one-thread kernel, so the first
+    call waits for the card)."""
     lib = _build.load()
     facts = (ctypes.c_int * (len(K2Device._fields) - 1))()
     with torch.cuda.device(dev):
-        blocks = lib.epa_hulls_blocks_per_sm(0)
-        rc = lib.epa_hulls_device(facts) if blocks >= 0 else -blocks
+        blocks = lib.epa_hulls_blocks_per_sm(team, 0)
+        rc = lib.epa_hulls_device(team, facts) if blocks >= 0 else -blocks
     if rc != 0:
-        raise RuntimeError(f"cannot read K2's occupancy on {dev}: CUDA error "
-                           f"{rc}")
+        raise RuntimeError(f"cannot read K2's occupancy on {dev} at {team} "
+                           f"lanes a hit: CUDA error {rc}")
     return K2Device(blocks, *facts)
 
 
 def k2_near_faces(stages, smem_bytes, blocks: int, sm_bytes: int,
                   reserve: int) -> int:
     """The face capacity of K2's shared-memory store: the largest tier's
-    whose block, ``smem_bytes(faces)`` bytes (``epa_hulls_smem_bytes`` on
-    the card) and ``reserve`` more, still lets ``blocks`` blocks (what K2's
+    whose block, ``smem_bytes(faces)`` bytes (:func:`k2_smem_bytes` on the
+    card) and ``reserve`` more, still lets ``blocks`` blocks (what K2's
     registers allow) fit in ``sm_bytes`` of an SM's shared memory; 0 when
     none does.  Every larger tier takes the pool (:func:`k2_pool`)."""
     share = sm_bytes // max(blocks, 1) - reserve
@@ -155,7 +178,8 @@ def k2_pool(dev: torch.device, far_faces: int, facts: K2Device):
     """K2's pool for tiers of up to ``far_faces`` faces on ``dev``: (faces,
     mask), faces (slots, fields, far_faces) float32 with ``facts.slots``
     slots for each of ``facts.sm_ids`` SM ids, mask int32 (SM ids,
-    ceil(slots / 32)) zeroed, a set bit a slot a warp holds.  Made once a
+    ceil(slots / 32)) zeroed, a set bit a slot a team holds.  The slots
+    are the same at either width, so both share one pool.  Made once a
     device and size, then the card waits for the zeroed mask, so that a
     launch on any stream finds it; nothing in it depends on the batch or
     the hit count."""
@@ -172,19 +196,26 @@ def k2_pool(dev: torch.device, far_faces: int, facts: K2Device):
     return _POOLS[key]
 
 
-def k2_resident_warps(dev: torch.device, stages) -> int:
-    """K2's warps an SM over ``stages`` on ``dev`` under
-    :func:`k2_near_faces`, by the occupancy calculator."""
+def k2_smem_bytes(team: int):
+    """K2's block bytes by the faces of its shared store, at ``team``
+    lanes a hit (``epa_hulls_smem_bytes`` on the card)."""
+    return functools.partial(_build.load().epa_hulls_smem_bytes, team)
+
+
+def k2_resident_hits(dev: torch.device, stages, team: int) -> int:
+    """K2's hits an SM (its warps times 32 / ``team``) over ``stages`` on
+    ``dev`` under :func:`k2_near_faces`, by the occupancy calculator."""
     lib = _build.load()
-    facts = k2_device(dev)
-    near = k2_near_faces(stages, lib.epa_hulls_smem_bytes, facts.blocks,
-                         facts.sm_bytes, facts.reserve)
+    facts = k2_device(dev, team)
+    nbytes = k2_smem_bytes(team)
+    near = k2_near_faces(stages, nbytes, facts.blocks, facts.sm_bytes,
+                         facts.reserve)
     with torch.cuda.device(dev):
-        blocks = lib.epa_hulls_blocks_per_sm(lib.epa_hulls_smem_bytes(near))
+        blocks = lib.epa_hulls_blocks_per_sm(team, nbytes(near))
     if blocks < 0:
         raise RuntimeError(f"cannot read K2's occupancy on {dev}: CUDA error "
                            f"{-blocks}")
-    return blocks * facts.pairs
+    return blocks * facts.hits
 
 
 @contextlib.contextmanager
@@ -193,11 +224,20 @@ def k2_tally(dev: torch.device):
     zeroed, which each launch adds to (the main path passes none)."""
     global TALLY
     outer = TALLY
-    TALLY = torch.zeros(MAX_TIERS + 1, dtype=torch.int32, device=dev)
+    TALLY = torch.zeros(MAX_TIERS + 3, dtype=torch.int32, device=dev)
     try:
         yield TALLY
     finally:
         TALLY = outer
+
+
+def k2_pairing(tally) -> float | None:
+    """The pairing's efficiency from a tally of 16-lane launches (a list):
+    the hits' EPA iterations over twice the summed iterations of each
+    warp's longer team, the share of a warp's iterations that ran both of
+    its teams; None when no 16-lane hit ran."""
+    longer = tally[TALLY_LONGER]
+    return tally[TALLY_ITERS] / (2 * longer) if longer else None
 
 
 class EPARows(NamedTuple):
@@ -486,8 +526,10 @@ def epa_cascade_plain(p1, p2, simplex, gjk_status, order, n_act,
 
 
 def _epa_cascade_cuda(p1, p2, simplex, gjk_status, order, n_act, stages,
-                      near_faces: int | None = None) -> EPARows:
-    """K2 with a shared-memory store of ``near_faces`` faces a warp
+                      near_faces: int | None = None,
+                      team: int | None = None) -> EPARows:
+    """K2 on teams of ``team`` lanes (:func:`k2_team` when None) with a
+    shared-memory store of ``near_faces`` faces a team
     (:func:`k2_near_faces` when None) and, for the larger tiers, the
     device's pool (:func:`k2_pool`); no host read."""
     global LAUNCHES
@@ -495,9 +537,11 @@ def _epa_cascade_cuda(p1, p2, simplex, gjk_status, order, n_act, stages,
     b, n1, n2 = p1.shape[0], p1.shape[1], p2.shape[1]
     dev = p1.device
     cfg = stages[0][0]
-    facts = k2_device(dev)
+    if team is None:
+        team = k2_team(n1, n2)
+    facts = k2_device(dev, team)
     if near_faces is None:
-        near_faces = k2_near_faces(stages, lib.epa_hulls_smem_bytes,
+        near_faces = k2_near_faces(stages, k2_smem_bytes(team),
                                    facts.blocks, facts.sm_bytes,
                                    facts.reserve)
     far_faces = far_store_faces(stages, near_faces)
@@ -516,12 +560,13 @@ def _epa_cascade_cuda(p1, p2, simplex, gjk_status, order, n_act, stages,
             None if faces is None else ptr(faces),
             None if mask is None else ptr(mask),
             None if tally is None else ptr(tally), b, n1, n2, len(stages),
-            tier_f, tier_k, near_faces, far_faces, facts.slots,
+            tier_f, tier_k, near_faces, far_faces, facts.slots, team,
             cfg.eps_coincide, cfg.eps_zero, cfg.epa_max_iters,
             ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"epa_hulls kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
+    LAUNCHES_BY_TEAM[team] += 1
     return out
 
 

@@ -50,9 +50,12 @@ wall, the kernel launches per call and the operations with the most device
 time, K1's launches a call and how many of them took its staged kernel
 (``fused_gjk.STAGED_LAUNCHES``: the hulls in shared memory), the host
 reads of the hit count that size K13's face store in device memory
-(``fused_epa.STORE_READS``; K2 takes none), K2's tally (``fused_epa.k2_tally``:
-the hits that finished in each tier of its ladder and the share that took
-a slot of its device pool), then a line
+(``fused_epa.STORE_READS``; K2 takes none), K2's launches by the lanes of
+a hit's team (``fused_epa.LAUNCHES_BY_TEAM``) and its tally
+(``fused_epa.k2_tally``: the hits that finished in each tier of its ladder,
+the share that took a slot of its device pool, and at 16 lanes the
+pairing's efficiency, ``fused_epa.k2_pairing``) with the hits' mean and
+largest EPA iteration count (from the rows), then a line
 a program span (``gjkepa.*``, ``spans.py``: each
 kernel's dispatcher, the glue between kernels, the public entry): its host
 self time a call (its length less its nested spans'), the device time and
@@ -61,8 +64,8 @@ span around the runtime call of each), and how many of the program's
 kernel launches lie in their own dispatcher's span.  These span lines
 took the place of the step timers that re-ran a dispatch's steps one by
 one from outside.  The first line of a path names the card and its power
-limit, the second K2's warps an SM at the default ladder
-(``fused_epa.k2_resident_warps``).  Without a CUDA device it exits
+limit, the second K2's hits an SM at the default ladder at each width
+(``fused_epa.k2_resident_hits``).  Without a CUDA device it exits
 non-zero.
 """
 
@@ -218,6 +221,17 @@ def kernel_launches(fn, attempts=3) -> int:
                        f"sessions (kernels recorded: {seen})")
 
 
+def _epa_iters(out) -> str:
+    """The mean and largest EPA iteration count over the hits of a query's
+    result, where it has them."""
+    hit, iters = getattr(out, "hit", None), getattr(out, "epa_iters", None)
+    if hit is None or iters is None or not bool(hit.any()):
+        return ""
+    it = iters[hit].float()
+    return (f"; hits' EPA iterations mean {float(it.mean()):.3f}, largest "
+            f"{int(it.max())}")
+
+
 def profile_path(name, fn, card) -> None:
     """Wall, device time, busy share, launches, top ops and the program's
     spans of one path."""
@@ -226,6 +240,7 @@ def profile_path(name, fn, card) -> None:
     from .ops import fused_epa, fused_gjk
     wall = wall_ms(fn)
     k1 = (fused_gjk.LAUNCHES, fused_gjk.STAGED_LAUNCHES)
+    k2 = dict(fused_epa.LAUNCHES_BY_TEAM)
     reads = fused_epa.STORE_READS
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -234,9 +249,10 @@ def profile_path(name, fn, card) -> None:
         torch.cuda.synchronize()
     k1 = (fused_gjk.LAUNCHES - k1[0], fused_gjk.STAGED_LAUNCHES - k1[1])
     reads = fused_epa.STORE_READS - reads
+    k2 = {t: n - k2[t] for t, n in fused_epa.LAUNCHES_BY_TEAM.items()}
     with fused_epa.k2_tally(torch.device("cuda", torch.cuda.current_device())
                             ) as tally:
-        fn()
+        out = fn()
         torch.cuda.synchronize()
     tally = tally.tolist()
     events = prof.events()
@@ -258,11 +274,21 @@ def profile_path(name, fn, card) -> None:
           f"{k1[1] / PROFILED_CALLS:.1f} of them staged", flush=True)
     print(f"  {name} K2/K13 face store: {reads / PROFILED_CALLS:.1f} host "
           "reads of the hit count a call", flush=True)
-    hits = sum(tally[:-1])
+    print(f"  {name} K2: launches a call by lanes a hit "
+          f"{ {t: n / PROFILED_CALLS for t, n in k2.items()} }", flush=True)
+    tiers = tally[:fused_epa.MAX_TIERS]
+    hits = sum(tiers)
     if hits:
+        claims = tally[fused_epa.TALLY_CLAIMS]
+        pairing = fused_epa.k2_pairing(tally)
         print(f"  {name} K2 tally, one call: {hits} hits, finished by tier "
-              f"{tally[:-1]}; {tally[-1]} took a pool slot "
-              f"({100.0 * tally[-1] / hits:.3f}% of hits)", flush=True)
+              f"{tiers}; {claims} took a pool slot "
+              f"({100.0 * claims / hits:.3f}% of hits); pairing "
+              + ("n/a (no 16-lane hit)" if pairing is None else
+                 f"{pairing:.4f} ({tally[fused_epa.TALLY_ITERS]} EPA "
+                 f"iterations, {tally[fused_epa.TALLY_LONGER]} of the "
+                 "longer team a warp)")
+              + _epa_iters(out), flush=True)
     rows, program, lost = span_summary(events)
     n = PROFILED_CALLS
     for span, (host, device, launches, _) in sorted(rows.items()):
@@ -287,9 +313,10 @@ def main(argv) -> int:
     from .ops import fused_epa
     from .ops.fused import cascade_plan
     cfg = GJKEPAConfig.for_f32()
-    warps = fused_epa.k2_resident_warps(dev, cascade_plan(cfg))
-    print(f"K2 warps an SM at the default ladder: {warps} [{card}]",
-          flush=True)
+    hits = {t: fused_epa.k2_resident_hits(dev, cascade_plan(cfg), t)
+            for t in (16, 32)}
+    print(f"K2 hits an SM at the default ladder by lanes a hit: {hits} "
+          f"[{card}]", flush=True)
     order = argv or ["c2", "c2dist", "c2dist1", "c3", "c3b", "c3b_unsorted",
                      "c4", "deep64k", "big8192", "big2600", "c1",
                      "c4portable",

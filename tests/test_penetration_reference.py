@@ -279,7 +279,7 @@ def test_k2_at_the_cells_hits_on_card():
         k = fused_epa.epa_cascade(p1, p2, gr.simplex, gr.status, order,
                                   n_act, stages)
     assert fused_epa.STORE_READS == reads
-    assert int(tally[:-1].sum()) == int(n_act)
+    assert int(tally[:fused_epa.MAX_TIERS].sum()) == int(n_act)
     assert not any(bool(m.any()) for _, m in fused_epa._POOLS.values())
     plain = fused_epa.epa_cascade_plain(p1, p2, gr.simplex, gr.status, order,
                                         n_act, stages)

@@ -21,11 +21,15 @@ rows bit for bit at every team size, K8's two-phase equal to one pass, K9
 in the dispatch's order and in the caller's.  K2, K12 and K13 (the warp
 kernels over K11's support): rows bit for bit against their plain
 versions on every input, the tie fixture, both of K2's face stores and
-both of K12's hull sources included.  K2's store rule over the card's
-own occupancy facts; K2 on 16,384 hits with its tiers as the rule places
-them and all in its device pool (more hits than slots), and two launches
-in flight on two streams: bit for bit, the tally summing to the hits, the
-pool's slot masks clear after.  K1 at each team size and K2 and
+both of K12's hull sources included.  K2 at 16 and 32 lanes a hit, each
+bit for bit against the plain version and the 32-lane kernel: its store
+rule over the card's own occupancy facts at each width; K2 on 16,384 hits
+with its tiers as the rule places them and all in its device pool (more
+hits than slots), and two launches in flight on two streams: bit for
+bit, the tally summing to the hits, the pool's slot masks clear after; an
+odd hit count (the last warp's second team idle), warps whose two teams
+run 1 and many EPA iterations, and the wrapper's width by the hulls'
+sizes (16 at 24 and 64 vertices, 32 at 96).  K1 at each team size and K2 and
 K13 over a tier ladder forced to overflow into their retries, at vertex
 counts with each remainder mod 4: bit for bit; K1 without the broadphase
 at each team size, K13 with its tiers in shared memory, device memory or
@@ -115,7 +119,18 @@ def test_k1_matches_plain_on_card(dev):
     assert float((gk.sep - gp.sep).abs().max()) <= 1e-5
 
 
-def test_k2_matches_plain_on_card(dev):
+def _k2_widths_equal(args, team, want, **variant):
+    """K2 at ``team`` lanes a hit and at 32, each bit for bit against
+    ``want`` (the plain rows): two launches."""
+    n0 = fused_epa.LAUNCHES
+    ek = fused_epa._epa_cascade_cuda(*args, team=team, **variant)
+    e32 = fused_epa._epa_cascade_cuda(*args, team=32, **variant)
+    assert fused_epa.LAUNCHES == n0 + 2
+    return _rows_equal(ek, want) and _rows_equal(e32, want)
+
+
+@pytest.mark.parametrize("team", [16, 32])
+def test_k2_matches_plain_on_card(dev, team):
     rng = np.random.default_rng(2)
     p1 = torch.from_numpy(_hulls(rng, 1024, 24, spread=0.0, scale=2.0)).to(dev)
     p2 = torch.from_numpy(_hulls(rng, 1024, 24, spread=0.2, scale=0.5)).to(dev)
@@ -123,13 +138,13 @@ def test_k2_matches_plain_on_card(dev):
     g = fused_gjk.gjk_hulls(p1, p2, cfg)
     order, n_act = hit_first_order(g.hit)
     st = cascade_plan(cfg)
-    n0 = fused_epa.LAUNCHES
-    ek = fused_epa.epa_cascade(p1, p2, g.simplex, g.status, order, n_act, st)
-    ep = fused_epa.epa_cascade_plain(p1, p2, g.simplex, g.status, order, n_act,
-                                     st)
-    assert fused_epa.LAUNCHES == n0 + 1
+    args = (p1, p2, g.simplex, g.status, order, n_act, st)
+    ep = fused_epa.epa_cascade_plain(*args)
     assert int(n_act) > 500
-    assert _rows_equal(ek, ep)
+    assert _k2_widths_equal(args, team, ep)
+    n0 = fused_epa.LAUNCHES
+    assert _rows_equal(fused_epa.epa_cascade(*args), ep)
+    assert fused_epa.LAUNCHES == n0 + 1
 
 
 def test_main_path_stays_on_the_card(dev):
@@ -642,9 +657,9 @@ def test_kernel_byte_counts_are_the_rules(dev):
     limit = _build.smem_limit(dev)
     assert limit == lib.epa_hulls_big_smem_limit() > 48 * 1024
     stages = cascade_plan(GJKEPAConfig.for_f32())
-    assert fused_epa.near_store_faces(stages, lib.epa_hulls_smem_bytes,
-                                      limit) == 208
-    assert lib.epa_hulls_smem_bytes(208) <= limit < lib.epa_hulls_smem_bytes(4096)
+    k2_bytes = fused_epa.k2_smem_bytes(32)
+    assert fused_epa.near_store_faces(stages, k2_bytes, limit) == 208
+    assert k2_bytes(208) <= limit < k2_bytes(4096)
     with torch.cuda.device(dev):
         assert lib.gjk_hulls_big_staged(2600, 2600)
         assert lib.gjk_hulls_big_staged(8192, 8192)
@@ -657,15 +672,16 @@ def _deep(rng, b, n):
     return p1, p2
 
 
+@pytest.mark.parametrize("team", [16, 32])
 @pytest.mark.parametrize("near", [None, 16, 0],
                          ids=["rule", "near16", "device"])
 @pytest.mark.parametrize("n", [24, 23])
-def test_k2_overflow_ladder_is_bit_equal_to_plain(dev, n, near):
-    """K2 over a ladder whose first tiers overflow (F=8, K=2; F=16, K=4;
-    F=208, K=16), with the tiers as its store rule places them, the first
-    two in shared memory and the last in the pool, or all in the pool:
-    rows bit for bit against the plain cascade; at 23 vertices K11 takes
-    its scalar scan."""
+def test_k2_overflow_ladder_is_bit_equal_to_plain(dev, n, near, team):
+    """K2 at each width over a ladder whose first tiers overflow (F=8,
+    K=2; F=16, K=4; F=208, K=16), with the tiers as its store rule places
+    them, the first two in shared memory and the last in the pool, or all
+    in the pool: rows bit for bit against the plain cascade and the
+    32-lane kernel; at 23 vertices K11 takes its scalar scan."""
     rng = np.random.default_rng(12)
     p1, p2 = (t.to(dev) for t in _deep(rng, 2048, n))
     cfg = GJKEPAConfig.for_f32()
@@ -675,11 +691,8 @@ def test_k2_overflow_ladder_is_bit_equal_to_plain(dev, n, near):
     order, n_act = hit_first_order(g.hit)
     args = (p1, p2, g.simplex, g.status, order, n_act, ladder)
     ep = fused_epa.epa_cascade_plain(*args)
-    n0 = fused_epa.LAUNCHES
-    ek = fused_epa._epa_cascade_cuda(*args, near_faces=near)
-    assert fused_epa.LAUNCHES == n0 + 1
     assert int(n_act) > 1000 and int((ep.iters > 3).sum()) > 500
-    assert _rows_equal(ek, ep)
+    assert _k2_widths_equal(args, team, ep, near_faces=near)
 
 
 def test_k2_takes_a_polytope_past_shared_memory(dev):
@@ -690,7 +703,7 @@ def test_k2_takes_a_polytope_past_shared_memory(dev):
     p1, p2 = (t.to(dev) for t in _deep(rng, 512, 24))
     cfg = GJKEPAConfig.for_f32()
     ladder = [(cfg.replace(epa_max_faces=4096), 16)]
-    assert _build.load().epa_hulls_smem_bytes(4096) > _build.smem_limit(dev)
+    assert fused_epa.k2_smem_bytes(32)(4096) > _build.smem_limit(dev)
     g = fused_gjk.gjk_hulls(p1, p2, cfg)
     order, n_act = hit_first_order(g.hit)
     args = (p1, p2, g.simplex, g.status, order, n_act, ladder)
@@ -701,30 +714,29 @@ def test_k2_takes_a_polytope_past_shared_memory(dev):
     assert _rows_equal(ek, fused_epa.epa_cascade_plain(*args))
 
 
-def test_k2_store_rule_on_card(dev):
-    """K2's rule over the card's own facts: the registers' blocks an SM fit
-    in shared memory beside the tiers it keeps there, the occupancy
-    calculator gives K2 those warps an SM, and the tiers past them take
-    the pool, whose slots
-    cover the most K2 warps an SM holds."""
-    lib = _build.load()
-    facts = fused_epa.k2_device(dev)
+@pytest.mark.parametrize("team", [16, 32])
+def test_k2_store_rule_on_card(dev, team):
+    """K2's rule over the card's own facts at each width: the registers'
+    blocks an SM fit in shared memory beside the tiers it keeps there, the
+    occupancy calculator gives K2 those hits an SM, and the tiers past
+    them take the pool, whose slots cover the most K2 hits an SM holds at
+    either width."""
+    facts = fused_epa.k2_device(dev, team)
+    nbytes = fused_epa.k2_smem_bytes(team)
     stages = cascade_plan(GJKEPAConfig.for_f32())
-    near = fused_epa.k2_near_faces(stages, lib.epa_hulls_smem_bytes,
-                                   facts.blocks, facts.sm_bytes,
-                                   facts.reserve)
-    warps = fused_epa.k2_resident_warps(dev, stages)
+    near = fused_epa.k2_near_faces(stages, nbytes, facts.blocks,
+                                   facts.sm_bytes, facts.reserve)
+    hits = fused_epa.k2_resident_hits(dev, stages, team)
     props = torch.cuda.get_device_properties(dev)
-    assert facts.blocks >= 1 and facts.pairs == 1
+    assert facts.blocks >= 1 and facts.hits == 32 // team
     assert facts.sm_ids >= props.multi_processor_count
-    assert facts.blocks * facts.pairs <= facts.slots <= 64
-    assert facts.blocks * (lib.epa_hulls_smem_bytes(near) + facts.reserve) \
-        <= facts.sm_bytes
-    assert warps == facts.blocks * facts.pairs
+    assert facts.blocks * facts.hits <= facts.slots <= 64
+    assert facts.slots == fused_epa.k2_device(dev, 48 - team).slots
+    assert facts.blocks * (nbytes(near) + facts.reserve) <= facts.sm_bytes
+    assert hits == facts.blocks * facts.hits
     assert near in (0, 48, 88, 208)
     if near < 208:
-        assert facts.blocks * (lib.epa_hulls_smem_bytes(208)
-                               + facts.reserve) > facts.sm_bytes
+        assert facts.blocks * (nbytes(208) + facts.reserve) > facts.sm_bytes
 
 
 def _k2_case(dev, b, seed):
@@ -741,52 +753,181 @@ def _pool_clear():
     return not any(bool(m.any()) for _, m in fused_epa._POOLS.values())
 
 
-@pytest.mark.parametrize("near", [None, 0], ids=["rule", "pool"])
-def test_k2_pool_is_bit_equal_to_plain(dev, near):
-    """K2 on 16,384 deep hits over the default ladder, its tiers as the
-    rule places them or every tier in the pool (each hit claims a slot:
-    more hits than the pool has slots, so slots are reused): rows bit for
-    bit against the plain cascade, the tally counts every hit once and a
-    claim for each hit that reached a pooled tier, the pool's masks end
-    clear and no host read is taken."""
-    args = _k2_case(dev, 16384, 14)
-    facts = fused_epa.k2_device(dev)
-    n = int(args[5])
-    assert n > facts.sm_ids * facts.slots
+def _k2_tallied(args, team, **variant):
+    """K2 at ``team`` lanes a hit under a tally: (rows, tally as a list);
+    no host read is taken and the pool's masks end clear."""
     reads = fused_epa.STORE_READS
-    with fused_epa.k2_tally(dev) as tally:
-        ek = fused_epa._epa_cascade_cuda(*args, near_faces=near)
+    with fused_epa.k2_tally(args[0].device) as tally:
+        ek = fused_epa._epa_cascade_cuda(*args, team=team, **variant)
     assert fused_epa.STORE_READS == reads
     assert _pool_clear()
-    tally = tally.tolist()
-    assert sum(tally[:-1]) == n
+    return ek, tally.tolist()
+
+
+def _pairing_holds(tally, rows, n, team):
+    """The tally's iteration entries at ``team`` lanes: at 16, every hit's
+    iterations summed (at least its rows', which count the last tier
+    alone) and each warp's longer team's, at most their sum and at least
+    half of it; at 32, none."""
+    its, longer = tally[fused_epa.TALLY_ITERS], tally[fused_epa.TALLY_LONGER]
+    if team == 32:
+        return its == longer == 0
+    ran = int(rows.iters.sum())
+    return its >= ran > 0 and longer <= its <= 2 * longer
+
+
+@pytest.mark.parametrize("team", [16, 32])
+@pytest.mark.parametrize("near", [None, 0], ids=["rule", "pool"])
+def test_k2_pool_is_bit_equal_to_plain(dev, near, team):
+    """K2 at each width on 16,384 deep hits over the default ladder, its
+    tiers as the rule places them or every tier in the pool (each hit
+    claims a slot: more hits than the pool has slots, so slots are
+    reused): rows bit for bit against the plain cascade and the 32-lane
+    kernel, the tally counts every hit once and a claim for each hit that
+    reached a pooled tier, and at 16 lanes the iterations of the pairing,
+    the pool's masks end clear and no host read is taken."""
+    args = _k2_case(dev, 16384, 14)
+    facts = fused_epa.k2_device(dev, team)
+    n = int(args[5])
+    assert n > facts.sm_ids * facts.slots
+    ek, tally = _k2_tallied(args, team, near_faces=near)
+    tiers = tally[:fused_epa.MAX_TIERS]
+    assert sum(tiers) == n
     if near is None:
         near = fused_epa.k2_near_faces(
-            args[6], _build.load().epa_hulls_smem_bytes, facts.blocks,
+            args[6], fused_epa.k2_smem_bytes(team), facts.blocks,
             facts.sm_bytes, facts.reserve)
     pooled = [c.epa_max_faces > near for c, _ in args[6]]
-    assert tally[-1] == sum(t for t, p in zip(tally, pooled) if p)
-    assert _rows_equal(ek, fused_epa.epa_cascade_plain(*args))
+    assert tally[fused_epa.TALLY_CLAIMS] == sum(
+        t for t, p in zip(tiers, pooled) if p)
+    assert _pairing_holds(tally, ek, n, team)
+    want = fused_epa.epa_cascade_plain(*args)
+    assert _rows_equal(ek, want)
+    assert _rows_equal(fused_epa._epa_cascade_cuda(*args, team=32,
+                                                   near_faces=near), want)
 
 
-def test_k2_launches_in_flight_on_two_streams(dev):
-    """Two K2 launches on two streams at once, every tier in the pool, so
-    that both claim slots of the same masks: each gives the plain rows,
-    and the masks end clear."""
+@pytest.mark.parametrize("team", [16, 32])
+def test_k2_launches_in_flight_on_two_streams(dev, team):
+    """Two K2 launches at each width on two streams at once, every tier in
+    the pool, so that both claim slots of the same masks, beside a launch
+    of the other width: each gives the plain rows, and the masks end
+    clear."""
     a = _k2_case(dev, 8192, 15)
     b = _k2_case(dev, 8192, 16)
     want = [fused_epa.epa_cascade_plain(*x) for x in (a, b)]
     fused_epa._epa_cascade_cuda(*a, near_faces=0)   # the pool made first
-    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    streams = [torch.cuda.Stream(dev) for _ in range(3)]
     got = []
-    for x, st in zip((a, b), streams):
+    for x, st, t in zip((a, b, a), streams, (team, team, 48 - team)):
         st.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(st):
-            got.append(fused_epa._epa_cascade_cuda(*x, near_faces=0))
+            got.append(fused_epa._epa_cascade_cuda(*x, near_faces=0,
+                                                   team=t))
     for st in streams:
         torch.cuda.current_stream(dev).wait_stream(st)
     assert _pool_clear()
-    assert all(_rows_equal(g, w) for g, w in zip(got, want))
+    assert all(_rows_equal(g, w) for g, w in zip(got, want + want[:1]))
+
+
+@pytest.mark.parametrize("team", [16, 32])
+def test_k2_odd_hit_count_on_card(dev, team):
+    """An odd hit count: the last warp's second team at 16 lanes has no
+    hit and leaves alone; every hit's rows bit for bit against the plain
+    cascade and the 32-lane kernel, the pairing's tally as it holds."""
+    p1, p2, simplex, status, order, n_act, st = _k2_case(dev, 4096, 17)
+    odd = int(n_act) - 1 + int(n_act) % 2
+    assert odd % 2 == 1 and odd > 3000
+    args = (p1, p2, simplex, status, order,
+            torch.tensor(odd, dtype=torch.int32, device=dev), st)
+    want = fused_epa.epa_cascade_plain(*args)
+    ek, tally = _k2_tallied(args, team)
+    assert sum(tally[:fused_epa.MAX_TIERS]) == odd
+    assert _pairing_holds(tally, ek, odd, team)
+    assert _k2_widths_equal(args, team, want) and _rows_equal(ek, want)
+    rest = order[odd:].long()
+    assert torch.equal(ek.iters[rest], torch.zeros_like(ek.iters[rest]))
+
+
+def _shallow_box_pairs(rng, b, n):
+    """``b`` pairs of unit cubes (8 corners repeated to ``n`` vertices),
+    the second moved 0.9-0.99 along one of the first's axes and a little
+    across, both turned at random: a shallow face contact, where GJK's
+    simplex often holds a face on the Minkowski facet nearest the origin,
+    so that EPA's first probe gains nothing and stops at iteration 1."""
+    cube = np.array([[x, y, z] for x in (-.5, .5) for y in (-.5, .5)
+                     for z in (-.5, .5)])
+    p1 = np.empty((b, n, 3), np.float32)
+    p2 = np.empty((b, n, 3), np.float32)
+    for i in range(b):
+        q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        shift = [0.9 + 0.09 * rng.random(), *(0.3 * rng.normal(size=2))]
+        p1[i] = np.resize(cube @ q.T, (n, 3))
+        p2[i] = np.resize((cube + shift) @ q.T, (n, 3))
+    return torch.from_numpy(p1), torch.from_numpy(p2)
+
+
+@pytest.mark.parametrize("team", [16, 32])
+def test_k2_teams_of_a_warp_run_apart_on_card(dev, team):
+    """Hits in alternating order, one stopping at EPA iteration 1 (a
+    shallow box contact) and the next running more (a deep pair), so that
+    the two teams of a 16-lane warp part after the first iteration: rows
+    bit for bit against the plain cascade and the 32-lane kernel, and the
+    tally's iterations those of the rows, its pairing well under 1."""
+    rng = np.random.default_rng(18)
+    b = 2048
+    s1, s2 = _shallow_box_pairs(rng, b, 24)
+    d1, d2 = _deep(rng, b, 24)
+    p1 = torch.cat([s1, d1]).to(dev)
+    p2 = torch.cat([s2, d2]).to(dev)
+    cfg = GJKEPAConfig.for_f32()
+    stages = cascade_plan(cfg)
+    g = fused_gjk.gjk_hulls(p1, p2, cfg)
+    order, n_act = hit_first_order(g.hit)
+    first = fused_epa.epa_cascade_plain(p1, p2, g.simplex, g.status, order,
+                                        n_act, stages)
+    lane = torch.arange(2 * b, device=dev)
+    short = lane[(lane < b) & g.hit & (first.iters == 1)]
+    long = lane[(lane >= b) & g.hit & (first.iters > 1)]
+    m = min(short.numel(), long.numel())
+    assert m > 800
+    keep = torch.stack([short[:m], long[:m]], 1).reshape(-1)
+    rest = torch.ones(2 * b, dtype=torch.bool, device=dev)
+    rest[keep] = False
+    order = torch.cat([keep, lane[rest]]).to(torch.int32)
+    n_act = torch.tensor(2 * m, dtype=torch.int32, device=dev)
+    args = (p1, p2, g.simplex, g.status, order, n_act, stages)
+    want = fused_epa.epa_cascade_plain(*args)
+    its = want.iters[keep].view(-1, 2)
+    assert bool((its[:, 0] == 1).all()) and bool((its[:, 1] > 1).all())
+    ek, tally = _k2_tallied(args, team)
+    assert _pairing_holds(tally, ek, int(n_act), team)
+    if team == 16 and sum(tally[1:fused_epa.MAX_TIERS]) == 0:
+        # every hit in its first tier: the rows' iterations are the tally's
+        assert tally[fused_epa.TALLY_ITERS] == int(its.sum())
+        assert tally[fused_epa.TALLY_LONGER] == int(its.max(1).values.sum())
+        assert fused_epa.k2_pairing(tally) < 0.75
+    assert _k2_widths_equal(args, team, want) and _rows_equal(ek, want)
+
+
+def test_k2_width_by_the_hulls_sizes_on_card(dev):
+    """The wrapper launches 16 lanes a hit at 24 and 64 vertices and 32 at
+    96, as its launch split counts, each bit for bit against the plain
+    cascade."""
+    cfg = GJKEPAConfig.for_f32()
+    rng = np.random.default_rng(19)
+    for n, team in ((24, 16), (64, 16), (96, 32)):
+        p1, p2 = (t.to(dev) for t in _deep(rng, 512, n))
+        g = fused_gjk.gjk_hulls(p1, p2, cfg)
+        order, n_act = hit_first_order(g.hit)
+        args = (p1, p2, g.simplex, g.status, order, n_act, cascade_plan(cfg))
+        before = dict(fused_epa.LAUNCHES_BY_TEAM)
+        ek = fused_epa.epa_cascade(*args)
+        after = fused_epa.LAUNCHES_BY_TEAM
+        assert {t: after[t] - before[t] for t in after} == {
+            16: int(team == 16), 32: int(team == 32)}
+        assert int(n_act) > 300
+        assert _rows_equal(ek, fused_epa.epa_cascade_plain(*args))
 
 
 def test_k12_scans_hulls_past_shared_memory(dev):

@@ -8,11 +8,12 @@ SM's shared memory, and every larger tier in a slot of a device pool
 takes the kernel's byte count as a function (``epa_hulls_smem_bytes`` on
 the card), the register-bound blocks an SM, the SM's shared memory and the
 reserve a block as arguments (``epa_hulls_device`` on the card), so it is
-held here without a card, against stand-ins of them: a block of P warps,
-each 1,152 B of scratch and 68 B a face, 16 warps an SM by the registers
-(111 a thread: a scheduler's quarter of the register file holds 4 such
-warps), and an H100's 233,472 B an SM, 1,024 B reserved a block
-(232,448 B a block at most).  The pool's size and K2's launch arguments
+held here without a card, against stand-ins of them: a block of H hits
+(P warps, 32 / TW teams a warp), each 1,152 B of scratch and 68 B a face,
+16 warps an SM by the registers (111 a thread: a scheduler's quarter of
+the register file holds 4 such warps), and an H100's 233,472 B an SM,
+1,024 B reserved a block (232,448 B a block at most).  The pool's size,
+K2's choice of team width by the hulls' sizes and its launch arguments
 are held through a stand-in of the library on CPU tensors.  K13
 (csrc/epa_hulls_big.cu) keeps each tier in shared memory where its own
 store fits in a block (``near_store_faces``) and in a device store
@@ -49,11 +50,12 @@ H100_LIMIT = 232_448     # an H100 block's opt-in shared memory
 H100_SM = 233_472        # an H100 SM's shared memory
 RESERVE = 1_024          # shared memory reserved a block
 K2_WARPS = 16            # K2's warps an SM by its registers (111 a thread)
+K2_WARP_LANES = 32
 
 
-def k2_bytes(pairs):
-    """A stand-in of K2's block bytes, built with P = ``pairs`` warps."""
-    return lambda faces: pairs * (1152 + 68 * faces)
+def k2_bytes(hits):
+    """A stand-in of K2's block bytes, a block of ``hits`` teams."""
+    return lambda faces: hits * (1152 + 68 * faces)
 
 
 def _k2_stores(stages, smem_bytes, blocks, sm_bytes=H100_SM):
@@ -78,11 +80,12 @@ def _ladder(*faces):
 
 @pytest.mark.parametrize("pairs", [1, 2, 4, 8])
 def test_k2_default_ladder_at_the_byte_boundary(pairs):
-    """At the blocks an SM K2's registers allow (16 warps, P a block) the
-    default ladder (F = 48, 88, 208) keeps 48 and 88 faces in shared
-    memory and pools 208; on an SM whose shared memory gives each block
-    exactly a tier's bytes that tier stays shared, and one byte less sends
-    it, and only it and the larger ones, to the pool."""
+    """At the blocks an SM K2's registers allow (16 warps, P a block, a
+    hit a warp) the default ladder (F = 48, 88, 208) keeps 48 and 88
+    faces in shared memory and pools 208; on an SM whose shared memory
+    gives each block exactly a tier's bytes that tier stays shared, and
+    one byte less sends it, and only it and the larger ones, to the
+    pool."""
     stages = cascade_plan(GJKEPAConfig.for_f32())
     assert [c.epa_max_faces for c, _ in stages] == [48, 88, 208]
     nbytes, blocks = k2_bytes(pairs), K2_WARPS // pairs
@@ -101,6 +104,26 @@ def test_k2_default_ladder_at_the_byte_boundary(pairs):
         48, 208, ["shared", "pool", "pool"])
     assert _k2_stores(stages, nbytes, blocks, sm(48) - 1) == (
         0, 208, ["pool"] * 3)
+
+
+@pytest.mark.parametrize("team, hits, near, pooled", [
+    (32, 1, 88, [208]), (16, 2, 48, [88, 208])])
+def test_k2_hits_a_block_set_the_shared_tiers(team, hits, near, pooled):
+    """At 16 one-warp blocks an SM on an H100 (233,472 B, 1,024 B reserved
+    a block: 13,568 B a block's share), a block of one 32-lane hit keeps
+    48 and 88 faces in shared memory (7,136 B) and a block of two 16-lane
+    hits keeps 48 (2 x 4,416 = 8,832 B; 88 would take 14,272 B), the
+    larger tiers in the pool."""
+    stages = cascade_plan(GJKEPAConfig.for_f32())
+    assert hits == K2_WARP_LANES // team
+    nbytes = k2_bytes(hits)
+    got_near, far, where = _k2_stores(stages, nbytes, K2_WARPS)
+    assert (got_near, far) == (near, 208)
+    assert [c.epa_max_faces for (c, _), w in zip(stages, where)
+            if w == "pool"] == pooled
+    share = H100_SM // K2_WARPS - RESERVE
+    assert nbytes(near) <= share < nbytes(min(pooled))
+    assert nbytes(48) == (8832 if hits == 2 else 4416)
 
 
 @pytest.mark.parametrize("blocks, near", [
@@ -155,30 +178,32 @@ def test_k2_a_tier_is_shared_exactly_when_its_store_fits(faces, limit):
     assert near == max((f for f in faces if nbytes(f) <= limit), default=0)
 
 
-# An H100's K2 facts as epa_hulls_device reports them (blocks by the
-# registers, P, shared memory an SM, reserve, slots an SM id, SM ids).
-H100_K2 = fused_epa.K2Device(16, 1, H100_SM, RESERVE, 32, 132)
+# An H100's K2 facts as epa_hulls_device reports them at 16 lanes a hit
+# (blocks by the registers, hits a block, shared memory an SM, reserve,
+# slots an SM id, SM ids); the slots, 32 blocks an SM x 2 hits, are the
+# same at 32 lanes.
+H100_K2 = fused_epa.K2Device(16, 2, H100_SM, RESERVE, 64, 132)
 
 
 class K2Library:
     """A stand-in of the built library's K2 entry points: the device facts
-    given, K2's block bytes and face words, and a launch that records its
-    arguments."""
+    given (the hits a block by the team width asked), K2's block bytes
+    and face words, and a launch that records its arguments."""
 
     def __init__(self, facts):
         self.facts = facts
         self.launches = []
 
-    def epa_hulls_blocks_per_sm(self, smem):
+    def epa_hulls_blocks_per_sm(self, team, smem):
         return self.facts.blocks    # the registers bind these blocks
 
-    def epa_hulls_device(self, out):
-        for i, v in enumerate(self.facts[1:]):
+    def epa_hulls_device(self, team, out):
+        for i, v in enumerate(self.facts._replace(hits=32 // team)[1:]):
             out[i] = v
         return 0
 
-    def epa_hulls_smem_bytes(self, faces):
-        return 1152 + 68 * faces
+    def epa_hulls_smem_bytes(self, team, faces):
+        return 32 // team * (1152 + 68 * faces)
 
     def epa_scratch_words_per_face(self):
         return 17
@@ -206,10 +231,10 @@ def k2_library(monkeypatch):
     fused_epa.k2_device.cache_clear()
 
 
-def _k2_inputs(b, hits):
+def _k2_inputs(b, hits, n=24, n2=None):
     g = torch.Generator().manual_seed(b)
-    return (torch.randn(b, 24, 3, generator=g),
-            torch.randn(b, 24, 3, generator=g),
+    return (torch.randn(b, n, 3, generator=g),
+            torch.randn(b, n if n2 is None else n2, 3, generator=g),
             torch.randn(b, 4, 3, generator=g),
             torch.ones(b, dtype=torch.int32),
             torch.arange(b, dtype=torch.int32),
@@ -218,34 +243,89 @@ def _k2_inputs(b, hits):
 
 # positions of epa_hulls_launch's arguments
 POOL_FACES, POOL_MASK, TALLY, B_ARG = 9, 10, 11, 12
-NEAR, FAR, PER_SM = 18, 19, 20
+NEAR, FAR, PER_SM, TEAM = 18, 19, 20, 21
 
 
 @pytest.mark.parametrize("facts", [H100_K2, H100_K2._replace(sm_ids=144),
-                                   H100_K2._replace(slots=64, pairs=2),
+                                   H100_K2._replace(slots=128),
                                    H100_K2._replace(slots=40, sm_ids=8)],
                          ids=["h100", "144-ids", "p2", "40-slots"])
 def test_k2_pool_depends_on_the_card_alone(k2_library, facts):
-    """K2's pool holds a slot of 208 faces for every K2 warp an SM can hold
-    on every SM id, with a zeroed mask word for each 32 slots an SM id:
-    the same tensors, made once, for every batch size and hit count, and
+    """K2's pool holds a slot of 208 faces for every K2 hit an SM can hold
+    on every SM id (p2: a card holding two-warp blocks of 16-lane hits),
+    with a zeroed mask word for each 32 slots an SM id: the same tensors,
+    made once, for every batch size and hit count, at either team width
+    (24 vertices: 16 lanes, 48 faces shared; 96: 32 lanes, 88 faces), and
     no host read of the hit count."""
     lib = k2_library(facts)
     stages = cascade_plan(GJKEPAConfig.for_f32())
     reads = fused_epa.STORE_READS
-    for b, hits in ((64, 0), (64, 64), (256, 17), (4096, 4096), (1, 1)):
-        fused_epa._epa_cascade_cuda(*_k2_inputs(b, hits), stages)
+    sizes = ((64, 0), (64, 64), (256, 17), (4096, 4096), (1, 1))
+    for n in (24, 96):
+        for b, hits in sizes:
+            fused_epa._epa_cascade_cuda(*_k2_inputs(b, hits, n), stages)
     assert fused_epa.STORE_READS == reads
     ((faces, mask),) = fused_epa._POOLS.values()
     assert faces.shape == (facts.sm_ids * facts.slots, 17, 208)
     assert mask.shape == (facts.sm_ids, -(-facts.slots // 32))
     assert mask.dtype == torch.int32 and not mask.any()
-    assert [a[B_ARG] for a in lib.launches] == [64, 64, 256, 4096, 1]
-    for a in lib.launches:
+    assert [a[B_ARG] for a in lib.launches] == [b for b, _ in sizes] * 2
+    for i, a in enumerate(lib.launches):
+        team, near = (16, 48) if i < len(sizes) else (32, 88)
         assert a[POOL_FACES].value == faces.data_ptr()
         assert a[POOL_MASK].value == mask.data_ptr()
-        assert (a[NEAR], a[FAR], a[PER_SM]) == (88, 208, facts.slots)
+        assert (a[NEAR], a[FAR], a[PER_SM], a[TEAM]) == (
+            near, 208, facts.slots, team)
         assert a[TALLY] is None
+
+
+def test_k2_pool_slots_count_hits_not_warps(k2_library):
+    """Launches at 16 and at 32 lanes a hit share one pool whose slots an
+    SM id are the card's most K2 hits an SM (64 on an H100: 32 blocks of
+    two 16-lane hits), twice the 32 one-hit warps an SM can hold."""
+    lib = k2_library(H100_K2)
+    stages = cascade_plan(GJKEPAConfig.for_f32())
+    for n in (24, 96, 64, 65):
+        fused_epa._epa_cascade_cuda(*_k2_inputs(128, 100, n), stages)
+    ((faces, mask),) = fused_epa._POOLS.values()
+    assert faces.shape == (132 * 64, 17, 208) and mask.shape == (132, 2)
+    assert [(a[TEAM], a[PER_SM]) for a in lib.launches] == [
+        (16, 64), (32, 64), (16, 64), (32, 64)]
+    assert {a[POOL_FACES].value for a in lib.launches} == {faces.data_ptr()}
+    assert [fused_epa.k2_device(torch.device("cpu"), t).hits
+            for t in (16, 32)] == [2, 1]
+
+
+@pytest.mark.parametrize("n1, n2, team", [
+    (4, 4, 16), (8, 8, 16), (24, 24, 16), (64, 64, 16), (24, 64, 16),
+    (65, 24, 32), (24, 65, 32), (96, 96, 32), (2048, 2048, 32)])
+def test_k2_team_by_the_hulls_sizes(k2_library, n1, n2, team):
+    """The wrapper launches 16 lanes a hit where both hulls have at most 64
+    vertices and 32 above, by the hulls' shapes alone, and counts the
+    launch under its width."""
+    k2_library(H100_K2)
+    assert fused_epa.k2_team(n1, n2) == team
+    stages = cascade_plan(GJKEPAConfig.for_f32())
+    before = dict(fused_epa.LAUNCHES_BY_TEAM)
+    fused_epa._epa_cascade_cuda(*_k2_inputs(8, 8, n1, n2), stages)
+    after = fused_epa.LAUNCHES_BY_TEAM
+    assert {t: after[t] - before[t] for t in after} == {
+        16: int(team == 16), 32: int(team == 32)}
+
+
+def _pool_passed(lib, blocks, near, n):
+    """Whether K2's launch over ``n``-vertex hulls at ``blocks`` blocks an
+    SM (and ``near`` faces forced, or the rule's) was handed the pool."""
+    lib.facts = H100_K2._replace(blocks=blocks)
+    stages = cascade_plan(GJKEPAConfig.for_f32())
+    fused_epa._epa_cascade_cuda(*_k2_inputs(32, 32, n), stages,
+                                near_faces=near)
+    (args,) = lib.launches
+    pooled = args[POOL_FACES] is not None
+    assert (args[POOL_MASK] is not None) == pooled
+    assert len(fused_epa._POOLS) == int(pooled)
+    assert args[FAR] == (208 if pooled else 0)
+    return pooled
 
 
 @pytest.mark.parametrize("blocks, near, pooled", [
@@ -254,20 +334,23 @@ def test_k2_pool_depends_on_the_card_alone(k2_library, facts):
 def test_k2_pool_only_where_a_tier_needs_it(k2_library, blocks, near,
                                             pooled):
     """No pool is made or passed while every tier fits in K2's share of
-    shared memory (the rule at 14 blocks an SM, or a store of 208 faces
-    forced); a tier past it passes the pool."""
-    lib = k2_library(H100_K2._replace(blocks=blocks))
-    stages = cascade_plan(GJKEPAConfig.for_f32())
-    fused_epa._epa_cascade_cuda(*_k2_inputs(32, 32), stages, near_faces=near)
-    (args,) = lib.launches
-    assert (args[POOL_FACES] is not None) == pooled
-    assert (args[POOL_MASK] is not None) == pooled
-    assert len(fused_epa._POOLS) == int(pooled)
-    assert args[FAR] == (208 if pooled else 0)
+    shared memory (the rule at 14 one-hit blocks an SM at 32 lanes, or a
+    store of 208 faces forced); a tier past it passes the pool."""
+    assert _pool_passed(k2_library(H100_K2), blocks, near, 96) == pooled
+
+
+@pytest.mark.parametrize("blocks, near, pooled", [
+    (7, None, False), (8, None, True), (16, None, True), (16, 208, False),
+    (16, 0, True), (1, 48, True)])
+def test_k2_pool_only_where_a_tier_needs_it_at_16_lanes(k2_library, blocks,
+                                                         near, pooled):
+    """The same at 16 lanes a hit, two hits a block: every tier fits up to
+    7 blocks an SM (7 x (2 x 15,296 + 1,024) <= 233,472 B), not at 8."""
+    assert _pool_passed(k2_library(H100_K2), blocks, near, 24) == pooled
 
 
 def test_k2_tally_is_passed_only_while_open(k2_library):
-    """``k2_tally`` hands K2 an int32 (MAX_TIERS + 1) tally on the launch's
+    """``k2_tally`` hands K2 an int32 (MAX_TIERS + 3) tally on the launch's
     device while open, and none after (the main path's)."""
     lib = k2_library(H100_K2)
     stages = cascade_plan(GJKEPAConfig.for_f32())
@@ -275,10 +358,22 @@ def test_k2_tally_is_passed_only_while_open(k2_library):
     with fused_epa.k2_tally(torch.device("cpu")) as tally:
         fused_epa._epa_cascade_cuda(*inputs, stages)
     fused_epa._epa_cascade_cuda(*inputs, stages)
-    assert tally.shape == (fused_epa.MAX_TIERS + 1,)
+    assert tally.shape == (fused_epa.MAX_TIERS + 3,)
     assert tally.dtype == torch.int32
     assert lib.launches[0][TALLY].value == tally.data_ptr()
     assert lib.launches[1][TALLY] is None and fused_epa.TALLY is None
+
+
+@pytest.mark.parametrize("iters, longer, want", [
+    (200, 100, 1.0), (150, 100, 0.75), (100, 100, 0.5), (0, 0, None)])
+def test_k2_pairing_reads_the_tally(iters, longer, want):
+    """The pairing's efficiency is the hits' iterations over twice the
+    summed longer team's: 1 when every warp's teams ran as long, 0.5
+    when one of each ran alone; none without a 16-lane hit."""
+    tally = [0] * (fused_epa.MAX_TIERS + 3)
+    tally[fused_epa.TALLY_ITERS] = iters
+    tally[fused_epa.TALLY_LONGER] = longer
+    assert fused_epa.k2_pairing(tally) == want
 
 
 def k7_bytes(warps):
