@@ -2509,6 +2509,7 @@ def main() -> int:
         order, n_act = hit_first_order(g.hit)
         args = (p1, p2, g.simplex, g.status, order, n_act, tiers)
         split = dict(fused_epa.LAUNCHES_BY_TEAM)
+        claims = fused_epa.pool_claims(dev)
         with fused_epa.k2_tally(dev) as tally:
             ek = (fused_epa._epa_cascade_cuda(*args, **variant) if variant
                   else fused_epa.epa_cascade(*args))
@@ -2520,6 +2521,10 @@ def main() -> int:
         tiers_done = tally[:fused_epa.MAX_TIERS]
         check(sum(tiers_done) == int(n_act),
               f"{what}: K2's tally {tally} does not sum to {int(n_act)} hits")
+        claims = fused_epa.pool_claims(dev) - claims
+        check(claims == tally[fused_epa.TALLY_CLAIMS],
+              f"{what}: K2's pool counter read {claims} claims, its tally "
+              f"{tally[fused_epa.TALLY_CLAIMS]}")
         busy = [int(m.count_nonzero()) for _, m in fused_epa._POOLS.values()]
         check(not any(busy), f"{what}: K2's pool masks left slots taken")
         err = max(float((ek.depth - ep.depth).abs().max()),

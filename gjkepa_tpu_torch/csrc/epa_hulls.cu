@@ -55,7 +55,9 @@
 // An optional tally counts, by the teams' lane-0 atomics, the hits that
 // finish in each tier and the pool's claims, and at TW = 16 the EPA
 // iterations the hits ran and, a warp, those of its longer team (null on
-// the main path).
+// the main path).  Each claim also adds 1 to the pool's claim counter, the
+// int32 word just before the masks, on the main path too
+// (fused_epa.pool_claims reads it; the kernel never does).
 //
 // What bounds it: each hit's iterations run one after another, a chain of
 // dependent shared-memory passes and shuffles plus one probe of both hulls
@@ -84,14 +86,16 @@ inline size_t smem_bytes(int hits, int near_faces) {
 // The device pool of face stores for the tiers past near_faces.
 struct SlotPool {
   float* faces;    // [slot][field][f_max]
-  unsigned* mask;  // [SM id][words]: a set bit is a slot taken
+  unsigned* mask;  // [SM id][words]: a set bit is a slot taken; mask[-1]
+                   // counts the claims
   int per_sm;      // slots an SM id
   int f_max;       // faces a slot
   __device__ __forceinline__ int words() const { return (per_sm + 31) / 32; }
 };
 
-// The team's lane 0 takes a free slot of its SM's mask and the whole team
-// gets it.  The SM's resident hits are at most its slots, so the scan ends.
+// The team's lane 0 takes a free slot of its SM's mask, counts the claim,
+// and the whole team gets the slot.  The SM's resident hits are at most its
+// slots, so the scan ends.
 template <int TW>
 __device__ __forceinline__ int claim_slot(const SlotPool& pool) {
   int slot = 0;
@@ -113,6 +117,7 @@ __device__ __forceinline__ int claim_slot(const SlotPool& pool) {
       }
       if (free_bits != 0u) break;
     }
+    atomicAdd(reinterpret_cast<int*>(pool.mask) - 1, 1);
     __threadfence();  // the slot's last holder's writes before ours
   }
   return __shfl_sync(team_mask<TW>(), slot, 0, TW);
@@ -335,7 +340,8 @@ extern "C" int epa_hulls_device(int team, int* facts) {
 // hit a team.  A tier of at most `near_faces` faces runs in shared memory,
 // a larger one in a slot of the pool `pool_faces` (slots, fields,
 // far_faces) float32 with `pool_mask` int32 (SM ids, ceil(pool_per_sm /
-// 32)) zeroed (both null when no tier needs them).  `tally`, when not null,
+// 32)) zeroed, preceded by the int32 claim counter (both null when no tier
+// needs them).  `tally`, when not null,
 // is int32 (MAX_TIERS + 3): each hit adds one to the tier it finished in,
 // and one to entry MAX_TIERS if it took a slot; at team 16, each warp adds
 // its hits' EPA iterations to entry MAX_TIERS + 1 and its longer team's to

@@ -24,7 +24,9 @@ registers (:func:`k2_resident_hits`), a 16-lane team keeps 48 faces in
 shared memory and pools 88 and 208, a 32-lane team keeps 48 and 88.
 :data:`TALLY`, set by :func:`k2_tally`, counts the hits that finish in
 each tier and the pool's claims, and at 16 lanes the iterations that give
-the pairing's efficiency (:func:`k2_pairing`).  K13
+the pairing's efficiency (:func:`k2_pairing`); the pool's own counter,
+which each claim adds to, counts the claims on the main path too
+(:func:`pool_claims`).  K13
 (``fused_streamed.epa_hulls_big``) keeps its own rule: each tier in shared
 memory where its store fits in a block (:func:`near_store_faces`), else in
 a device store one a hit (:func:`face_stores`), sized by the one host read
@@ -54,8 +56,9 @@ __all__ = ["EPARows", "epa_cascade", "epa_cascade_plain", "epa_phase",
            "run_cascade", "check_stages", "check_tensors", "near_store_faces",
            "far_store_faces", "face_stores", "K2Device", "k2_device",
            "k2_near_faces", "k2_pool", "k2_resident_hits", "k2_tally",
-           "k2_pairing", "k2_smem_bytes", "k2_team", "LAUNCHES",
-           "LAUNCHES_BY_TEAM", "STORE_READS", "TALLY", "NARROW_VERTICES"]
+           "k2_pairing", "k2_smem_bytes", "k2_team", "pool_claims",
+           "LAUNCHES", "LAUNCHES_BY_TEAM", "STORE_READS", "TALLY",
+           "NARROW_VERTICES"]
 
 # Kernel launches made by epa_cascade (CUDA tensors only), and the same by
 # the lanes of a hit's team.
@@ -178,9 +181,10 @@ def k2_pool(dev: torch.device, far_faces: int, facts: K2Device):
     """K2's pool for tiers of up to ``far_faces`` faces on ``dev``: (faces,
     mask), faces (slots, fields, far_faces) float32 with ``facts.slots``
     slots for each of ``facts.sm_ids`` SM ids, mask int32 (SM ids,
-    ceil(slots / 32)) zeroed, a set bit a slot a team holds.  The slots
-    are the same at either width, so both share one pool.  Made once a
-    device and size, then the card waits for the zeroed mask, so that a
+    ceil(slots / 32)) zeroed, a set bit a slot a team holds, preceded by
+    the pool's claim counter, one int32 word (:func:`pool_claims`).  The
+    slots are the same at either width, so both share one pool.  Made once
+    a device and size, then the card waits for the zeroed mask, so that a
     launch on any stream finds it; nothing in it depends on the batch or
     the hit count."""
     key = (dev, far_faces, facts.slots, facts.sm_ids)
@@ -188,12 +192,23 @@ def k2_pool(dev: torch.device, far_faces: int, facts: K2Device):
         words = _build.load().epa_scratch_words_per_face()
         faces = torch.empty((facts.sm_ids * facts.slots, words, far_faces),
                             dtype=torch.float32, device=dev)
-        mask = torch.zeros((facts.sm_ids, -(-facts.slots // 32)),
-                           dtype=torch.int32, device=dev)
+        mask_words = facts.sm_ids * -(-facts.slots // 32)
+        counted = torch.zeros(1 + mask_words, dtype=torch.int32, device=dev)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        _POOLS[key] = (faces, mask)
+        _POOLS[key] = (faces, counted[1:].view(facts.sm_ids, -1))
     return _POOLS[key]
+
+
+def pool_claims(dev: torch.device | None = None) -> int:
+    """The slots K2's teams have claimed in the pools on ``dev`` (every
+    device for None) since each was made: the counter each claim adds to
+    on the card, the word before the pool's masks in their storage (the
+    kernel's ``mask[-1]``).  A host read, so for readers after the fact;
+    the main path never takes it."""
+    return sum(int(mask.as_strided((1,), (1,), 0))
+               for key, (_, mask) in _POOLS.items()
+               if dev is None or key[0] == dev)
 
 
 def k2_smem_bytes(team: int):

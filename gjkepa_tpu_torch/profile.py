@@ -16,6 +16,9 @@ Paths, each at its bench.py configuration (``models/fixtures.py``):
   c4        ``gjkepa_batch_fused``, 16,384 x 24 deep pairs, full contact;
   deep64k   ``fused_gjkepa_hulls``, EPA on, 65,536 x 24 deep pairs (c4's
             recipe at the batch of the cell ``hull24_64k.deep_penetration``);
+  deep255   the same at 255 vertices a hull (the batch and hull size of
+            the cell ``hull255_64k.deep_penetration_facets``: K1 streamed,
+            K2 at 32 lanes a hit);
   big8192   ``gjkepa_batch_fused``, 256 x 8,192 hull pairs (the large-hull
             path: K12, K13), full contact;
   big2600   ``fused_gjkepa_hulls``, 4,096 x 2,600 hull pairs (K12, K13);
@@ -54,8 +57,10 @@ reads of the hit count that size K13's face store in device memory
 a hit's team (``fused_epa.LAUNCHES_BY_TEAM``) and its tally
 (``fused_epa.k2_tally``: the hits that finished in each tier of its ladder,
 the share that took a slot of its device pool, and at 16 lanes the
-pairing's efficiency, ``fused_epa.k2_pairing``) with the hits' mean and
-largest EPA iteration count (from the rows), then a line
+pairing's efficiency, ``fused_epa.k2_pairing``) beside the claims the
+pool's own counter took in the same call (``fused_epa.pool_claims``),
+with the hits' mean and largest EPA iteration count (from the rows), then
+a line
 a program span (``gjkepa.*``, ``spans.py``: each
 kernel's dispatcher, the glue between kernels, the public entry): its host
 self time a call (its length less its nested spans'), the device time and
@@ -250,11 +255,13 @@ def profile_path(name, fn, card) -> None:
     k1 = (fused_gjk.LAUNCHES - k1[0], fused_gjk.STAGED_LAUNCHES - k1[1])
     reads = fused_epa.STORE_READS - reads
     k2 = {t: n - k2[t] for t, n in fused_epa.LAUNCHES_BY_TEAM.items()}
-    with fused_epa.k2_tally(torch.device("cuda", torch.cuda.current_device())
-                            ) as tally:
+    dev = torch.device("cuda", torch.cuda.current_device())
+    counted = fused_epa.pool_claims(dev)
+    with fused_epa.k2_tally(dev) as tally:
         out = fn()
         torch.cuda.synchronize()
     tally = tally.tolist()
+    counted = fused_epa.pool_claims(dev) - counted
     events = prof.events()
     kernels = device_ops(events)
     device_ms = (sum(e.time_range.elapsed_us() for e in kernels) / 1e3
@@ -283,7 +290,8 @@ def profile_path(name, fn, card) -> None:
         pairing = fused_epa.k2_pairing(tally)
         print(f"  {name} K2 tally, one call: {hits} hits, finished by tier "
               f"{tiers}; {claims} took a pool slot "
-              f"({100.0 * claims / hits:.3f}% of hits); pairing "
+              f"({100.0 * claims / hits:.3f}% of hits; the pool's counter "
+              f"{counted}); pairing "
               + ("n/a (no 16-lane hit)" if pairing is None else
                  f"{pairing:.4f} ({tally[fused_epa.TALLY_ITERS]} EPA "
                  f"iterations, {tally[fused_epa.TALLY_LONGER]} of the "
@@ -318,7 +326,7 @@ def main(argv) -> int:
     print(f"K2 hits an SM at the default ladder by lanes a hit: {hits} "
           f"[{card}]", flush=True)
     order = argv or ["c2", "c2dist", "c2dist1", "c3", "c3b", "c3b_unsorted",
-                     "c4", "deep64k", "big8192", "big2600", "c1",
+                     "c4", "deep64k", "deep255", "big8192", "big2600", "c1",
                      "c4portable",
                      "c4manifold", "c5sim1024", "c5sim16k",
                      "c2distportable", "c3distportable", "c4sharded4",
@@ -365,6 +373,10 @@ def main(argv) -> int:
         e1, e2 = on_dev(*fixtures.deep_pairs(np.random.default_rng(0),
                                              65536, 24))
         paths["deep64k"] = lambda: fused_gjkepa_hulls(e1, e2, cfg=cfg)
+    if "deep255" in want:
+        f1, f2 = on_dev(*fixtures.deep_pairs(np.random.default_rng(0),
+                                             65536, 255))
+        paths["deep255"] = lambda: fused_gjkepa_hulls(f1, f2, cfg=cfg)
     if want & {"c4manifold", "c4sharded4", "c4checked"}:
         from .debug import checked_fused_gjkepa_hulls
         from .parallel import (gjkepa_batch_fused_sharded, pair_mesh,
