@@ -18,12 +18,15 @@
 // the team support of hull_stream.cuh (TeamHullSupport<TW>: at 24
 // vertices six lanes read a 4-vertex group each, then log2(TW) xor
 // shuffles), and its lane 0 writes depth, normal, iterations and status.
-// A final-tier capacity exit becomes HIT_EPA_DEGENERATE.  This is K13's
-// warp tier, bit-equal to the same plain version at either width (the
-// min-face fold, the support's first maximum and the ballot ranks are
-// total orders, whatever the lanes' split); K13 shares each probe across a
-// block because its hulls are large, K2 gives each team its own pair
-// because its hulls are small.  P is kPairs = 1: of 1, 2, 4 and 8 the
+// A final-tier capacity exit becomes HIT_EPA_DEGENERATE.  Where a tier
+// stops for capacity by free faces, the next one carries its polytope on
+// wherever the plain version's restart would repeat the smaller tier's
+// iterations bit for bit (k2_ladder), and restarts from the simplex
+// elsewhere.  This is K13's warp tier, bit-equal to the same plain
+// version at either width (the min-face fold, the support's first maximum
+// and the ballot ranks are total orders, whatever the lanes' split); K13
+// shares each probe across a block because its hulls are large, K2 gives
+// each team its own pair because its hulls are small.  P is kPairs = 1: of 1, 2, 4 and 8 the
 // fastest on an H100 (PERF.md, Findings).  fused_epa.k2_team picks TW by
 // the hulls' sizes: 16 where both hulls have at most 64 vertices (16
 // 4-vertex groups, one probe pass on 16 lanes as on 32; the 48-face tier
@@ -51,13 +54,16 @@
 // 88 and 208 faces) on an H100, 16 blocks an SM by the registers: at TW =
 // 32 48 and 88 faces stay (7,136 B a block) and 208 is pooled, at TW = 16
 // 48 faces stay (2 x 4,416 B a block) and 88 and 208 are pooled.  A hit
-// reaches a pooled tier only after the smaller tiers exit for capacity.
-// An optional tally counts, by the teams' lane-0 atomics, the hits that
-// finish in each tier and the pool's claims, and at TW = 16 the EPA
+// reaches a pooled tier only after the smaller tiers exit for capacity; a
+// polytope carried on from shared memory into the pool is copied into the
+// slot.  An optional tally counts, by the teams' lane-0 atomics, the hits
+// that finish in each tier and the pool's claims, and at TW = 16 the EPA
 // iterations the hits ran and, a warp, those of its longer team (null on
-// the main path).  Each claim also adds 1 to the pool's claim counter, the
-// int32 word just before the masks, on the main path too
-// (fused_epa.pool_claims reads it; the kernel never does).
+// the main path).  The pool's two int32 words before its masks count, on
+// the main path too, its claims and the tiers carried into
+// (fused_epa.pool_claims and tier_carries read them; the kernel never
+// does); every launch is handed them, with no slot where no tier is
+// pooled.
 //
 // What bounds it: each hit's iterations run one after another, a chain of
 // dependent shared-memory passes and shuffles plus one probe of both hulls
@@ -86,8 +92,8 @@ inline size_t smem_bytes(int hits, int near_faces) {
 // The device pool of face stores for the tiers past near_faces.
 struct SlotPool {
   float* faces;    // [slot][field][f_max]
-  unsigned* mask;  // [SM id][words]: a set bit is a slot taken; mask[-1]
-                   // counts the claims
+  unsigned* mask;  // [SM id][words]: a set bit is a slot taken; mask[-2]
+                   // counts the claims, mask[-1] the carries
   int per_sm;      // slots an SM id
   int f_max;       // faces a slot
   __device__ __forceinline__ int words() const { return (per_sm + 31) / 32; }
@@ -117,7 +123,7 @@ __device__ __forceinline__ int claim_slot(const SlotPool& pool) {
       }
       if (free_bits != 0u) break;
     }
-    atomicAdd(reinterpret_cast<int*>(pool.mask) - 1, 1);
+    atomicAdd(reinterpret_cast<int*>(pool.mask) - 2, 1);
     __threadfence();  // the slot's last holder's writes before ours
   }
   return __shfl_sync(team_mask<TW>(), slot, 0, TW);
@@ -134,33 +140,56 @@ __device__ __forceinline__ void release_slot(const SlotPool& pool, int slot) {
   }
 }
 
-// epa_cascade_warp's ladder with the far tiers in a pool slot, claimed when
-// the ladder first reaches one: the same tiers over the same simplex, so the
-// same rows whichever store holds a tier.  At TW < 32, `ran` adds the
-// iterations of every tier the hit ran.
+// The team copies faces 0..n-1 of one store into another, every field,
+// each lane its own faces: no barrier.  Rare (a carry into the pool), so
+// kept a word at a time: unrolled, its loads in flight would set the
+// kernel's registers.
+template <int TW>
+__device__ __forceinline__ void copy_faces(const PairFaces& from, const PairFaces& to, int n) {
+#pragma unroll 1
+  for (int k = 0; k < kFields; ++k) {
+#pragma unroll 1
+    for (int f = threadIdx.x & (TW - 1); f < n; f += TW) to.at(k, f) = from.at(k, f);
+  }
+}
+
+// epa_cascade_warp's ladder, its rows bit for bit, with the far tiers in a
+// pool slot, claimed when the ladder first reaches one.  A tier stopped by
+// free faces (kHitEpaFull) hands its `held` faces to the next one where
+// that has F' >= F and K' >= K (epa_tier_warp's kCarry), in the same store
+// or copied into the slot, and the team's lane 0 adds 1 to the pool's
+// carry counter; every other capacity exit restarts the next tier from
+// the simplex.  At TW < 32, `ran` adds the iterations the hit ran.
 template <int TW, class Support>
 __device__ __forceinline__ TierOut k2_ladder(const Support& support, const P3* s,
                                              const Tiers& tiers, const PairFaces& near,
                                              const SlotPool& pool, WarpScratch& ws,
                                              const EpaParams& prm, int* tally, int& ran) {
   const P3 interior = mean4(s);
+  const bool lead = (threadIdx.x & (TW - 1)) == 0;
   TierOut r;
-  r.status = kHitEpaCapacity;
-  int slot = -1, t = 0;
-  for (; t < tiers.n && r.status == kHitEpaCapacity; ++t) {
+  int slot = -1, t = 0, held = 0;
+  for (;; ++t) {
     const int F = tiers.faces[t], K = tiers.kvis[t];
+    const int resume = held > 0 ? r.iters - 1 : 0;  // the stopped iteration runs again
     if (F <= near.f_max) {
-      r = epa_tier_warp<TW>(support, s, interior, F, K, near, ws, prm);
+      r = epa_tier_warp<TW, true>(support, s, interior, F, K, near, ws, prm, held, resume);
     } else {
       if (slot < 0) slot = claim_slot<TW>(pool);
       const PairFaces far = {pool.faces + (size_t)slot * kFields * pool.f_max, pool.f_max};
-      r = epa_tier_warp<TW>(support, s, interior, F, K, far, ws, prm);
+      if (held > 0 && held <= near.f_max) copy_faces<TW>(near, far, held);
+      r = epa_tier_warp<TW, true>(support, s, interior, F, K, far, ws, prm, held, resume);
     }
-    if constexpr (TW < kWarp) ran += r.iters;
+    if constexpr (TW < kWarp) ran += r.iters - resume;
+    const bool full = r.status == kHitEpaFull;
+    if (full) r.status = kHitEpaCapacity;
+    if (r.status != kHitEpaCapacity || t + 1 == tiers.n) break;
+    held = full && tiers.faces[t + 1] >= F && tiers.kvis[t + 1] >= K ? F : 0;
+    if (lead && held > 0) atomicAdd(reinterpret_cast<int*>(pool.mask) - 1, 1);
   }
   if (slot >= 0) release_slot<TW>(pool, slot);
-  if (tally != nullptr && (threadIdx.x & (TW - 1)) == 0) {
-    atomicAdd(tally + t - 1, 1);
+  if (tally != nullptr && lead) {
+    atomicAdd(tally + t, 1);
     if (slot >= 0) atomicAdd(tally + kTallyClaims, 1);
   }
   return r;
@@ -339,16 +368,16 @@ extern "C" int epa_hulls_device(int team, int* facts) {
 // C interface, bound with ctypes.  Teams of `team` lanes (16 or 32), one
 // hit a team.  A tier of at most `near_faces` faces runs in shared memory,
 // a larger one in a slot of the pool `pool_faces` (slots, fields,
-// far_faces) float32 with `pool_mask` int32 (SM ids, ceil(pool_per_sm /
-// 32)) zeroed, preceded by the int32 claim counter (both null when no tier
-// needs them).  `tally`, when not null,
+// far_faces) float32 (null when no tier needs it) with `pool_mask` int32
+// (SM ids, ceil(pool_per_sm / 32)) zeroed, preceded by the int32 claim and
+// carry counters (never null).  `tally`, when not null,
 // is int32 (MAX_TIERS + 3): each hit adds one to the tier it finished in,
 // and one to entry MAX_TIERS if it took a slot; at team 16, each warp adds
 // its hits' EPA iterations to entry MAX_TIERS + 1 and its longer team's to
 // MAX_TIERS + 2.  Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for a tier ladder the kernel does not hold, a tier
-// in neither store, a block past the device's shared memory or a team
-// width K2 is not built for; the launch is asynchronous on `stream`.
+// cudaErrorInvalidValue for a tier ladder the kernel does not hold, no
+// counters, a tier in neither store, a block past the device's shared
+// memory or a team width K2 is not built for; the launch is asynchronous on `stream`.
 extern "C" int epa_hulls_launch(const void* p1, const void* p2, const void* simplex,
                                 const void* order, const void* n_act, void* depth, void* normal,
                                 void* iters, void* status, void* pool_faces, void* pool_mask,
@@ -363,7 +392,8 @@ extern "C" int epa_hulls_launch(const void* p1, const void* p2, const void* simp
   const int f_max = near_faces > far_faces ? near_faces : far_faces;
   const int rc = make_tiers(n_tiers, tier_faces, tier_kvis, f_max, epa_max_iters, &tiers);
   if (rc != 0) return rc;
-  const bool pooled = pool_faces != nullptr && pool_mask != nullptr && pool_per_sm > 0;
+  if (pool_mask == nullptr) return (int)cudaErrorInvalidValue;
+  const bool pooled = pool_faces != nullptr && pool_per_sm > 0;
   for (int t = 0; t < tiers.n; ++t) {
     if (tiers.faces[t] > near_faces && !pooled) return (int)cudaErrorInvalidValue;
   }

@@ -17,11 +17,13 @@
 // A face store (PairFaces) is one pair's polytope, [field][face] with
 // f_max faces a field, 17 words a face (epa_core.cuh Field): 14,144 B at
 // the default ladder's F = 208, in shared memory or, for a face capacity
-// whose store does not fit there, in device memory.  The tiers restart from
-// the GJK simplex, so a later tier may keep its faces in another store
-// without changing any result.  Lane t of the team owns faces t, t + TW,
-// ...: it alone writes them, and the others read them only after a
-// __syncwarp of the team.  Each EPA iteration:
+// whose store does not fit there, in device memory.  In epa_cascade_warp
+// (K7, K10, K13) each tier restarts from the GJK simplex, so a later tier
+// may keep its faces in another store without changing any result; K2's
+// ladder (epa_hulls.cu) carries a tier stopped by free faces into the next
+// one where that gives the same rows (kCarry).  Lane t of the team owns
+// faces t, t + TW, ...: it alone writes them, and the others read them
+// only after a __syncwarp of the team.  Each EPA iteration:
 //
 //   min face    each lane folds its faces' distances (dead: kBig) with
 //               strict <, then log2(TW) xor shuffles keep the smaller value
@@ -76,6 +78,11 @@ struct WarpScratch {
   int hor[3 * kKMax];    // horizon rows, in row order
 };
 
+// kCarry's capacity exit by free faces with every least distance at most
+// kBig: K2's ladder takes the polytope up from it (epa_tier_warp), and
+// turns it back into kHitEpaCapacity; never in a row.
+constexpr int kHitEpaFull = 7;
+
 // WarpScratch in 32-bit words, and one team's shared memory in the kernels
 // that give each team its own pair (K2, K7, K10): its scratch, then a face
 // store of `faces` faces.
@@ -99,10 +106,23 @@ __device__ __forceinline__ unsigned team_ballot(unsigned mask, bool p) {
 
 // One tier of compact-visible EPA (_epa_phase_fast) for one pair, run by a
 // whole team of TW lanes over one face store.
-template <int TW = kWarp, class Support>
+//
+// kCarry (K2's ladder) returns kHitEpaFull at a stop by free faces where no
+// least distance lay above kBig, and, given `held` > 0 faces, takes up the
+// polytope of the tier before it in place of the seed: that tier stopped
+// so at iteration `resume` + 1, its `held` faces in `fs` as they were,
+// visible marks aside, at that iteration's start.  A tier of F >= held
+// faces run from the simplex reaches that same state with its faces past
+// `held` dead: they come last, so no first minimum (none lay above kBig),
+// visible set, horizon or r-th free face differs.  So the visible marks
+// are cleared, the faces past `held` die, and the loop runs that iteration
+// again with more free faces, bit for bit the larger tier's rows.  At the
+// top of each iteration nv is 4 + out.iters, so `resume` gives both.
+template <int TW = kWarp, bool kCarry = false, class Support>
 __device__ __forceinline__ TierOut epa_tier_warp(const Support& support, const P3* s,
                                                  P3 interior, int F, int K, const PairFaces& fs,
-                                                 WarpScratch& ws, const EpaParams& prm) {
+                                                 WarpScratch& ws, const EpaParams& prm,
+                                                 int held = 0, int resume = 0) {
   const float eps = prm.eps, epz = prm.epz;
   const unsigned mask = team_mask<TW>();
   const int lane = threadIdx.x & (TW - 1);
@@ -110,14 +130,25 @@ __device__ __forceinline__ TierOut epa_tier_warp(const Support& support, const P
   // seed: the 4 simplex faces (ref :279-293), each by its owner
   __syncwarp(mask);  // a previous tier's reads of the store are done
   const int seed[4][3] = {{0, 1, 2}, {0, 2, 3}, {0, 1, 3}, {1, 2, 3}};
+  bool seeded = true;
+  int from = 4;  // the first face to die
+  if constexpr (kCarry) {
+    seeded = held == 0;
+    if (!seeded) {
+      from = held;
+      for (int f = lane; f < from; f += TW) {
+        if (fs.at(ALIVE, f) == kVisible) fs.at(ALIVE, f) = kAlive;
+      }
+    }
+  }
 #pragma unroll
   for (int f = 0; f < 4; ++f) {
-    if (lane == f) {
+    if (lane == f && seeded) {
       write_face(fs, f, s[seed[f][0]], s[seed[f][1]], s[seed[f][2]], seed[f][0], seed[f][1],
                  seed[f][2], interior, epz);
     }
   }
-  for (int f = 4 + lane; f < F; f += TW) fs.at(ALIVE, f) = kDead;
+  for (int f = from + lane; f < F; f += TW) fs.at(ALIVE, f) = kDead;
 
   TierOut out;
   out.depth = 0.0f;
@@ -125,6 +156,11 @@ __device__ __forceinline__ TierOut epa_tier_warp(const Support& support, const P
   out.iters = 0;
   out.status = kHitEpaCap;
   int nv = 4;
+  [[maybe_unused]] bool odd = false;
+  if constexpr (kCarry) {
+    out.iters = resume;
+    nv = 4 + resume;
+  }
 
   while (out.iters < prm.max_iters) {
     __syncwarp(mask);  // the faces written last (seed or new faces) before any read
@@ -149,6 +185,7 @@ __device__ __forceinline__ TierOut epa_tier_warp(const Support& support, const P
     }
     d_min = __shfl_sync(mask, d_min, 0, TW);
     kmin = __shfl_sync(mask, kmin, 0, TW);
+    if constexpr (kCarry) odd = odd || !(d_min <= kBig);
     if (kmin == INT_MAX) {  // no face below +inf: every distance is NaN
       kmin = 0;
       d_min = fs.at(ALIVE, 0) != kDead ? fs.at(DD, 0) : kBig;
@@ -236,6 +273,9 @@ __device__ __forceinline__ TierOut epa_tier_warp(const Support& support, const P
     }
     if (n_new > n_free) {
       out.status = kHitEpaCapacity;
+      if constexpr (kCarry) {
+        if (!odd) out.status = kHitEpaFull;
+      }
       return out;
     }
     if (n_new == 0 || all_deg) {

@@ -24,9 +24,12 @@ registers (:func:`k2_resident_hits`), a 16-lane team keeps 48 faces in
 shared memory and pools 88 and 208, a 32-lane team keeps 48 and 88.
 :data:`TALLY`, set by :func:`k2_tally`, counts the hits that finish in
 each tier and the pool's claims, and at 16 lanes the iterations that give
-the pairing's efficiency (:func:`k2_pairing`); the pool's own counter,
-which each claim adds to, counts the claims on the main path too
-(:func:`pool_claims`).  K13
+the pairing's efficiency (:func:`k2_pairing`); the pool's own counters
+count, on the main path too, its claims (:func:`pool_claims`) and the
+tiers K2's ladder carried a polytope into (:func:`tier_carries`): where a
+tier stops for capacity by free faces, the next one goes on from its
+polytope wherever the plain ladder's restart would repeat its iterations
+bit for bit.  K13
 (``fused_streamed.epa_hulls_big``) keeps its own rule: each tier in shared
 memory where its store fits in a block (:func:`near_store_faces`), else in
 a device store one a hit (:func:`face_stores`), sized by the one host read
@@ -57,8 +60,8 @@ __all__ = ["EPARows", "epa_cascade", "epa_cascade_plain", "epa_phase",
            "far_store_faces", "face_stores", "K2Device", "k2_device",
            "k2_near_faces", "k2_pool", "k2_resident_hits", "k2_tally",
            "k2_pairing", "k2_smem_bytes", "k2_team", "pool_claims",
-           "LAUNCHES", "LAUNCHES_BY_TEAM", "STORE_READS", "TALLY",
-           "NARROW_VERTICES"]
+           "tier_carries", "LAUNCHES", "LAUNCHES_BY_TEAM", "STORE_READS",
+           "TALLY", "NARROW_VERTICES", "BY_VISIBLE", "BY_FREE"]
 
 # Kernel launches made by epa_cascade (CUDA tensors only), and the same by
 # the lanes of a hit's team.
@@ -80,6 +83,9 @@ MAX_TIERS = 4
 # The tally's entries past the tiers' counts (epa_hulls.cu kTally*).
 TALLY_CLAIMS, TALLY_ITERS, TALLY_LONGER = (MAX_TIERS, MAX_TIERS + 1,
                                            MAX_TIERS + 2)
+# What stopped a tier for capacity (epa_phase's cause): more visible faces
+# than its K, or more horizon edges than free faces.
+BY_VISIBLE, BY_FREE = 1, 2
 # Hulls of at most this many vertices a side take 16 lanes a hit: 16
 # 4-vertex groups, one probe pass on 16 lanes as on 32.
 NARROW_VERTICES = 64
@@ -175,14 +181,18 @@ def k2_near_faces(stages, smem_bytes, blocks: int, sm_bytes: int,
 
 
 _POOLS: dict = {}
+# The words before a pool's masks: its claims, then its carries.
+_CLAIMS, _CARRIES, _HEADER = 0, 1, 2
 
 
 def k2_pool(dev: torch.device, far_faces: int, facts: K2Device):
     """K2's pool for tiers of up to ``far_faces`` faces on ``dev``: (faces,
     mask), faces (slots, fields, far_faces) float32 with ``facts.slots``
-    slots for each of ``facts.sm_ids`` SM ids, mask int32 (SM ids,
-    ceil(slots / 32)) zeroed, a set bit a slot a team holds, preceded by
-    the pool's claim counter, one int32 word (:func:`pool_claims`).  The
+    slots for each of ``facts.sm_ids`` SM ids (None at ``far_faces`` 0,
+    where no tier is pooled), mask int32 (SM ids, ceil(slots / 32))
+    zeroed, a set bit a slot a team holds, preceded by two int32 words,
+    the pool's claim counter (:func:`pool_claims`) and its carry counter
+    (:func:`tier_carries`), which every K2 launch is handed.  The
     slots are the same at either width, so both share one pool.  Made once
     a device and size, then the card waits for the zeroed mask, so that a
     launch on any stream finds it; nothing in it depends on the batch or
@@ -190,25 +200,42 @@ def k2_pool(dev: torch.device, far_faces: int, facts: K2Device):
     key = (dev, far_faces, facts.slots, facts.sm_ids)
     if key not in _POOLS:
         words = _build.load().epa_scratch_words_per_face()
-        faces = torch.empty((facts.sm_ids * facts.slots, words, far_faces),
-                            dtype=torch.float32, device=dev)
+        faces = (torch.empty((facts.sm_ids * facts.slots, words, far_faces),
+                             dtype=torch.float32, device=dev)
+                 if far_faces else None)
         mask_words = facts.sm_ids * -(-facts.slots // 32)
-        counted = torch.zeros(1 + mask_words, dtype=torch.int32, device=dev)
+        counted = torch.zeros(_HEADER + mask_words, dtype=torch.int32,
+                              device=dev)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        _POOLS[key] = (faces, counted[1:].view(facts.sm_ids, -1))
+        _POOLS[key] = (faces, counted[_HEADER:].view(facts.sm_ids, -1))
     return _POOLS[key]
+
+
+def _pool_counter(word: int, dev: torch.device | None) -> int:
+    """Word ``word`` of the header of each pool on ``dev`` (every device
+    for None), summed: a host read."""
+    return sum(int(mask.as_strided((1,), (1,), word))
+               for key, (_, mask) in _POOLS.items()
+               if dev is None or key[0] == dev)
 
 
 def pool_claims(dev: torch.device | None = None) -> int:
     """The slots K2's teams have claimed in the pools on ``dev`` (every
     device for None) since each was made: the counter each claim adds to
-    on the card, the word before the pool's masks in their storage (the
-    kernel's ``mask[-1]``).  A host read, so for readers after the fact;
-    the main path never takes it."""
-    return sum(int(mask.as_strided((1,), (1,), 0))
-               for key, (_, mask) in _POOLS.items()
-               if dev is None or key[0] == dev)
+    on the card, the first word before the pool's masks in their storage
+    (the kernel's ``mask[-2]``).  A host read, so for readers after the
+    fact; the main path never takes it."""
+    return _pool_counter(_CLAIMS, dev)
+
+
+def tier_carries(dev: torch.device | None = None) -> int:
+    """The tiers K2's ladder has carried a polytope into on ``dev``
+    (every device for None) since each pool was made: the counter each
+    team adds them to on the card, the word just before the pool's masks
+    (the kernel's ``mask[-1]``), handed to every K2 launch.  A host read,
+    as :func:`pool_claims`."""
+    return _pool_counter(_CARRIES, dev)
 
 
 def k2_smem_bytes(team: int):
@@ -289,12 +316,15 @@ _SEED_FACES = ((0, 1, 2), (0, 2, 3), (0, 1, 3), (1, 2, 3))   # ref :279-293
 
 
 def epa_phase(support, simplex, active, cfg: GJKEPAConfig, n_faces: int,
-              k_vis: int):
+              k_vis: int, cause: bool = False):
     """Compact-visible EPA over (A,) lanes; one cascade tier.
 
     `support` maps a P3 of (A,) directions to the Minkowski support P3.
     Face state is (A, F): corner coordinates (9), corner vertex ids (3),
-    plane (n, d) and alive.  Returns (depth, normal P3, iters, status)."""
+    plane (n, d) and alive.  Returns (depth, normal P3, iters, status),
+    and with ``cause`` what stopped each lane for capacity, (A,) int32: 0
+    nothing, :data:`BY_VISIBLE` more than K visible faces, :data:`BY_FREE`
+    more horizon edges than free faces (K2's ladder carries these on)."""
     eps = cfg.eps_coincide
     epz = cfg.eps_zero
     F, K = n_faces, k_vis
@@ -332,6 +362,7 @@ def epa_phase(support, simplex, active, cfg: GJKEPAConfig, n_faces: int,
     nout = pzero_like(depth)
     status = torch.full((n_lanes,), Status.HIT_EPA_CAP, dtype=torch.int32,
                         device=dev)
+    why = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
 
     while True:
         run = ~done & (it < cfg.epa_max_iters)
@@ -431,11 +462,16 @@ def epa_phase(support, simplex, active, cfg: GJKEPAConfig, n_faces: int,
         status = torch.where(run & converged, Status.HIT, status)
         status = torch.where(run & cant_deg, Status.HIT_EPA_DEGENERATE, status)
         status = torch.where(run & cant_cap, Status.HIT_EPA_CAPACITY, status)
+        if cause:
+            why = torch.where(run & cant_cap, torch.where(
+                over_k, BY_VISIBLE, BY_FREE).to(torch.int32), why)
 
     zero = torch.zeros_like(depth)
     depth = torch.where(active, depth, zero)
     nout = pwhere(active, nout, pzero_like(zero))
     status = torch.where(active, status, 0)
+    if cause:
+        return depth, nout, it, status, torch.where(active, why, 0)
     return depth, nout, it, status
 
 
@@ -560,8 +596,7 @@ def _epa_cascade_cuda(p1, p2, simplex, gjk_status, order, n_act, stages,
                                    facts.blocks, facts.sm_bytes,
                                    facts.reserve)
     far_faces = far_store_faces(stages, near_faces)
-    faces, mask = (k2_pool(dev, far_faces, facts) if far_faces
-                   else (None, None))
+    faces, mask = k2_pool(dev, far_faces, facts)
     tally = TALLY if TALLY is not None and TALLY.device == dev else None
     tier_f = (ctypes.c_int * MAX_TIERS)(*[c.epa_max_faces for c, _ in stages])
     tier_k = (ctypes.c_int * MAX_TIERS)(*[k for _, k in stages])
@@ -572,8 +607,7 @@ def _epa_cascade_cuda(p1, p2, simplex, gjk_status, order, n_act, stages,
         rc = lib.epa_hulls_launch(
             ptr(p1), ptr(p2), ptr(simplex), ptr(order), ptr(n_act),
             ptr(out.depth), ptr(out.normal), ptr(out.iters), ptr(out.status),
-            None if faces is None else ptr(faces),
-            None if mask is None else ptr(mask),
+            None if faces is None else ptr(faces), ptr(mask),
             None if tally is None else ptr(tally), b, n1, n2, len(stages),
             tier_f, tier_k, near_faces, far_faces, facts.slots, team,
             cfg.eps_coincide, cfg.eps_zero, cfg.epa_max_iters,

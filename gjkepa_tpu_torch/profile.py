@@ -58,7 +58,9 @@ a hit's team (``fused_epa.LAUNCHES_BY_TEAM``) and its tally
 (``fused_epa.k2_tally``: the hits that finished in each tier of its ladder,
 the share that took a slot of its device pool, and at 16 lanes the
 pairing's efficiency, ``fused_epa.k2_pairing``) beside the claims the
-pool's own counter took in the same call (``fused_epa.pool_claims``),
+pool's own counter took in the same call (``fused_epa.pool_claims``) and
+the tiers its ladder carried a polytope into
+(``fused_epa.tier_carries``),
 with the hits' mean and largest EPA iteration count (from the rows), then
 a line
 a program span (``gjkepa.*``, ``spans.py``: each
@@ -257,11 +259,13 @@ def profile_path(name, fn, card) -> None:
     k2 = {t: n - k2[t] for t, n in fused_epa.LAUNCHES_BY_TEAM.items()}
     dev = torch.device("cuda", torch.cuda.current_device())
     counted = fused_epa.pool_claims(dev)
+    carried = fused_epa.tier_carries(dev)
     with fused_epa.k2_tally(dev) as tally:
         out = fn()
         torch.cuda.synchronize()
     tally = tally.tolist()
     counted = fused_epa.pool_claims(dev) - counted
+    carried = fused_epa.tier_carries(dev) - carried
     events = prof.events()
     kernels = device_ops(events)
     device_ms = (sum(e.time_range.elapsed_us() for e in kernels) / 1e3
@@ -291,7 +295,7 @@ def profile_path(name, fn, card) -> None:
         print(f"  {name} K2 tally, one call: {hits} hits, finished by tier "
               f"{tiers}; {claims} took a pool slot "
               f"({100.0 * claims / hits:.3f}% of hits; the pool's counter "
-              f"{counted}); pairing "
+              f"{counted}); {carried} tiers carried into; pairing "
               + ("n/a (no 16-lane hit)" if pairing is None else
                  f"{pairing:.4f} ({tally[fused_epa.TALLY_ITERS]} EPA "
                  f"iterations, {tally[fused_epa.TALLY_LONGER]} of the "

@@ -215,9 +215,11 @@ def test_reference_imports_nothing_of_the_program():
 
 
 def test_pool_keeps_its_claim_counter_before_the_masks(monkeypatch):
-    """K2's pool (a stand-in library's facts, no card): one int32 word
-    before the slot masks, zeroed with them, which ``pool_claims`` reads
-    summed over the device's pools."""
+    """K2's pool (a stand-in library's facts, no card): two int32 words
+    before the slot masks, zeroed with them, the claim counter the kernel
+    adds to at ``mask[-2]``, which ``pool_claims`` reads, and the carry
+    counter at ``mask[-1]``, which ``tier_carries`` reads, each summed over
+    the device's pools."""
     library = types.SimpleNamespace(epa_scratch_words_per_face=lambda: 17)
     monkeypatch.setattr(fused_epa._build, "load", lambda: library)
     monkeypatch.setattr(fused_epa, "_POOLS", {})
@@ -226,14 +228,41 @@ def test_pool_keeps_its_claim_counter_before_the_masks(monkeypatch):
                                reserve=1024, slots=64, sm_ids=132)
     faces, mask = fused_epa.k2_pool(cpu, 208, facts)
     assert mask.shape == (132, 2) and not mask.any()
-    assert fused_epa.pool_claims(cpu) == 0
+    assert fused_epa.pool_claims(cpu) == fused_epa.tier_carries(cpu) == 0
     counter = mask.as_strided((1,), (1,), 0)
-    assert mask.data_ptr() == counter.data_ptr() + 4
-    assert mask.untyped_storage().nbytes() == 4 * (1 + mask.numel())
+    carries = mask.as_strided((1,), (1,), 1)
+    assert mask.data_ptr() == counter.data_ptr() + 8
+    assert mask.data_ptr() == carries.data_ptr() + 4
+    assert mask.untyped_storage().nbytes() == 4 * (2 + mask.numel())
     counter += 5
+    carries += 7
     assert fused_epa.pool_claims(cpu) == fused_epa.pool_claims() == 5
+    assert fused_epa.tier_carries(cpu) == fused_epa.tier_carries() == 7
     assert fused_epa.k2_pool(cpu, 208, facts)[1] is mask
     assert fused_epa.pool_claims(torch.device("cuda", 0)) == 0
+    assert fused_epa.tier_carries(torch.device("cuda", 0)) == 0
+
+
+def test_pool_without_pooled_tiers_keeps_its_counters(monkeypatch):
+    """Where every tier stays in shared memory (``far_faces`` 0), K2's
+    pool has no face store but keeps its masks and both counters, so that
+    every launch counts its carries; the counters add to those of the
+    device's other pools."""
+    library = types.SimpleNamespace(epa_scratch_words_per_face=lambda: 17)
+    monkeypatch.setattr(fused_epa._build, "load", lambda: library)
+    monkeypatch.setattr(fused_epa, "_POOLS", {})
+    cpu = torch.device("cpu")
+    facts = fused_epa.K2Device(blocks=16, hits=1, sm_bytes=233472,
+                               reserve=1024, slots=64, sm_ids=132)
+    faces, mask = fused_epa.k2_pool(cpu, 0, facts)
+    assert faces is None
+    assert mask.shape == (132, 2) and not mask.any()
+    assert mask.untyped_storage().nbytes() == 4 * (2 + mask.numel())
+    mask.as_strided((1,), (1,), 1).add_(3)
+    other = fused_epa.k2_pool(cpu, 208, facts)[1]
+    other.as_strided((1,), (1,), 1).add_(4)
+    assert fused_epa.tier_carries(cpu) == 7
+    assert fused_epa.pool_claims(cpu) == 0
 
 
 K2_32 = ("void gjkepa::(anonymous namespace)::epa_hulls_kernel<32>(float "
@@ -292,6 +321,22 @@ def test_k2_pool_claims_per_call(monkeypatch):
     monkeypatch.setattr(fused_epa, "LAUNCHES_BY_TEAM", {16: 2, 32: 8})
     monkeypatch.delattr(fused_epa, "pool_claims")
     assert _read("k2_pool_claims_per_call", view) is None
+
+
+def test_k2_carries_per_call(monkeypatch):
+    """The pool's carry counter over K2's launches, both over the process;
+    None without device operations or K2 launches, and for a program
+    without the counter (the parent of the carry)."""
+    monkeypatch.setattr(fused_epa, "LAUNCHES_BY_TEAM", {16: 2, 32: 8})
+    monkeypatch.setattr(fused_epa, "tier_carries", lambda dev=None: 285000)
+    view = _view([(K2_32, 0, 50)])
+    assert _read("k2_carries_per_call", view) == 28500.0
+    assert _read("k2_carries_per_call", _view([])) is None
+    monkeypatch.setattr(fused_epa, "LAUNCHES_BY_TEAM", {16: 0, 32: 0})
+    assert _read("k2_carries_per_call", view) is None
+    monkeypatch.setattr(fused_epa, "LAUNCHES_BY_TEAM", {16: 2, 32: 8})
+    monkeypatch.delattr(fused_epa, "tier_carries")
+    assert _read("k2_carries_per_call", view) is None
 
 
 def _card():

@@ -315,15 +315,17 @@ def test_k2_team_by_the_hulls_sizes(k2_library, n1, n2, team):
 
 def _pool_passed(lib, blocks, near, n):
     """Whether K2's launch over ``n``-vertex hulls at ``blocks`` blocks an
-    SM (and ``near`` faces forced, or the rule's) was handed the pool."""
+    SM (and ``near`` faces forced, or the rule's) was handed the pool's
+    face store; it is handed the pool's masks and counters either way."""
     lib.facts = H100_K2._replace(blocks=blocks)
     stages = cascade_plan(GJKEPAConfig.for_f32())
     fused_epa._epa_cascade_cuda(*_k2_inputs(32, 32, n), stages,
                                 near_faces=near)
     (args,) = lib.launches
     pooled = args[POOL_FACES] is not None
-    assert (args[POOL_MASK] is not None) == pooled
-    assert len(fused_epa._POOLS) == int(pooled)
+    ((faces, mask),) = fused_epa._POOLS.values()
+    assert args[POOL_MASK].value == mask.data_ptr()
+    assert (faces is not None) == pooled
     assert args[FAR] == (208 if pooled else 0)
     return pooled
 
@@ -333,9 +335,10 @@ def _pool_passed(lib, blocks, near, n):
     (1, 48, True)])
 def test_k2_pool_only_where_a_tier_needs_it(k2_library, blocks, near,
                                             pooled):
-    """No pool is made or passed while every tier fits in K2's share of
-    shared memory (the rule at 14 one-hit blocks an SM at 32 lanes, or a
-    store of 208 faces forced); a tier past it passes the pool."""
+    """No face store is made or passed while every tier fits in K2's share
+    of shared memory (the rule at 14 one-hit blocks an SM at 32 lanes, or
+    a store of 208 faces forced), only the pool's masks and counters; a
+    tier past it passes the pool's face store too."""
     assert _pool_passed(k2_library(H100_K2), blocks, near, 96) == pooled
 
 
